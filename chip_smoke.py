@@ -1,0 +1,651 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (ray_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with a CUDA card and nvcc.  It
+builds the port's kernels from ``ray_tpu_torch/csrc``, holds each against its
+plain PyTorch version on the card, times them, checks exact greedy serving
+on a narrow fp32 model, then serves ``llama_1b`` at full width and depth
+(random weights from a seeded generator) through the port's entry points and
+shows, by the kernels' launch counts, that the serving path ran through them.
+Each phase prints one JSON line; any failed check raises and the script exits
+non-zero.  The last line is ``{"ok": true, "device": {...}}``.
+
+Without a card (or outside a checkout) it exits non-zero and prints no
+result.  It imports neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import re
+import sys
+import threading
+import time
+import traceback
+import warnings
+
+import numpy as np
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+FLASH_SOURCE = "ray_tpu_torch/csrc/flash_fwd.cu"
+FLASH_REPLACES = "ray_tpu/ops/attention.py:98"         # _fwd_kernel
+PAGED_SOURCE = "ray_tpu_torch/csrc/paged_decode.cu"
+PAGED_REPLACES = "ray_tpu/ops/paged_attention.py:65"   # _ragged_path
+# Stated tolerances (max abs error against the plain version, same inputs):
+# fp32 sums in another order and exp2 vs exp; bf16 rounds P and O to bf16
+# (one ulp of bf16 at |x| ~ 2 is 2**-6).
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# llama_1b logits, kernel path vs plain path, teacher-forced: bf16 attention
+# outputs differ by rounding and the difference compounds over 16 layers;
+# the logits themselves have a std of about 1.
+TOL_1B_LOGITS = 0.1
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls, from
+    CUDA events after ``warmup`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
+
+
+# ---------------------------------------------------------------- phases
+
+def phase_device():
+    import torch
+    from ray_tpu_torch._device import card_power_line
+    check(torch.cuda.is_available(), "no CUDA device visible")
+    smi = card_power_line(0)
+    check(smi is not None, "nvidia-smi did not report the card")
+    print(smi, flush=True)
+    info = {"phase": "device", "name": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(), "torch": torch.__version__,
+            "cuda": torch.version.cuda, "nvidia_smi": smi}
+    emit(info)
+    return info
+
+
+KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel",
+                "paged_decode_kernel")
+
+
+def _ptxas_summary(lines):
+    """nvcc -Xptxas -v output -> one "kernel<args>: regs, smem, spills"
+    string per compiled kernel."""
+    out, cur = [], None
+    for ln in lines:
+        m = re.search(r"entry function '(\S+)'", ln)
+        if m:
+            mangled = m.group(1)
+            name = next((k for k in KERNEL_NAMES if k + "I" in mangled),
+                        mangled)
+            args = re.findall(r"Li(\d+)E", mangled)
+            if "bfloat16" in mangled:
+                args.insert(0, "bf16")
+            elif "_kernelIf" in mangled:
+                args.insert(0, "f32")
+            cur = {"kernel": f"{name}<{','.join(args)}>"}
+            out.append(cur)
+        elif cur is not None:
+            for key, pat in (("regs", r"Used (\d+) registers"),
+                             ("smem", r"(\d+) bytes smem"),
+                             ("spill_stores", r"(\d+) bytes spill stores")):
+                m = re.search(pat, ln)
+                if m:
+                    cur[key] = int(m.group(1))
+    return [f"{k['kernel']}: {k.get('regs')} regs, {k.get('smem', 0)} B "
+            f"static smem, {k.get('spill_stores', 0)} B spilled"
+            for k in out]
+
+
+def phase_build():
+    from ray_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build()
+    seconds = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": round(seconds, 2),
+          "cached": not _build.build_log,
+          "ptxas": _ptxas_summary(_build.ptxas_lines())})
+
+
+def _flash_inputs(B, H, Hkv, Sq, Sk, D, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    return rnd(B, H, Sq, D), rnd(B, Hkv, Sk, D), rnd(B, Hkv, Sk, D)
+
+
+def _paged_inputs(B, H, Hkv, D, page, lens, dtype, seed):
+    """kv_pages over shuffled pages, block tables naming each slot's pages,
+    int32 seq_lens."""
+    import torch
+    rng = np.random.default_rng(seed)
+    P = max(1, math.ceil(max(lens) / page))
+    NP = B * P + 1
+    perm = rng.permutation(np.arange(1, NP)).astype(np.int32)
+    bt = perm[:B * P].reshape(B, P)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kv = torch.randn(NP, page, 2 * Hkv, D, generator=g,
+                     device="cuda").to(dtype)
+    q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
+    return (q, kv, torch.from_numpy(bt).cuda(),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+def phase_kernel_check():
+    import torch
+    from ray_tpu_torch.ops.attention import (_scores, flash_fwd,
+                                             reference_attention)
+    from ray_tpu_torch.ops.paged_attention import _exact_path, paged_decode
+    results = {"flash": [], "paged": []}
+    failed = []
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (128, 64):
+            for S in (256, 1000, 2048):
+                for causal in (True, False):
+                    cases.append((1, 16, 8, S, S, D, dtype, causal, 0))
+        # q_offset: a query block that starts mid-sequence.
+        cases.append((1, 16, 8, 256, 1000, 128, dtype, True, 744))
+        cases.append((2, 16, 8, 1000, 2048, 64, dtype, True, 1048))
+    for i, (B, H, Hkv, Sq, Sk, D, dtype, causal, qo) in enumerate(cases):
+        q, k, v = _flash_inputs(B, H, Hkv, Sq, Sk, D, dtype, seed=i)
+        out, lse = flash_fwd(q, k, v, causal=causal, q_offset=qo,
+                             need_lse=True)
+        ref = reference_attention(q, k, v, causal=causal, q_offset=qo)
+        ref_lse = torch.logsumexp(
+            _scores(q, k, causal, 1.0 / math.sqrt(D), qo), dim=-1)
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[-1]
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        results["flash"].append({
+            "dtype": name, "B": B, "H": H, "Hkv": Hkv, "Sq": Sq, "Sk": Sk,
+            "D": D, "causal": causal, "q_offset": qo,
+            "max_abs_err": err, "lse_max_abs_err": lse_err,
+            "tol": TOL[name]})
+        if not (err <= TOL[name] and lse_err <= 1e-3):
+            failed.append(("flash_fwd", results["flash"][-1]))
+    rng = np.random.default_rng(0)
+    for j, (H, Hkv, D, dtype) in enumerate([
+            (16, 8, 128, torch.bfloat16), (16, 8, 128, torch.float32),
+            (8, 2, 64, torch.bfloat16), (8, 8, 64, torch.float32)]):
+        lens = rng.integers(1, 401, size=32).tolist()
+        lens[5] = 0                       # an inactive slot
+        q, kv, bt, sl = _paged_inputs(32, H, Hkv, D, 16, lens, dtype,
+                                      seed=100 + j)
+        out = paged_decode(q, kv, bt, sl, 16)
+        ref = _exact_path(q, kv, bt, sl, 16)
+        torch.cuda.synchronize()
+        live = sl > 0
+        name = str(dtype).split(".")[-1]
+        err = (out[live].float() - ref[live].float()).abs().max().item()
+        finite = bool(torch.isfinite(out[~live].float()).all().item())
+        results["paged"].append({
+            "dtype": name, "B": 32, "H": H, "Hkv": Hkv, "D": D,
+            "page": 16, "max_seq_len": max(lens), "max_abs_err": err,
+            "inactive_finite": finite, "tol": TOL[name]})
+        if not (err <= TOL[name] and finite):
+            failed.append(("paged_decode", results["paged"][-1]))
+    for kind in ("flash", "paged"):
+        emit({"phase": "kernel_check", "kernel": kind,
+              "cases": results[kind]})
+    check(not failed, f"kernels disagree with their plain versions: {failed}")
+
+
+def phase_kernel_time(smi):
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops.attention import flash_fwd, reference_attention
+    from ray_tpu_torch.ops.paged_attention import _exact_path, paged_decode
+    rows = {}
+    B, H, Hkv, D = 1, 16, 8, 128
+    for S in (256, 2048):
+        q, k, v = _flash_inputs(B, H, Hkv, S, S, D, torch.bfloat16, seed=7)
+        iters = 200 if S == 256 else 50
+        err = (flash_fwd(q, k, v, causal=True)[0].float() - reference_attention(
+            q, k, v, causal=True).float()).abs().max().item()
+        ms = time_ms(lambda: flash_fwd(q, k, v, causal=True), iters)
+        plain = time_ms(lambda: reference_attention(q, k, v, causal=True),
+                        max(5, iters // 10))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), iters)
+        pairs = S * (S + 1) // 2                  # causal (q, k) pairs
+        flops = 4 * B * H * D * pairs
+        nbytes = 2 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
+        rows[f"flash_fwd_S{S}"] = _timing_row(
+            "flash_fwd", {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D,
+                          "dtype": "bfloat16", "causal": True},
+            ms, plain, lib, flops, nbytes, err)
+    Bd, page = 32, 16
+    rng = np.random.default_rng(1)
+    lens = rng.integers(256, 385, size=Bd).tolist()
+    # Four copies of the cache (each ~50 MB) in turn: each launch reads its
+    # pages from device memory, not from the 50 MB L2, as a decode step
+    # does when it walks 16 layers' caches.
+    bufs = [_paged_inputs(Bd, H, Hkv, D, page, lens, torch.bfloat16,
+                          seed=200 + i) for i in range(4)]
+    turn = [0]
+
+    def run_paged():
+        q, kv, bt, sl = bufs[turn[0] % 4]
+        turn[0] += 1
+        return paged_decode(q, kv, bt, sl, page)
+
+    ms = time_ms(run_paged, 200)
+    q, kv, bt, sl = bufs[0]
+    err = (paged_decode(q, kv, bt, sl, page).float()
+           - _exact_path(q, kv, bt, sl, page).float()).abs().max().item()
+    plain = time_ms(lambda: _exact_path(q, kv, bt, sl, page), 20)
+    live = int(sum(lens))
+    flops = 4 * H * D * live
+    pages_read = sum(math.ceil(n / page) for n in lens)
+    nbytes = (live * 2 * Hkv * D * 2 + 2 * Bd * H * D * 2
+              + pages_read * 4 + Bd * 4)
+    rows["paged_decode"] = _timing_row(
+        "paged_decode", {"B": Bd, "H": H, "Hkv": Hkv, "D": D, "page": page,
+                         "seq_lens": [min(lens), max(lens)],
+                         "dtype": "bfloat16"},
+        ms, plain, None, flops, nbytes, err)
+    for row in rows.values():
+        emit(dict(row, phase="kernel_time", card=smi))
+    return rows
+
+
+def _timing_row(name, shape, ms, plain_ms, library_ms, flops, nbytes,
+                err):
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return {"kernel": name, "shape": shape, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def phase_serve_exact():
+    """Narrow fp32 model on the card: the engine's greedy streams through
+    both kernels equal a per-token full forward with the plain attention."""
+    import torch
+    from ray_tpu_torch.llm import InferenceEngine, SamplingParams
+    from ray_tpu_torch.models.llama import LlamaConfig, forward, init_params
+    cfg = LlamaConfig(vocab_size=512, hidden=256, layers=2, heads=4,
+                      kv_heads=2, head_dim=64, mlp_dim=512, max_seq_len=256,
+                      dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, device="cuda")
+    ref_cfg = cfg.replace(attention_impl="reference")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 512, size=n).tolist() for n in (5, 17, 40, 64)]
+    max_new = 12
+
+    def gold(prompt):
+        toks, out = list(prompt), []
+        for _ in range(max_new):
+            logits = forward(params, torch.tensor([toks], device="cuda"),
+                             ref_cfg)
+            nxt = int(logits[0, len(toks) - 1].argmax())
+            out.append(nxt)
+            toks.append(nxt)
+        return out
+
+    want = [gold(p) for p in prompts]
+    opts = dict(device="cuda", max_slots=2, page_size=16, num_pages=64,
+                prefill_buckets=(64,))
+    eng = InferenceEngine(params, cfg, **opts)
+    stepped = eng.generate(prompts, SamplingParams(max_tokens=max_new))
+    eng = InferenceEngine(params, cfg, **opts)
+    ids = [eng.add_request(p, SamplingParams(max_tokens=max_new))
+           for p in prompts]
+    done = {r.request_id: r.output_tokens for r in eng.run_pipelined(4)}
+    pipelined = [done[i] for i in ids]
+    emit({"phase": "serve_exact", "requests": len(prompts),
+          "tokens_each": max_new, "step_equal": stepped == want,
+          "pipelined_equal": pipelined == want})
+    check(stepped == want, f"step() streams {stepped} != gold {want}")
+    check(pipelined == want, f"run_pipelined streams {pipelined} != gold")
+
+
+def phase_serve(smi):
+    """llama_1b at full width and depth, served through the entry points a
+    user calls: InferenceEngine.run_pipelined, then LLMServer from threads."""
+    import torch
+    from ray_tpu_torch.llm import InferenceEngine, LLMServer, SamplingParams
+    from ray_tpu_torch.models.llama import init_params, llama_1b
+    from ray_tpu_torch.ops.attention import flash_fwd
+    from ray_tpu_torch.ops.paged_attention import paged_decode
+
+    cfg = llama_1b()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, param_dtype=torch.bfloat16,
+                         device="cuda")
+    n_req, prompt_len, max_new, page = 32, 256, 128, 16
+    opts = dict(device="cuda", max_slots=32, page_size=page,
+                prefill_buckets=(256,), record_token_times=True,
+                num_pages=n_req * math.ceil((prompt_len + max_new + 1)
+                                            / page) + 1)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=prompt_len).tolist()
+               for _ in range(n_req)]
+    eng = InferenceEngine(params, cfg, **opts)
+    # Warm the libraries (cuBLAS handles, allocator) outside the timed run.
+    eng.generate([prompts[0][:32]], SamplingParams(max_tokens=2))
+    torch.cuda.synchronize()
+
+    # -- the main path: launch counts read from this window only.
+    flash_fwd.launches = 0
+    paged_decode.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for p in prompts:
+        eng.add_request(p, SamplingParams(max_tokens=max_new))
+    t0 = time.perf_counter()
+    done = eng.run_pipelined(32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(done) == n_req and all(
+        len(r.output_tokens) == max_new and r.finish_reason == "length"
+        for r in done), "run_pipelined did not finish every request")
+
+    server = LLMServer(lambda: (params, cfg), dict(opts, max_slots=8))
+    try:
+        bodies = [{"prompt_tokens": rng.integers(0, cfg.vocab_size,
+                                                 size=n).tolist(),
+                   "max_tokens": 32} for n in (600, 100, 256, 31)]
+        results = [None] * len(bodies)
+
+        def call(i):
+            results[i] = server(bodies[i])
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        stream_body = {"prompt_tokens": prompts[1][:64], "max_tokens": 24}
+        streamed = list(server.stream(stream_body))
+        for t in threads:
+            t.join(timeout=300)
+        check(not any(t.is_alive() for t in threads),
+              "server calls did not return")
+    finally:
+        server.close()
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": flash_fwd.launches,
+                "paged_decode": paged_decode.launches}
+    peak = torch.cuda.max_memory_allocated()
+    # -- end of the main path.
+
+    for body, res in zip(bodies, results):
+        check(res is not None and len(res.get("output_tokens", ()))
+              == body["max_tokens"] and res["finish_reason"] == "length",
+              f"server call: {res}")
+    toks = [it["token"] for it in streamed if "token" in it]
+    check(len(toks) == stream_body["max_tokens"]
+          and streamed[-1].get("finish_reason") == "length",
+          f"stream: {streamed[-1]}")
+    check(launches["flash_fwd"] > 0 and launches["paged_decode"] > 0,
+          f"kernels not launched on the serving path: {launches}")
+
+    ttft = [r.t_first - r.t_submit for r in done]
+    itl = _token_gaps(done)
+    decode_start = max(r.t_first for r in done)
+    decode_tokens = sum(len(r.output_tokens) - 1 for r in done)
+    tf = _teacher_forced(params, cfg, prompts[0], page)
+    syncs = _chunk_syncs(params, cfg, prompts[2], page)
+    prof = _profile_chunk(params, cfg, eng, page)
+    emit({"phase": "serve", "model": "llama_1b", "card": smi,
+          "requests": n_req + len(bodies) + 1,
+          "pipelined": {"requests": n_req, "prompt_tokens": prompt_len,
+                        "new_tokens": max_new, "wall_s": wall,
+                        "gen_tok_s": n_req * max_new / wall,
+                        "decode_tok_s": decode_tokens
+                        / (t0 + wall - decode_start),
+                        "ttft_s_p50": pct(ttft, 50),
+                        "per_token_ms_p50": pct(itl, 50) * 1e3,
+                        "per_token_ms_p99": pct(itl, 99) * 1e3,
+                        "per_token_samples": len(itl)},
+          "server": {"calls": len(bodies), "stream_tokens": len(toks),
+                     "chunked_prompt_tokens": 600},
+          "launches": launches, "peak_mem_gb": peak / 2**30,
+          "teacher_forced": tf, "host_syncs_per_chunk": syncs,
+          "decode_profile": prof})
+    return launches
+
+
+def _token_gaps(reqs):
+    """Per-token latency samples after the first token: tokens that reach
+    the host together (one decode chunk) share the gap since the previous
+    delivery, split evenly among them."""
+    gaps = []
+    for r in reqs:
+        times = r.token_times
+        i = 1
+        while i < len(times):
+            j = i
+            while j < len(times) and times[j] == times[i]:
+                j += 1
+            gaps += [(times[i] - times[i - 1]) / (j - i)] * (j - i)
+            i = j
+    return gaps
+
+
+def _teacher_forced(params, cfg, prompt, page):
+    """Kernel path vs plain path on the same tokens: one prefill, then 8
+    decode steps fed the kernel path's greedy tokens."""
+    import torch
+    from ray_tpu_torch.llm import _model
+    ref_cfg = cfg.replace(attention_impl="reference")
+    toks = torch.tensor([prompt], device="cuda")
+    n, steps = len(prompt), 8
+    P = math.ceil((n + steps + 1) / page)
+    bt = torch.arange(1, P + 1, dtype=torch.int32, device="cuda")[None]
+    page_ids = bt[0].long()[torch.arange(n, device="cuda") // page]
+    offs = torch.arange(n, device="cuda") % page
+    state = {}
+    errs = []
+    for name, c in (("kernel", cfg), ("plain", ref_cfg)):
+        logits, ks, vs = _model.prefill(params, toks, n, c)
+        kv = tuple(torch.zeros((P + 1, page, 2 * cfg.kv_heads,
+                                cfg.head_dim), dtype=cfg.dtype,
+                               device="cuda") for _ in range(cfg.layers))
+        state[name] = [logits, _model.write_prefill(kv, ks, vs, page_ids,
+                                                    offs)]
+    errs.append((state["kernel"][0] - state["plain"][0]).abs().max().item())
+    tok = state["kernel"][0].argmax().view(1).to(torch.int32)
+    active = torch.ones(1, dtype=torch.bool, device="cuda")
+    for i in range(steps):
+        pos = torch.tensor([n + i], dtype=torch.int32, device="cuda")
+        out = {}
+        for name, c in (("kernel", cfg), ("plain", ref_cfg)):
+            out[name], state[name][1] = _model.decode_step(
+                params, state[name][1], tok, pos, bt, active, c, page)
+        errs.append((out["kernel"] - out["plain"]).abs().max().item())
+        tok = out["kernel"].argmax(dim=-1).to(torch.int32)
+    res = {"prefill_max_abs_err": errs[0],
+           "decode_max_abs_err": max(errs[1:]), "tol": TOL_1B_LOGITS}
+    check(max(errs) <= TOL_1B_LOGITS, f"llama_1b logits {res}")
+    return res
+
+
+def _chunk_syncs(params, cfg, prompt, page):
+    """Host syncs that torch's sync debug mode reports during one greedy
+    decode chunk of 8 steps, and with its readback."""
+    import torch
+    from ray_tpu_torch.llm import _model
+    n, steps = len(prompt), 8
+    P = math.ceil((n + steps + 1) / page)
+    kv = tuple(torch.zeros((P + 1, page, 2 * cfg.kv_heads, cfg.head_dim),
+                           dtype=cfg.dtype, device="cuda")
+               for _ in range(cfg.layers))
+    bt = torch.arange(1, P + 1, dtype=torch.int32, device="cuda")[None]
+    tok = torch.tensor([prompt[-1]], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([n], dtype=torch.int32, device="cuda")
+    active = torch.ones(1, dtype=torch.bool, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out, _pos, _kv = _model.decode_chunk(
+                params, kv, tok, pos, bt, active, gen, cfg, page, steps,
+                0.0, 0)
+            inside = _syncs(caught)
+            out.cpu()
+            total = _syncs(caught)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    res = {"steps": steps, "inside_chunk": len(inside),
+           "with_readback": len(total), "sites": sorted(set(total))}
+    if inside:
+        # Where the first one comes from: in "error" mode the sync raises
+        # at its call site.
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _model.decode_chunk(params, kv, tok, pos, bt, active, gen, cfg,
+                                page, steps, 0.0, 0)
+        except RuntimeError as exc:
+            res["first_sync_stack"] = [
+                f"{os.path.basename(f.filename)}:{f.lineno}:{f.name}"
+                for f in traceback.extract_tb(exc.__traceback__)][-6:]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return res
+
+
+def _syncs(caught):
+    """Call sites of the synchronizing operations among recorded warnings:
+    the sync debug mode's own message only (set_sync_debug_mode itself
+    warns that it is experimental, which is no sync)."""
+    return [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def _profile_chunk(params, cfg, eng, page):
+    """Where a decode chunk's time goes: 8 greedy steps over all 32 slots at
+    a depth of ~320 tokens, timed on the host clock, then once under
+    torch.profiler for device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ray_tpu_torch.llm import _model
+    B, steps, depth = eng.max_slots, 8, 320
+    P = math.ceil((depth + steps + 1) / page)
+    bt = torch.arange(1, B * P + 1, dtype=torch.int32,
+                      device="cuda").view(B, P)
+    tok = torch.zeros(B, dtype=torch.int32, device="cuda")
+    pos = torch.full((B,), depth, dtype=torch.int32, device="cuda")
+    active = torch.ones(B, dtype=torch.bool, device="cuda")
+
+    def run():
+        out, _p, _kv = _model.decode_chunk(
+            params, eng.kv_pages, tok, pos, bt, active, eng.generator, cfg,
+            page, steps, 0.0, 0)
+        return out.cpu()
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    by_kernel = {}
+    for ev in prof.key_averages():
+        # Kernel events only: an aten op's own entry repeats the device
+        # time of the kernels it launched.
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            by_kernel[ev.key] = (dev_us, ev.count)
+    busy_ms = sum(us for us, _n in by_kernel.values()) / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"slots": B, "steps": steps, "depth": depth,
+            "wall_ms_per_step": wall * 1e3 / steps,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "device_idle_share": (1 - busy_ms / (wall * 1e3)
+                                  if busy_ms else None),
+            "top_kernels_ms_per_step": [
+                [name[:48], round(us / 1e3 / steps, 4), n // steps]
+                for name, (us, n) in top]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; this script runs on the "
+              "card", file=sys.stderr)
+        return 1
+    try:
+        import ray_tpu_torch  # noqa: F401
+    except ImportError:
+        print("chip_smoke: run from the root of a checkout (ray_tpu_torch "
+              "not importable)", file=sys.stderr)
+        return 1
+    # fp32 matmuls and convolutions in full fp32 (no TF32) for the checks.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    info = phase_device()
+    smi = info["nvidia_smi"]
+    phase_build()
+    phase_kernel_check()
+    rows = phase_kernel_time(smi)
+    phase_serve_exact()
+    launches = phase_serve(smi)
+    kernels = []
+    for name, row, src, rep in (
+            ("flash_fwd", rows["flash_fwd_S256"], FLASH_SOURCE,
+             FLASH_REPLACES),
+            ("paged_decode", rows["paged_decode"], PAGED_SOURCE,
+             PAGED_REPLACES)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[name],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
+    emit({"kernels": kernels, "card": smi,
+          "seconds": time.perf_counter() - t_start})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,16 @@
+"""ray_tpu_torch — the PyTorch/CUDA port of ``ray_tpu`` for one NVIDIA H100.
+
+The JAX package ``ray_tpu`` is the reference this package is held to: module
+names mirror it (``ops/attention.py`` here ports ``ray_tpu/ops/attention.py``),
+parameters keep its layout, and every kernel that ``ray_tpu`` wrote in Pallas
+for the TPU is a CUDA C++ kernel written by hand for Hopper (``csrc/``).
+
+This package imports ``torch`` and never ``jax`` or anything of ``ray_tpu``;
+what it needs of the framework-free parts it keeps as its own copy.
+
+Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``; with
+no card visible and the CPU not asked for, they raise (``_device.py``).
+
+Slices ported so far: serving (``llm``: engine, paged cache, model forward
+passes; ``ops``: norms, rope, flash forward, paged decode; ``models.llama``).
+"""

@@ -1,0 +1,743 @@
+"""Batched inference engine: continuous batching over a paged KV cache
+(counterpart of ray_tpu/llm/engine.py).
+
+The host half is the JAX engine's, copied: FIFO admission into free slots,
+length-bucketed prefill, lazy page growth, recompute preemption of the
+youngest request, chunked prefill for long prompts, and ``run_pipelined``'s
+double-buffered chunks.  The device half is PyTorch: the KV cache is one
+combined page tensor per layer on ``device``, updated in place; decode runs
+``_model.decode_chunk`` (sampling on the device, one host sync per chunk)
+or ``_model.decode_step``; prefill runs ``_model.prefill`` through the flash
+kernel.  Telemetry (metrics, spans) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, resolve_device
+from ..models.llama import check_supported
+from . import _model
+from ._cache import PagePool
+
+
+@dataclass
+class SamplingParams:
+    max_tokens: int = 64
+    temperature: float = 0.0           # 0 = greedy
+    top_k: int = 0                     # 0 = full vocab
+    stop_token_ids: tuple = ()
+    seed: Optional[int] = None
+
+    @classmethod
+    def from_body(cls, body: Dict[str, Any]) -> "SamplingParams":
+        """The one request-body -> params parser every serving entry point
+        shares."""
+        return cls(
+            max_tokens=int(body.get("max_tokens", 64)),
+            temperature=float(body.get("temperature", 0.0)),
+            top_k=int(body.get("top_k", 0)),
+            stop_token_ids=tuple(body.get("stop_token_ids", ())))
+
+
+@dataclass
+class Request:
+    request_id: int
+    prompt_tokens: List[int]
+    params: SamplingParams
+    # Filled as the request progresses:
+    output_tokens: List[int] = field(default_factory=list)
+    slot: Optional[int] = None
+    pages: List[int] = field(default_factory=list)
+    finished: bool = False
+    finish_reason: str = ""
+    # Submission and first-token times (perf_counter) for TTFT.
+    t_submit: float = 0.0
+    t_first: float = 0.0
+    # Admission sequence (preemption picks the youngest victim; -1 = never
+    # admitted) and incarnation counter (bumped on preemption so in-flight
+    # chunk snapshots from the previous residency never apply to a
+    # re-admitted request).
+    admit_seq: int = -1
+    gen: int = 0
+    # Per-output-token perf_counter stamps, recorded only when the engine
+    # was built with record_token_times=True.
+    token_times: List[float] = field(default_factory=list)
+
+
+def sample_logits(logits: np.ndarray, params: SamplingParams,
+                  rng: np.random.Generator) -> int:
+    """Host-side token sampling of the FIRST token from prefill logits."""
+    if params.temperature <= 0.0:
+        return int(np.argmax(logits))
+    logits = logits / params.temperature
+    if params.top_k:
+        kth = np.partition(logits, -params.top_k)[-params.top_k]
+        logits = np.where(logits < kth, -np.inf, logits)
+    p = np.exp(logits - logits.max())
+    p /= p.sum()
+    return int(rng.choice(len(p), p=p))
+
+
+class InferenceEngine:
+    """Single-device continuous-batching engine over the paged cache.
+
+    ``params``/``cfg`` as ``models.llama``; tensors are moved to ``device``
+    (default: the card).  ``generator`` drives on-device sampling (default:
+    a generator on ``device`` seeded 0)."""
+
+    def __init__(self, params, cfg, *, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None,
+                 max_slots: int = 8, page_size: int = 16,
+                 num_pages: int = 512, max_seq_len: Optional[int] = None,
+                 prefill_buckets: tuple = (64, 256, 1024),
+                 prefill_chunk: Optional[int] = None,
+                 record_token_times: bool = False):
+        check_supported(cfg)
+        self.device = resolve_device(device)
+        self.params = _to_device(params, self.device)
+        self.cfg = cfg
+        self.page_size = page_size
+        self.max_slots = max_slots
+        self.max_seq_len = max_seq_len or cfg.max_seq_len
+        self.pages_per_seq = math.ceil(self.max_seq_len / page_size)
+        self.pool = PagePool(num_pages)
+        self.prefill_buckets = tuple(sorted(prefill_buckets))
+
+        Hkv, D = cfg.kv_heads, cfg.head_dim
+        # One COMBINED page tensor per layer: K even / V odd combined-head
+        # indices, pages leading (see _model.decode_step).
+        self.kv_pages = tuple(
+            torch.zeros((num_pages, page_size, 2 * Hkv, D), dtype=cfg.dtype,
+                        device=self.device)
+            for _ in range(cfg.layers))
+        # Host-side slot state (mirrored to the device each dispatch).
+        self.block_tables = np.zeros((max_slots, self.pages_per_seq),
+                                     np.int32)
+        self.slot_tokens = np.zeros((max_slots,), np.int32)
+        self.slot_pos = np.zeros((max_slots,), np.int32)
+        self.slot_active = np.zeros((max_slots,), bool)
+        self.slot_req: List[Optional[Request]] = [None] * max_slots
+
+        self.waiting: List[Request] = []
+        self.running: Dict[int, Request] = {}
+        # Requests that finish during admission (immediate stop token,
+        # max_tokens=1, rejections) never occupy a slot; step() drains them.
+        self._admission_finished: List[Request] = []
+        self._req_ids = itertools.count()
+        # Chunked prefill: prompts longer than ``prefill_chunk`` tokens are
+        # prefilled one bounded chunk per step, interleaved with decode.
+        self.prefill_chunk = prefill_chunk
+        self.record_token_times = record_token_times
+        self._admit_seq = itertools.count()
+        self._prefilling: Dict[int, int] = {}   # slot -> prompt tokens done
+        # RLock: step() -> _admit() nests; server threads call
+        # add_request/cancel concurrently with the drive thread's step().
+        self._lock = threading.RLock()
+        self._rng = np.random.default_rng(0)
+        self.generator = generator if generator is not None else \
+            torch.Generator(device=self.device).manual_seed(0)
+        # Device-resident (tokens, positions) between chunks: valid while no
+        # admission/finish mutated the host mirrors, so back-to-back chunks
+        # skip the uploads.
+        self._dev_state = None
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """Host mirror -> device tensor.  Always a copy: on the CPU
+        ``from_numpy`` would alias the mirror the host keeps mutating; on
+        the card the copy is pinned and asynchronous, so a dispatch never
+        waits for the chunk in flight."""
+        t = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.clone()
+
+    # -- request intake -----------------------------------------------------
+
+    def add_request(self, prompt_tokens: List[int],
+                    params: Optional[SamplingParams] = None) -> int:
+        params = params or SamplingParams()
+        req = Request(next(self._req_ids), list(prompt_tokens), params,
+                      t_submit=time.perf_counter())
+        with self._lock:
+            self.waiting.append(req)
+            self.running[req.request_id] = req
+        return req.request_id
+
+    def _bucket_for(self, n: int) -> Optional[int]:
+        for b in self.prefill_buckets:
+            if n <= b:
+                return b
+        return None
+
+    def _chunk_tokens(self) -> int:
+        """Chunk size for incremental prefill: the configured
+        ``prefill_chunk``, else the largest bucket."""
+        return self.prefill_chunk if self.prefill_chunk is not None \
+            else self.prefill_buckets[-1]
+
+    # -- scheduling ---------------------------------------------------------
+
+    def _admit(self) -> None:
+        """Move waiting requests into free slots (prefill + page alloc).
+
+        Every admitted request's last-position logits stay on the device
+        through the loop and transfer in ONE device->host sync at the
+        end."""
+        staged: List = []  # (req, slot, device_logits)
+        while self.waiting:
+            free_slots = [i for i in range(self.max_slots)
+                          if self.slot_req[i] is None]
+            if not free_slots:
+                break
+            req = self.waiting[0]
+            # Re-admission after preemption re-prefills prompt + tokens
+            # generated so far (recompute preemption): the "seed".
+            seed = req.prompt_tokens + req.output_tokens
+            n = len(seed)
+            total = len(req.prompt_tokens) + req.params.max_tokens
+            if total > self.max_seq_len:
+                self._reject_head(req, "prompt_too_long")
+                continue
+            if math.ceil(total / self.page_size) > self.pool.num_pages - 1:
+                # Could never fit even an empty pool: reject, don't wedge
+                # the FIFO behind an unadmittable request.
+                self._reject_head(req, "kv_capacity_exceeded")
+                continue
+            chunked = (self.prefill_chunk is not None
+                       and n > self.prefill_chunk)
+            if not chunked:
+                bucket = self._bucket_for(n)
+                if bucket is None:
+                    # Beyond every bucket: the chunked path covers any
+                    # length up to max_seq_len.
+                    chunked = True
+            if chunked:
+                # Reserve the slot; _prefill_tick runs one bounded chunk per
+                # step.  The first chunk's pages allocate up front so an
+                # empty pool still backpressures here.
+                need0 = math.ceil(min(self._chunk_tokens(), n)
+                                  / self.page_size)
+                pages = self.pool.alloc(need0)
+                if pages is None:
+                    break  # no KV memory; stay queued (backpressure)
+                self.waiting.pop(0)
+                slot = free_slots[0]
+                req.slot = slot
+                req.pages = pages
+                req.admit_seq = next(self._admit_seq)
+                self.slot_req[slot] = req
+                self.slot_active[slot] = False
+                bt = np.zeros((self.pages_per_seq,), np.int32)
+                bt[:len(pages)] = pages
+                self.block_tables[slot] = bt
+                self._prefilling[slot] = 0
+                continue
+            # Pages are allocated LAZILY: the seed plus the first decode
+            # token now, one page at a time as decode crosses page
+            # boundaries (see _ensure_decode_capacity).
+            n_pages = math.ceil((n + 1) / self.page_size)
+            pages = self.pool.alloc(n_pages)
+            if pages is None:
+                break  # no KV memory; stay queued (backpressure)
+            self.waiting.pop(0)
+            slot = free_slots[0]
+
+            toks = np.zeros((1, bucket), np.int64)
+            toks[0, :n] = seed
+            logits, ks, vs = _model.prefill(
+                self.params, self._upload(toks), n, self.cfg)
+            # Padding positions land in reserved page 0, which no block
+            # table references.
+            page_ids_np = np.zeros((bucket,), np.int32)
+            for t in range(n):
+                page_ids_np[t] = pages[t // self.page_size]
+            offs_np = np.arange(bucket, dtype=np.int32) % self.page_size
+            self.kv_pages = _model.write_prefill(
+                self.kv_pages, ks, vs, self._upload(page_ids_np),
+                self._upload(offs_np))
+
+            # Mark the slot taken now; the first token lands after the
+            # batched sync below.
+            req.slot = slot
+            req.pages = pages
+            req.admit_seq = next(self._admit_seq)
+            self.slot_req[slot] = req
+            self.slot_active[slot] = True
+            self.slot_pos[slot] = n
+            bt = np.zeros((self.pages_per_seq,), np.int32)
+            bt[:n_pages] = pages
+            self.block_tables[slot] = bt
+            staged.append((req, slot, logits))
+
+        if not staged:
+            return
+        self._dev_state = None  # new slots: host mirrors are authoritative
+        all_logits = torch.stack(
+            [lg for _r, _s, lg in staged]).cpu().numpy()   # ONE host sync
+        now = time.perf_counter()
+        for (req, slot, _lg), logits in zip(staged, all_logits):
+            first_tok = self._sample_host(logits, req.params)
+            if not req.output_tokens:   # first admission, not recompute
+                req.t_first = now
+            req.output_tokens.append(int(first_tok))
+            if self.record_token_times:
+                req.token_times.append(now)
+            self.slot_tokens[slot] = first_tok
+            self._maybe_finish(req, int(first_tok))
+            if req.finished:
+                self._admission_finished.append(req)
+
+    def _reject_head(self, req: Request, reason: str) -> None:
+        """Reject the queue-head request at admission (never admitted: no
+        slot or pages to release)."""
+        req.finished = True
+        req.finish_reason = reason
+        self.waiting.pop(0)
+        self.running.pop(req.request_id, None)
+        self._admission_finished.append(req)
+
+    def _prefill_tick(self) -> None:
+        """Advance ONE chunked prefill by ONE chunk (callers hold the lock):
+        one chunk per step bounds the stall any prefill can impose on the
+        active decode batch."""
+        if not self._prefilling:
+            return
+        # FIFO fairness: the earliest-admitted prefill advances first.
+        slot = min(self._prefilling,
+                   key=lambda s: self.slot_req[s].admit_seq)
+        req = self.slot_req[slot]
+        done = self._prefilling[slot]
+        seed = req.prompt_tokens + req.output_tokens
+        n = len(seed)
+        C = self._chunk_tokens()
+        end = min(done + C, n)
+        # Pages must cover positions [0, end), plus the first decode token
+        # when this chunk completes the prompt.
+        cover = end + 1 if end >= n else end
+        need = math.ceil(cover / self.page_size) - len(req.pages)
+        if need > 0:
+            pages = self.pool.alloc(need)
+            while pages is None:
+                # Preempt strictly-YOUNGER page holders before stalling
+                # (prefill-vs-prefill deadlock otherwise); an older holder
+                # wins instead — we stall and it finishes.
+                cands = [s for s in range(self.max_slots)
+                         if s != slot and self.slot_req[s] is not None
+                         and self.slot_req[s].admit_seq > req.admit_seq]
+                if not cands:
+                    return  # KV pressure: stall until frees arrive
+                self._preempt(max(
+                    cands, key=lambda s: self.slot_req[s].admit_seq))
+                pages = self.pool.alloc(need)
+            base = len(req.pages)
+            req.pages.extend(pages)
+            self.block_tables[slot, base:base + len(pages)] = pages
+        toks = np.zeros((1, C), np.int64)
+        toks[0, :end - done] = seed[done:end]
+        logits, self.kv_pages = _model.prefill_chunk(
+            self.params, self.kv_pages, self._upload(toks), done,
+            end - done, self._upload(self.block_tables[slot]), self.cfg,
+            self.page_size)
+        self._prefilling[slot] = end
+        if end < n:
+            return
+        # Prompt complete: sample the first token, join the decode batch.
+        first = self._sample_host(logits.cpu().numpy(), req.params)
+        now = time.perf_counter()
+        if not req.output_tokens:
+            req.t_first = now
+        req.output_tokens.append(int(first))
+        if self.record_token_times:
+            req.token_times.append(now)
+        del self._prefilling[slot]
+        self.slot_pos[slot] = n
+        self.slot_tokens[slot] = int(first)
+        self.slot_active[slot] = True
+        self._dev_state = None  # host mirrors changed
+        self._maybe_finish(req, int(first))
+        if req.finished:
+            self._admission_finished.append(req)
+
+    def _need_pages(self, slot: int, steps: int) -> int:
+        """Extra pages ``slot`` needs to write KV for ``steps`` more decode
+        tokens (capped at its token budget: pipelined overgeneration beyond
+        it overflow-writes to reserved page 0)."""
+        req = self.slot_req[slot]
+        total = len(req.prompt_tokens) + req.params.max_tokens
+        cover = min(int(self.slot_pos[slot]) + steps, total)
+        return max(0, math.ceil(cover / self.page_size) - len(req.pages))
+
+    def _try_extend_capacity(self, steps: int) -> bool:
+        """Non-preempting capacity extension for the PIPELINED path (a chunk
+        is in flight, so preemption would rewind every other slot on the
+        re-upload).  False when the pool can't cover all active slots."""
+        active = [s for s in range(self.max_slots) if self.slot_active[s]]
+        if sum(self._need_pages(s, steps) for s in active) \
+                > self.pool.num_free:
+            return False
+        for slot in active:
+            need = self._need_pages(slot, steps)
+            if need == 0:
+                continue
+            pages = self.pool.alloc(need)
+            req = self.slot_req[slot]
+            base = len(req.pages)
+            req.pages.extend(pages)
+            self.block_tables[slot, base:base + len(pages)] = pages
+        return True
+
+    def _ensure_decode_capacity(self, steps: int) -> None:
+        """Lazily extend block tables so every active slot can write KV for
+        its next ``steps`` tokens, preempting the YOUNGEST request when the
+        pool runs dry.  Callers hold the lock."""
+        while True:
+            active = [s for s in range(self.max_slots)
+                      if self.slot_active[s]]
+            if sum(self._need_pages(s, steps) for s in active) \
+                    <= self.pool.num_free:
+                break
+            cands = [s for s in range(self.max_slots)
+                     if self.slot_req[s] is not None]
+            if len(cands) <= 1:
+                break  # a lone request's need is always satisfiable
+            self._preempt(max(
+                cands, key=lambda s: self.slot_req[s].admit_seq))
+        for slot in range(self.max_slots):
+            if not self.slot_active[slot]:
+                continue
+            need = self._need_pages(slot, steps)
+            if need == 0:
+                continue
+            pages = self.pool.alloc(need)
+            if pages is None:
+                # A slot must never decode past its pages.
+                self._preempt(slot)
+                continue
+            req = self.slot_req[slot]
+            base = len(req.pages)
+            req.pages.extend(pages)
+            self.block_tables[slot, base:base + len(pages)] = pages
+
+    def _preempt(self, slot: int) -> None:
+        """Evict the request in ``slot`` back to the FRONT of the waiting
+        queue, freeing its pages; re-admission re-prefills prompt +
+        generated-so-far.  Callers hold the lock."""
+        req = self.slot_req[slot]
+        self.slot_active[slot] = False
+        self.slot_req[slot] = None
+        self._prefilling.pop(slot, None)
+        self.pool.free(req.pages)
+        req.pages = []
+        req.slot = None
+        req.gen += 1   # stale in-flight chunk snapshots must not apply
+        self.block_tables[slot] = 0
+        self._dev_state = None
+        self.waiting.insert(0, req)
+
+    def _sample_host(self, logits: np.ndarray,
+                     params: SamplingParams) -> int:
+        return sample_logits(logits, params, self._rng)
+
+    def _maybe_finish(self, req: Request, token: int) -> None:
+        stop = token in req.params.stop_token_ids
+        done = stop or len(req.output_tokens) >= req.params.max_tokens
+        if done:
+            req.finished = True
+            req.finish_reason = "stop" if stop else "length"
+            if req.slot is not None:
+                slot = req.slot
+                self.slot_active[slot] = False
+                self.slot_req[slot] = None
+                self.pool.free(req.pages)
+                req.pages = []
+            self.running.pop(req.request_id, None)
+
+    def cancel(self, request_id: int) -> None:
+        """Abandon a request: free its slot/pages (timeouts, disconnects)."""
+        with self._lock:
+            req = self.running.pop(request_id, None)
+            if req is None:
+                return
+            if req in self.waiting:
+                self.waiting.remove(req)
+            if req.slot is not None and self.slot_req[req.slot] is req:
+                self.slot_active[req.slot] = False
+                self.slot_req[req.slot] = None
+                self._prefilling.pop(req.slot, None)
+                req.gen += 1
+            self.pool.free(req.pages)
+            req.pages = []
+            req.finished = True
+            req.finish_reason = "cancelled"
+
+    # -- stepping -----------------------------------------------------------
+
+    def has_work(self) -> bool:
+        with self._lock:
+            return bool(self.waiting or any(self.slot_active)
+                        or self._prefilling or self._admission_finished)
+
+    def step(self) -> List[Request]:
+        """Admit + one batched decode step; returns requests finished now.
+
+        Runs under the engine lock: add_request/cancel from server threads
+        must not interleave with slot/page mutation."""
+        with self._lock:
+            self._admit()
+            self._prefill_tick()
+            finished = list(self._admission_finished)
+            self._admission_finished.clear()
+            if not any(self.slot_active):
+                return finished
+            self._ensure_decode_capacity(1)
+            if not any(self.slot_active):
+                return finished
+            self._dev_state = None  # per-token path mutates mirrors
+            logits, self.kv_pages = _model.decode_step(
+                self.params, self.kv_pages,
+                self._upload(self.slot_tokens),
+                self._upload(self.slot_pos),
+                self._upload(self.block_tables),
+                self._upload(self.slot_active), self.cfg, self.page_size)
+            logits = logits.cpu().numpy()
+            for slot in range(self.max_slots):
+                if not self.slot_active[slot]:
+                    continue
+                req = self.slot_req[slot]
+                tok = self._sample_host(logits[slot], req.params)
+                req.output_tokens.append(tok)
+                if self.record_token_times:
+                    req.token_times.append(time.perf_counter())
+                self.slot_pos[slot] += 1
+                self.slot_tokens[slot] = tok
+                self._maybe_finish(req, tok)
+                if req.finished:
+                    finished.append(req)
+            return finished
+
+    def step_chunk(self, max_steps: int = 32) -> List[Request]:
+        """Admit + up to ``max_steps`` decode iterations with on-device
+        sampling (_model.decode_chunk): the host syncs once per chunk.
+
+        Used when every active request shares compatible sampling params;
+        falls back to per-token step() otherwise.  Stop tokens/budgets are
+        enforced host-side after the chunk."""
+        with self._lock:
+            self._admit()
+            self._prefill_tick()
+            finished = list(self._admission_finished)
+            self._admission_finished.clear()
+            d = self._dispatch_chunk(max_steps)
+        if d is None:
+            return finished
+        if d == "incompatible":
+            return finished + self.step()
+        return finished + self._process_chunk(*d)
+
+    def _dispatch_chunk(self, max_steps: int, allow_preempt: bool = True,
+                        pos_lag: int = 0):
+        """Dispatch one chunk (asynchronous: no host sync).  Caller holds the
+        lock.  Returns None (nothing active), "incompatible" (mixed sampling
+        params / exhausted budgets: use per-token step()), "need_sync" (page
+        pressure while a chunk is in flight), or (device_out, steps,
+        per-slot request snapshot).
+
+        ``pos_lag``: steps of an IN-FLIGHT chunk not yet applied to the host
+        mirrors — page capacity must cover the device's true positions."""
+        active_reqs = [self.slot_req[s] for s in range(self.max_slots)
+                       if self.slot_active[s]]
+        if not active_reqs:
+            return None
+        sp0 = active_reqs[0].params
+        if any(r.params.temperature != sp0.temperature
+               or r.params.top_k != sp0.top_k for r in active_reqs):
+            return "incompatible"
+        # Cap the chunk so no request overruns its token budget, then round
+        # DOWN to a power of two (the JAX engine's compiled-shape set; kept
+        # so both engines emit the same chunks).
+        steps = min([max_steps] + [
+            r.params.max_tokens - len(r.output_tokens)
+            for r in active_reqs])
+        if steps <= 0:
+            return "incompatible"
+        steps = 1 << (steps.bit_length() - 1)
+        # Block tables are frozen for the chunk's duration, so lazy
+        # extension (and any preemption it forces) must happen now.
+        if allow_preempt:
+            self._ensure_decode_capacity(steps + pos_lag)
+            if not any(self.slot_active):
+                return None
+        elif not self._try_extend_capacity(steps + pos_lag):
+            return "need_sync"
+        if self._dev_state is not None:
+            toks_dev, pos_dev = self._dev_state
+        else:
+            toks_dev = self._upload(self.slot_tokens)
+            pos_dev = self._upload(self.slot_pos)
+        out, new_pos, self.kv_pages = _model.decode_chunk(
+            self.params, self.kv_pages, toks_dev, pos_dev,
+            self._upload(self.block_tables), self._upload(self.slot_active),
+            self.generator, self.cfg, self.page_size, steps,
+            sp0.temperature, sp0.top_k)
+        # The next chunk can resume from device state (last sampled token
+        # per slot + advanced positions) with no host upload.
+        self._dev_state = (out[-1], new_pos)
+        # The snapshot carries the request's incarnation: a preempted-and-
+        # re-admitted request must not receive this chunk's stale tokens.
+        snap = [(self.slot_req[s], self.slot_req[s].gen)
+                if self.slot_active[s] else None
+                for s in range(self.max_slots)]
+        return (out, steps, snap)
+
+    def _process_chunk(self, out_dev, steps: int, snap,
+                       keep_dev_state: bool = False) -> List[Request]:
+        """Sync one dispatched chunk to the host and apply its tokens.
+
+        ``snap`` is the per-slot request snapshot at dispatch: a slot freed
+        and re-admitted since then is skipped.  ``keep_dev_state=True`` is
+        the pipelined mode: a LATER chunk was already dispatched from the
+        current device state, so finishing a request here must not
+        invalidate it."""
+        out = out_dev.cpu().numpy()                      # ONE host sync
+        finished: List[Request] = []
+        now = time.perf_counter()
+        with self._lock:
+            any_finished = False
+            for slot, entry in enumerate(snap):
+                if entry is None:
+                    continue
+                req, gen = entry
+                if req.finished:
+                    continue
+                if self.slot_req[slot] is not req or req.gen != gen:
+                    continue  # slot re-admitted / request preempted
+                for i in range(steps):
+                    tok = int(out[i, slot])
+                    req.output_tokens.append(tok)
+                    if self.record_token_times:
+                        req.token_times.append(now)
+                    self.slot_pos[slot] += 1
+                    self.slot_tokens[slot] = tok
+                    self._maybe_finish(req, tok)
+                    if req.finished:
+                        # The overgenerated tail beyond a stop token is
+                        # dropped with the request.
+                        finished.append(req)
+                        any_finished = True
+                        break
+            if any_finished and not keep_dev_state:
+                self._dev_state = None  # host mirrors changed
+        return finished
+
+    def run_pipelined(self, max_steps: int = 64,
+                      max_chunks: int = 1_000_000) -> List[Request]:
+        """Drain all queued work with DOUBLE-BUFFERED chunks: the device
+        executes chunk k+1 while the host reads back and applies chunk k.
+
+        Admission happens at pipeline bubbles (start, drain, or when
+        requests are waiting and can be admitted).  Finished requests may
+        overgenerate up to one extra chunk whose tokens are dropped
+        host-side; budget-exhausted slots overflow-write to reserved page 0.
+        Returns every finished request."""
+        done: List[Request] = []
+        pending = None
+        for _ in range(max_chunks):
+            d = None
+            with self._lock:
+                if pending is None:
+                    self._admit()
+                    self._prefill_tick()
+                    done.extend(self._admission_finished)
+                    self._admission_finished.clear()
+                skip = False
+                if pending is not None:
+                    free_slot = any(self.slot_req[i] is None
+                                    for i in range(self.max_slots))
+                    if self._prefilling:
+                        # An in-flight chunked prefill only advances at
+                        # bubbles; starving it would deadlock its slot.
+                        skip = True
+                    elif self.waiting and free_slot:
+                        # Bubble ONLY when admission can make progress.
+                        head = self.waiting[0]
+                        seed_n = len(head.prompt_tokens) \
+                            + len(head.output_tokens)
+                        need = math.ceil((seed_n + 1) / self.page_size)
+                        skip = self.pool.num_free >= need
+                    else:
+                        # The in-flight chunk already covers every active
+                        # budget: a further dispatch would be pure
+                        # overgeneration.
+                        rem = [r.params.max_tokens - len(r.output_tokens)
+                               - pending[1]
+                               for r in (self.slot_req[s]
+                                         for s in range(self.max_slots)
+                                         if self.slot_active[s])]
+                        skip = bool(rem) and max(rem) <= 0
+                if not skip:
+                    d = self._dispatch_chunk(
+                        max_steps, allow_preempt=pending is None,
+                        pos_lag=pending[1] if pending is not None else 0)
+            if d == "need_sync":
+                # Page pressure with a chunk in flight: apply it so the host
+                # mirrors catch up; the next iteration may preempt safely.
+                done.extend(self._process_chunk(*pending,
+                                                keep_dev_state=True))
+                pending = None
+                continue
+            if d == "incompatible":
+                if pending is not None:
+                    done.extend(self._process_chunk(*pending,
+                                                    keep_dev_state=True))
+                    pending = None
+                done.extend(self.step_chunk(max_steps))
+                continue
+            if pending is not None:
+                done.extend(self._process_chunk(*pending,
+                                                keep_dev_state=True))
+            pending = d
+            if pending is None:
+                with self._lock:
+                    if not self.waiting and not self.slot_active.any() \
+                            and not self._prefilling:
+                        return done
+        raise RuntimeError("run_pipelined did not drain")
+
+    # -- offline batch API --------------------------------------------------
+
+    def generate(self, prompts: List[List[int]],
+                 params: Optional[SamplingParams] = None
+                 ) -> List[List[int]]:
+        """Batch inference: drives the engine until every prompt drains."""
+        reqs = {self.add_request(p, params): i
+                for i, p in enumerate(prompts)}
+        outputs: Dict[int, List[int]] = {}
+        guard = 0
+        while len(outputs) < len(prompts):
+            for req in self.step():
+                if req.request_id in reqs:
+                    outputs[reqs[req.request_id]] = req.output_tokens
+            # Requests rejected at admission (too long) never hit step():
+            with self._lock:
+                for rid, idx in list(reqs.items()):
+                    if idx not in outputs and rid not in self.running:
+                        outputs[idx] = []
+            guard += 1
+            if guard > 100000:
+                raise RuntimeError("engine did not drain")
+        return [outputs[i] for i in range(len(prompts))]
+
+
+def _to_device(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -1,0 +1,43 @@
+"""Carry the JAX package's parameters over to the port.
+
+``params_from_numpy`` turns a JAX parameter pytree (any nesting of dicts
+whose leaves ``np.asarray`` accepts) into the port's dict of tensors.  The
+layout is kept exactly: the stacked ``[L, ...]`` blocks and every axis order
+of ``ray_tpu/models/llama.py:init_params``, with no transposes, so a test or
+a checkpoint feeds both packages the same weights.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, resolve_device
+
+
+def _leaf(x, dtype: Optional[torch.dtype], device: torch.device):
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: torch reads bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_numpy(tree: Any, dtype: Optional[torch.dtype] = None,
+                      device: DeviceLike = None) -> Any:
+    """JAX pytree -> the same nesting of tensors on ``device``, cast to
+    ``dtype`` where given (else each leaf keeps its own dtype)."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
+        return _leaf(node, dtype, dev)
+
+    return conv(tree)

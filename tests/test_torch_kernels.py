@@ -1,0 +1,145 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: without a CUDA device every test here skips (a CUDA kernel
+has no interpret mode).  On the card:
+
+    python -m pytest -m gpu tests/test_torch_kernels.py -q
+
+Tolerances (max abs error vs the plain version on the same inputs): fp32
+1e-4 (another summation order, exp2 vs exp); bf16 2e-2 (P and O rounded to
+bf16: one ulp at |x| ~ 2 is 2**-6).
+"""
+
+from __future__ import annotations
+
+import importlib
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu_torch.ops import paged_attention as paged
+
+attn = importlib.import_module("ray_tpu_torch.ops.attention")
+
+pytestmark = pytest.mark.gpu
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    """Decided per test, never at import: workers must collect the same
+    tests whether or not they see a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels run only there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, *shape, dtype):
+    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,causal,q_offset", [
+    (1, 16, 8, 256, 256, True, 0),
+    (2, 4, 4, 1000, 1000, True, 0),
+    (1, 8, 2, 77, 300, False, 0),
+    (1, 16, 8, 128, 640, True, 512),
+    (3, 8, 1, 33, 33, True, 0),
+])
+def test_flash_fwd_matches_plain(cuda, dtype, D, B, H, Hkv, Sq, Sk, causal,
+                                 q_offset):
+    gen = torch.Generator(device="cuda").manual_seed(Sq * 7 + D)
+    q = _randn(gen, B, H, Sq, D, dtype=dtype)
+    k = _randn(gen, B, Hkv, Sk, D, dtype=dtype)
+    v = _randn(gen, B, Hkv, Sk, D, dtype=dtype)
+    before = attn.flash_fwd.launches
+    out, lse = attn.flash_fwd(q, k, v, causal=causal, q_offset=q_offset,
+                              need_lse=True)
+    assert attn.flash_fwd.launches == before + 1
+    ref = attn.reference_attention(q, k, v, causal=causal, q_offset=q_offset)
+    ref_lse = torch.logsumexp(attn._scores(q, k, causal, 1 / math.sqrt(D),
+                                           q_offset), dim=-1)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,Hkv,D", [(16, 8, 128), (8, 8, 64), (8, 2, 64),
+                                     (16, 2, 128)])
+def test_paged_decode_matches_plain(cuda, dtype, H, Hkv, D):
+    B, page = 12, 16
+    rng = np.random.default_rng(H + Hkv + D)
+    lens = rng.integers(1, 300, size=B)
+    lens[3] = 0                                   # inactive slot
+    P = math.ceil(lens.max() / page)
+    NP = B * P + 1
+    bt = rng.permutation(np.arange(1, NP))[:B * P].reshape(B, P)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    kv = _randn(gen, NP, page, 2 * Hkv, D, dtype=dtype)
+    q = _randn(gen, B, H, D, dtype=dtype)
+    bt = torch.from_numpy(bt.astype(np.int32)).cuda()
+    sl = torch.from_numpy(lens.astype(np.int32)).cuda()
+    before = paged.paged_decode.launches
+    out = paged.paged_decode(q, kv, bt, sl, page)
+    assert paged.paged_decode.launches == before + 1
+    ref = paged._exact_path(q, kv, bt, sl, page)
+    torch.cuda.synchronize()
+    live = sl > 0
+    assert (out[live].float() - ref[live].float()).abs().max().item() \
+        <= TOL[dtype]
+    assert torch.isfinite(out[~live].float()).all()
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.randn(1, 4, 64, 32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        attn.flash_fwd(q, q, q)
+    q = torch.randn(1, 4, 64, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        attn.flash_fwd(q, q, q)
+    q = torch.randn(1, 64, 4, 64, device="cuda").transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        attn.flash_fwd(q, q, q)
+    with pytest.raises(ValueError, match="must be on"):
+        attn.flash_fwd(q.contiguous(), q.contiguous().cpu(),
+                       q.contiguous())
+    qd = torch.randn(2, 6, 64, device="cuda")
+    kv = torch.randn(5, 16, 4, 64, device="cuda")    # Hkv = 2: group 3
+    bt = torch.zeros(2, 1, dtype=torch.int32, device="cuda")
+    sl = torch.ones(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="H/Hkv"):
+        paged.paged_decode(qd, kv, bt, sl, 16)
+    with pytest.raises(ValueError, match="int32"):
+        paged.paged_decode(qd[:, :4].contiguous(), kv, bt.long(), sl, 16)
+
+
+def test_flash_attention_has_no_backward_yet(cuda):
+    q = torch.randn(1, 4, 64, 64, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        attn.flash_attention(q, q.detach(), q.detach())
+    with torch.no_grad():
+        attn.flash_attention(q, q, q)
+
+
+def test_engine_greedy_through_kernels_equals_plain_path(cuda):
+    from ray_tpu_torch.llm import InferenceEngine, SamplingParams
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+    cfg = LlamaConfig(vocab_size=256, hidden=128, layers=2, heads=4,
+                      kv_heads=2, head_dim=64, mlp_dim=256, max_seq_len=128,
+                      dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    prompts = [[3, 17, 92, 5, 41], list(range(1, 40))]
+    outs = []
+    for c in (cfg, cfg.replace(attention_impl="reference")):
+        eng = InferenceEngine(params, c, device="cuda", max_slots=2,
+                              page_size=16, num_pages=32,
+                              prefill_buckets=(64,))
+        outs.append(eng.generate(prompts, SamplingParams(max_tokens=10)))
+    assert outs[0] == outs[1]

@@ -1,0 +1,288 @@
+"""ray_tpu_torch ops against the JAX package's, on the CPU.
+
+Same inputs, made from numpy seeds, go through the JAX function and its port;
+on CPU tensors each kernel wrapper takes its plain version, which is what
+these tests hold to JAX (the kernels themselves are held to the plain
+versions on the card: tests/test_torch_kernels.py).  Tolerances: fp32 1e-5,
+bf16 2e-2 (one bf16 ulp at |x| ~ 2 is 2**-6).
+"""
+
+from __future__ import annotations
+
+import ast
+import importlib
+import math
+import pathlib
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from ray_tpu.ops import norms as j_norms
+from ray_tpu.ops import paged_attention as j_paged
+from ray_tpu.ops import rope as j_rope
+from ray_tpu_torch import _device
+from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import norms as t_norms
+from ray_tpu_torch.ops import paged_attention as t_paged
+from ray_tpu_torch.ops import rope as t_rope
+
+# Both ops packages re-export their ``attention`` function under the
+# submodule's name, so the modules come from importlib.
+j_attn = importlib.import_module("ray_tpu.ops.attention")
+t_attn = importlib.import_module("ray_tpu_torch.ops.attention")
+
+F32 = dict(atol=1e-5, rtol=1e-5)
+BF16 = dict(atol=2e-2, rtol=2e-2)
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _rand(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _tt(a, dtype=torch.float32):
+    return torch.from_numpy(np.array(a)).to(dtype)
+
+
+def _jj(a, dtype=jnp.float32):
+    return jnp.asarray(a).astype(dtype)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+class TestNorms:
+    @pytest.mark.parametrize("shape", [(4, 16), (2, 3, 128)])
+    def test_rms_norm_f32(self, shape):
+        x, w = _rand(0, *shape), _rand(1, shape[-1])
+        np.testing.assert_allclose(
+            _np(t_norms.rms_norm(_tt(x), _tt(w), 1e-5)),
+            _np(j_norms.rms_norm(_jj(x), _jj(w), 1e-5)), **F32)
+
+    def test_rms_norm_bf16_io(self):
+        x, w = _rand(2, 4, 64), _rand(3, 64)
+        out = t_norms.rms_norm(_tt(x, torch.bfloat16), _tt(w))
+        assert out.dtype == torch.bfloat16
+        np.testing.assert_allclose(
+            _np(out), _np(j_norms.rms_norm(_jj(x, jnp.bfloat16), _jj(w))),
+            **BF16)
+
+
+class TestRope:
+    @pytest.mark.parametrize("head_dim,length", [(32, 64), (128, 2048)])
+    def test_tables(self, head_dim, length):
+        tc, ts = t_rope.rope_frequencies(head_dim, length, 10000.0)
+        jc, js = j_rope.rope_frequencies(head_dim, length, 10000.0)
+        assert tc.dtype == torch.float32 and tc.shape == (length,
+                                                          head_dim // 2)
+        # cos/sin of arguments up to ~2047 rad: the two libraries' fp32
+        # range reductions differ by an ulp of the argument.
+        np.testing.assert_allclose(_np(tc), _np(jc), atol=2e-4)
+        np.testing.assert_allclose(_np(ts), _np(js), atol=2e-4)
+
+    def test_apply_rope_implicit_positions(self):
+        cos, sin = j_rope.rope_frequencies(16, 64)
+        x = _rand(4, 2, 3, 10, 16)
+        np.testing.assert_allclose(
+            _np(t_rope.apply_rope(_tt(x), _tt(cos), _tt(sin))),
+            _np(j_rope.apply_rope(_jj(x), cos, sin)), **F32)
+
+    def test_apply_rope_explicit_positions(self):
+        cos, sin = j_rope.rope_frequencies(16, 64)
+        x = _rand(5, 1, 2, 10, 16)
+        pos = np.array([3, 9, 17, 4, 0, 63, 1, 2, 30, 31])
+        np.testing.assert_allclose(
+            _np(t_rope.apply_rope(_tt(x), _tt(cos), _tt(sin),
+                                  torch.from_numpy(pos))),
+            _np(j_rope.apply_rope(_jj(x), cos, sin, jnp.asarray(pos))),
+            **F32)
+
+    def test_apply_rope_bf16(self):
+        cos, sin = j_rope.rope_frequencies(32, 16)
+        x = _rand(6, 1, 4, 16, 32)
+        out = t_rope.apply_rope(_tt(x, torch.bfloat16), _tt(cos), _tt(sin))
+        assert out.dtype == torch.bfloat16
+        np.testing.assert_allclose(
+            _np(out), _np(j_rope.apply_rope(_jj(x, jnp.bfloat16), cos, sin)),
+            **BF16)
+
+
+def _qkv(seed, B=1, H=4, Hkv=4, Sq=64, Sk=64, D=32):
+    return (_rand(seed, B, H, Sq, D), _rand(seed + 1, B, Hkv, Sk, D),
+            _rand(seed + 2, B, Hkv, Sk, D))
+
+
+ATTN_CASES = [
+    # (H, Hkv, Sq, Sk, causal, q_offset)
+    (4, 4, 64, 64, True, 0),
+    (4, 4, 64, 64, False, 0),
+    (8, 2, 64, 64, True, 0),
+    (4, 2, 32, 128, True, 96),
+    (4, 2, 40, 72, False, 0),
+]
+
+
+class TestAttention:
+    @pytest.mark.parametrize("H,Hkv,Sq,Sk,causal,q_offset", ATTN_CASES)
+    def test_reference_matches_jax(self, H, Hkv, Sq, Sk, causal, q_offset):
+        q, k, v = _qkv(10, 2, H, Hkv, Sq, Sk)
+        np.testing.assert_allclose(
+            _np(t_attn.reference_attention(_tt(q), _tt(k), _tt(v),
+                                           causal=causal,
+                                           q_offset=q_offset)),
+            _np(j_attn.reference_attention(_jj(q), _jj(k), _jj(v),
+                                           causal=causal,
+                                           q_offset=q_offset)), **F32)
+
+    @pytest.mark.parametrize("H,Hkv,Sq,Sk,causal,q_offset",
+                             [c for c in ATTN_CASES if c[2] % 32 == 0
+                              and c[3] % 32 == 0])
+    def test_flash_plain_matches_jax_flash_kernel(self, H, Hkv, Sq, Sk,
+                                                  causal, q_offset):
+        """The port's flash_fwd (plain on CPU) against the Pallas kernel
+        in interpret mode, LSE included."""
+        q, k, v = _qkv(20, 1, H, Hkv, Sq, Sk)
+        out, lse = t_attn.flash_fwd(_tt(q), _tt(k), _tt(v), causal=causal,
+                                    q_offset=q_offset, need_lse=True)
+        j_out, j_lse = j_attn._flash_forward(
+            _jj(q), _jj(k), _jj(v), causal, 1.0 / math.sqrt(32), 32, 32,
+            q_offset, True, need_lse=True)
+        np.testing.assert_allclose(_np(out), _np(j_out), atol=2e-5,
+                                   rtol=1e-4)
+        np.testing.assert_allclose(_np(lse), _np(j_lse), atol=2e-5,
+                                   rtol=1e-4)
+        assert lse.dtype == torch.float32 and lse.shape == (1, H, Sq)
+
+    def test_bf16_io(self):
+        q, k, v = _qkv(30, 1, 8, 2, 64, 64)
+        out = t_attn.flash_attention(_tt(q, torch.bfloat16),
+                                     _tt(k, torch.bfloat16),
+                                     _tt(v, torch.bfloat16))
+        assert out.dtype == torch.bfloat16
+        want = j_attn.reference_attention(_jj(q, jnp.bfloat16),
+                                          _jj(k, jnp.bfloat16),
+                                          _jj(v, jnp.bfloat16))
+        np.testing.assert_allclose(_np(out), _np(want), **BF16)
+
+    def test_dispatcher(self):
+        q, k, v = (_tt(a) for a in _qkv(40, 1, 4, 2, 32, 32))
+        ref = t_attn.reference_attention(q, k, v)
+        for impl in (None, "auto", "flash", "reference"):
+            torch.testing.assert_close(t_attn.attention(q, k, v, impl=impl),
+                                       ref)
+        with pytest.raises(ValueError):
+            t_attn.attention(q, k, v, impl="ring")
+
+    def test_cpu_takes_plain_version_without_launching(self):
+        q, k, v = (_tt(a) for a in _qkv(50, 1, 4, 4, 16, 16))
+        before = t_attn.flash_fwd.launches
+        out, lse = t_attn.flash_fwd(q, k, v)
+        assert lse is None and out.shape == q.shape
+        assert t_attn.flash_fwd.launches == before
+
+    def test_cpu_grad_flows_through_plain_version(self):
+        q, k, v = (_tt(a).requires_grad_() for a in _qkv(60, 1, 4, 2, 16,
+                                                          16))
+        t_attn.flash_attention(q, k, v).sum().backward()
+        assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+class TestPaged:
+    def test_combine_kv(self):
+        k, v = _rand(70, 3, 5, 2, 8), _rand(71, 3, 5, 2, 8)
+        np.testing.assert_array_equal(
+            _np(t_paged.combine_kv(_tt(k), _tt(v))),
+            _np(j_paged.combine_kv(_jj(k), _jj(v))))
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_decode_matches_jax(self, dtype):
+        B, H, Hkv, D, page, P = 5, 8, 2, 16, 4, 6
+        rng = np.random.default_rng(80)
+        NP = B * P + 1
+        bt = rng.permutation(np.arange(1, NP))[:B * P].reshape(B, P)
+        bt = bt.astype(np.int32)
+        lens = np.array([1, 24, 0, 13, 7], np.int32)   # slot 2 inactive
+        kv = _rand(81, NP, page, 2 * Hkv, D)
+        q = _rand(82, B, H, D)
+        tdt, jdt = ((torch.float32, jnp.float32) if dtype == "float32"
+                    else (torch.bfloat16, jnp.bfloat16))
+        got = t_paged.paged_decode_attention(
+            _tt(q, tdt), _tt(kv, tdt), torch.from_numpy(bt),
+            torch.from_numpy(lens), page)
+        want = j_paged.paged_decode_attention(
+            _jj(q, jdt), _jj(kv, jdt), jnp.asarray(bt), jnp.asarray(lens),
+            page)
+        assert got.dtype == tdt and got.shape == (B, H, D)
+        tol = F32 if dtype == "float32" else BF16
+        np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+    def test_paged_decode_is_the_same_wrapper(self):
+        assert t_paged.paged_decode is t_paged.paged_decode_attention
+        assert isinstance(t_paged.paged_decode.launches, int)
+
+
+class TestDevice:
+    def test_default_is_cuda_and_raises_without_a_card(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            _device.resolve_device()
+        with pytest.raises(RuntimeError):
+            _device.resolve_device("cuda")
+
+    def test_cpu_when_asked(self):
+        assert _device.resolve_device("cpu") == torch.device("cpu")
+        g1 = _device.make_generator("cpu", 3)
+        g2 = _device.make_generator("cpu", 3)
+        assert torch.equal(torch.rand(4, generator=g1),
+                           torch.rand(4, generator=g2))
+
+    def test_other_devices_refused(self):
+        with pytest.raises(ValueError):
+            _device.resolve_device("meta")
+
+
+class TestBuild:
+    def test_library_named_by_source_hash(self):
+        p = _build.library_path("flash_fwd")
+        assert p.parent == _build.BUILD_DIR
+        assert p.name.startswith("flash_fwd-") and p.suffix == ".so"
+        assert p == _build.library_path("flash_fwd")
+        assert set(_build.SOURCES) == {
+            f.stem for f in _build.CSRC_DIR.glob("*.cu")}
+
+    def test_no_nvcc_raises(self, monkeypatch):
+        monkeypatch.delenv("CUDA_HOME", raising=False)
+        monkeypatch.setattr(_build.shutil, "which", lambda _n: None)
+        monkeypatch.setattr(_build.os.path, "exists", lambda _p: False)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.nvcc_path()
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_no_jax_and_nothing_of_ray_tpu():
+    files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        # Whole-word roots: ray_tpu_torch is the port itself.
+        bad = {r for r in _imported_roots(f)
+               if r in ("jax", "jaxlib", "ray_tpu")}
+        assert not bad, f"{f.relative_to(REPO)} imports {bad}"
