@@ -7,10 +7,14 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.  It
 builds the port's kernels from ``ray_tpu_torch/csrc``, holds each against its
 plain PyTorch version on the card, times them, checks exact greedy serving
 on a narrow fp32 model, then serves ``llama_1b`` at full width and depth
-(random weights from a seeded generator) through the port's entry points and
-shows, by the kernels' launch counts, that the serving path ran through them.
-Each phase prints one JSON line; any failed check raises and the script exits
-non-zero.  The last line is ``{"ok": true, "device": {...}}``.
+(random weights from a seeded generator) through the port's entry points.
+It then checks exact fp32 training on a narrow model and trains the JAX
+bench's 1.36B-parameter config (``bench.py:3384-3390``) at full width and
+depth through ``make_lm_train_step``.  The kernels' launch counts, set to 0
+just before each main path and read just after, show that serving and
+training ran through them.  Each phase prints one JSON line; any failed
+check raises and the script exits non-zero.  The last line is
+``{"ok": true, "device": {...}}``.
 
 Without a card (or outside a checkout) it exits non-zero and prints no
 result.  It imports neither JAX nor the JAX package.
@@ -38,6 +42,9 @@ FLASH_SOURCE = "ray_tpu_torch/csrc/flash_fwd.cu"
 FLASH_REPLACES = "ray_tpu/ops/attention.py:98"         # _fwd_kernel
 PAGED_SOURCE = "ray_tpu_torch/csrc/paged_decode.cu"
 PAGED_REPLACES = "ray_tpu/ops/paged_attention.py:65"   # _ragged_path
+BWD_SOURCE = "ray_tpu_torch/csrc/flash_bwd.cu"
+DQ_REPLACES = "ray_tpu/ops/attention.py:238"           # _dq_kernel
+DKV_REPLACES = "ray_tpu/ops/attention.py:278"          # _dkv_kernel
 # Stated tolerances (max abs error against the plain version, same inputs):
 # fp32 sums in another order and exp2 vs exp; bf16 rounds P and O to bf16
 # (one ulp of bf16 at |x| ~ 2 is 2**-6).
@@ -46,6 +53,42 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # outputs differ by rounding and the difference compounds over 16 layers;
 # the logits themselves have a std of about 1.
 TOL_1B_LOGITS = 0.1
+# flash_bwd vs its plain version: max abs error over the gradient's largest
+# magnitude (dK and dV sum over every query, so their scale grows with S).
+# fp32 sums in another order; bf16 rounds P, dS and the outputs to bf16
+# (2**-8 relative each).
+TOL_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
+# train_exact (fp32, kernels vs plain attention, 3 adamw steps at lr 1e-4):
+# losses and grad norms relative; what the steps moved each leaf by
+# (p3 - p0), norm-wise relative per leaf (||a - b|| / ||b||).  Not
+# elementwise: Adam normalises every element's step to about lr, so an
+# element whose gradient nearly cancels turns summation-order noise into a
+# step difference of up to lr (the largest is reported).
+TOL_TRAIN_EXACT = {"loss": 1e-5, "grad_norm": 1e-5, "params_moved": 1e-3}
+# train at full width and depth, bf16, B=2, one forward and backward:
+# kernel path vs plain attention, relative.  Both round attention outputs
+# and gradients to bf16 at other places; the difference compounds over 24
+# layers.  attn_grad is the worst ||a - b|| / ||b|| over every layer's wq,
+# wk, wv and wo gradient; each fault of PLANTED_FAULTS must exceed it.  On
+# an H100 the clean reading is 2.4e-2 (wq of layer 0, where the most
+# layers' rounding has compounded) and the mildest planted fault reads
+# 0.107; 5e-2 sits about 2x from each.
+TOL_TRAIN_BF16 = {"loss": 1e-3, "grad_norm": 5e-3, "attn_grad": 5e-2}
+# The JAX package's training-benchmark config (bench.py:3384-3390): 1.36B
+# parameters, bf16 params and adam state, full remat, flash attention,
+# batch 12 x 2048, adamw at lr 1e-4.
+TRAIN_CFG = dict(vocab_size=32000, hidden=2048, layers=24, heads=16,
+                 kv_heads=16, head_dim=128, mlp_dim=5632, max_seq_len=2048)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 12, 2048, 1e-4
+
+
+def _train_attn_case():
+    """The attention shape of that config's training step, as a
+    kernel_check case (B, H, Hkv, Sq, Sk, D, dtype, causal, q_offset)."""
+    import torch
+    return (TRAIN_BATCH, TRAIN_CFG["heads"], TRAIN_CFG["kv_heads"],
+            TRAIN_SEQ, TRAIN_SEQ, TRAIN_CFG["head_dim"], torch.bfloat16,
+            True, 0)
 
 
 def emit(obj) -> None:
@@ -95,6 +138,8 @@ def phase_device():
 
 
 KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel",
+                "flash_bwd_dq_bf16_kernel", "flash_bwd_dq_f32_kernel",
+                "flash_bwd_dkv_bf16_kernel", "flash_bwd_dkv_f32_kernel",
                 "paged_decode_kernel")
 
 
@@ -180,6 +225,8 @@ def phase_kernel_check():
         # q_offset: a query block that starts mid-sequence.
         cases.append((1, 16, 8, 256, 1000, 128, dtype, True, 744))
         cases.append((2, 16, 8, 1000, 2048, 64, dtype, True, 1048))
+    # The shape the training path gives the forward (out and LSE).
+    cases.append(_train_attn_case())
     for i, (B, H, Hkv, Sq, Sk, D, dtype, causal, qo) in enumerate(cases):
         q, k, v = _flash_inputs(B, H, Hkv, Sq, Sk, D, dtype, seed=i)
         out, lse = flash_fwd(q, k, v, causal=causal, q_offset=qo,
@@ -219,10 +266,106 @@ def phase_kernel_check():
             "inactive_finite": finite, "tol": TOL[name]})
         if not (err <= TOL[name] and finite):
             failed.append(("paged_decode", results["paged"][-1]))
-    for kind in ("flash", "paged"):
+    results["flash_bwd"] = _check_flash_bwd(failed)
+    for kind in ("flash", "paged", "flash_bwd"):
         emit({"phase": "kernel_check", "kernel": kind,
               "cases": results[kind]})
     check(not failed, f"kernels disagree with their plain versions: {failed}")
+
+
+def _bwd_inputs(B, H, Hkv, Sq, Sk, D, dtype, causal, q_offset, seed):
+    """q, k, v, the flash forward's out and LSE, and an upstream gradient."""
+    import torch
+    from ray_tpu_torch.ops.attention import flash_fwd
+    q, k, v = _flash_inputs(B, H, Hkv, Sq, Sk, D, dtype, seed)
+    out, lse = flash_fwd(q, k, v, causal=causal, q_offset=q_offset,
+                         need_lse=True)
+    g = torch.Generator(device="cuda").manual_seed(seed + 10_000)
+    dout = torch.randn(B, H, Sq, D, generator=g, device="cuda").to(dtype)
+    return q, k, v, out, lse, dout
+
+
+def _grad_errs(got, ref):
+    """(max abs error, max abs error over the reference's largest
+    magnitude) of one gradient."""
+    diff = (got.float() - ref.float()).abs().max().item()
+    return diff, diff / max(ref.float().abs().max().item(), 1e-6)
+
+
+def _check_flash_bwd(failed):
+    """dq, dk and dv of flash_bwd against _flash_bwd_plain on the same
+    inputs: bf16 and fp32, D 64 and 128, causal and full, H/Hkv 16/16, 16/8
+    and 8/2, S 256, 1000 and 2048, and q_offset > 0 with Sq != Sk."""
+    import torch
+    from ray_tpu_torch.ops.attention import _flash_bwd_plain, flash_bwd
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (128, 64):
+            for causal in (True, False):
+                for H, Hkv in ((16, 16), (16, 8), (8, 2)):
+                    for S in (256, 1000, 2048):
+                        cases.append((1, H, Hkv, S, S, D, dtype, causal, 0))
+        cases.append((1, 16, 8, 256, 1000, 128, dtype, True, 744))
+        cases.append((2, 8, 2, 1000, 2048, 64, dtype, True, 1048))
+    cases.append(_train_attn_case())
+    out_rows = []
+    for i, (B, H, Hkv, Sq, Sk, D, dtype, causal, qo) in enumerate(cases):
+        q, k, v, out, lse, dout = _bwd_inputs(B, H, Hkv, Sq, Sk, D, dtype,
+                                              causal, qo, seed=500 + i)
+        got = flash_bwd(q, k, v, out, lse, dout, causal=causal, q_offset=qo)
+        ref = _flash_bwd_plain(q, k, v, out, lse, dout, causal,
+                               1.0 / math.sqrt(D), qo)
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[-1]
+        errs = {g: _grad_errs(a, r) for g, a, r in zip(("dq", "dk", "dv"),
+                                                         got, ref)}
+        row = {"dtype": name, "B": B, "H": H, "Hkv": Hkv, "Sq": Sq,
+               "Sk": Sk, "D": D, "causal": causal, "q_offset": qo,
+               "max_abs_err": {g: e[0] for g, e in errs.items()},
+               "max_rel_err": {g: e[1] for g, e in errs.items()},
+               "tol_rel": TOL_BWD[name]}
+        out_rows.append(row)
+        finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+        if not (finite and max(e[1] for e in errs.values())
+                <= TOL_BWD[name]):
+            failed.append(("flash_bwd", row))
+    del q, k, v, out, lse, dout, got, ref
+    out_rows.append(_check_flash_grad_end_to_end(failed))
+    return out_rows
+
+
+def _check_flash_grad_end_to_end(failed):
+    """At the training path's attention shape: the gradients of
+    flash_attention (flash_fwd's out and LSE, then flash_bwd, through
+    autograd) against autograd of the plain attention in fp32 on the same
+    bf16 inputs.  Nothing of the kernels' forward feeds the reference."""
+    import torch
+    from ray_tpu_torch.ops.attention import (flash_attention,
+                                             reference_attention)
+    B, H, Hkv, Sq, Sk, D, dtype, causal, qo = _train_attn_case()
+    q, k, v = _flash_inputs(B, H, Hkv, Sq, Sk, D, dtype, seed=900)
+    g = torch.Generator(device="cuda").manual_seed(901)
+    dout = torch.randn(B, H, Sq, D, generator=g, device="cuda").to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*leaves, causal=causal),
+                              leaves, dout)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(
+        reference_attention(*leaves, causal=causal), leaves, dout.float())
+    torch.cuda.synchronize()
+    errs = {n: _grad_errs(a, r) for n, a, r in zip(("dq", "dk", "dv"),
+                                                   got, ref)}
+    row = {"check": "flash_attention grads vs autograd of fp32 plain",
+           "dtype": "bfloat16", "B": B, "H": H, "Hkv": Hkv, "Sq": Sq,
+           "Sk": Sk, "D": D, "causal": causal, "q_offset": qo,
+           "max_abs_err": {n: e[0] for n, e in errs.items()},
+           "max_rel_err": {n: e[1] for n, e in errs.items()},
+           "tol_rel": TOL_BWD["bfloat16"]}
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+    if not (finite and max(e[1] for e in errs.values())
+            <= TOL_BWD["bfloat16"]):
+        failed.append(("flash_attention grad", row))
+    return row
 
 
 def phase_kernel_time(smi):
@@ -279,9 +422,68 @@ def phase_kernel_time(smi):
                          "seq_lens": [min(lens), max(lens)],
                          "dtype": "bfloat16"},
         ms, plain, None, flops, nbytes, err)
+    _time_flash_bwd(rows)
     for row in rows.values():
         emit(dict(row, phase="kernel_time", card=smi))
     return rows
+
+
+def _sdpa_bwd_ms(q, k, v, dout, iters):
+    """SDPA's backward alone: forward plus autograd.grad, less the forward
+    timed apart (the yardstick; the port never calls SDPA)."""
+    import torch
+    import torch.nn.functional as F
+    qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*qkv, is_causal=True,
+                                              enable_gqa=True)
+
+    fwd_ms = time_ms(fwd, iters)
+    both_ms = time_ms(lambda: torch.autograd.grad(fwd(), qkv, dout), iters)
+    return both_ms - fwd_ms
+
+
+def _time_flash_bwd(rows):
+    """flash_bwd_dq and flash_bwd_dkv at the training config's attention
+    shape (B=1, H=Hkv=16, S=2048, D=128, bf16, causal) and with GQA 16/8."""
+    import torch
+    from ray_tpu_torch.ops.attention import (_flash_bwd_plain, flash_bwd,
+                                             flash_bwd_dkv, flash_bwd_dq)
+    B, S, D = 1, 2048, 128
+    scale = 1.0 / math.sqrt(D)
+    for H, Hkv, tag in ((16, 16, ""), (16, 8, "_gqa16_8")):
+        q, k, v, out, lse, dout = _bwd_inputs(B, H, Hkv, S, S, D,
+                                              torch.bfloat16, True, 0, 11)
+        delta = (dout.float() * out.float()).sum(-1)
+        kw = dict(causal=True, scale=scale, q_offset=0)
+        got = flash_bwd(q, k, v, out, lse, dout, **kw)
+        ref = _flash_bwd_plain(q, k, v, out, lse, dout, True, scale, 0)
+        errs = [_grad_errs(a, r) for a, r in zip(got, ref)]
+        dq_ms = time_ms(lambda: flash_bwd_dq(q, k, v, dout, lse, delta,
+                                             **kw), 30)
+        dkv_ms = time_ms(lambda: flash_bwd_dkv(q, k, v, dout, lse, delta,
+                                               **kw), 30)
+        # The plain version computes dq, dk and dv together: one time for
+        # both rows.  So does SDPA's backward.
+        plain = time_ms(lambda: _flash_bwd_plain(q, k, v, out, lse, dout,
+                                                 True, scale, 0), 5)
+        lib = _sdpa_bwd_ms(q, k, v, dout, 30)
+        pairs = S * (S + 1) // 2                  # causal (q, k) pairs
+        # Read once: q, dO, k, v (bf16), LSE and delta (fp32).
+        reads = 2 * (2 * B * H * S * D + 2 * B * Hkv * S * D) + 8 * B * H * S
+        shape = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D,
+                 "dtype": "bfloat16", "causal": True}
+        note = {"plain_and_library_cover": "dq, dk and dv together"}
+        rows[f"flash_bwd_dq{tag}"] = dict(_timing_row(
+            "flash_bwd_dq", shape, dq_ms, plain, lib, 6 * B * H * D * pairs,
+            reads + 2 * B * H * S * D, errs[0][0]),
+            max_rel_err=errs[0][1], **note)
+        rows[f"flash_bwd_dkv{tag}"] = dict(_timing_row(
+            "flash_bwd_dkv", shape, dkv_ms, plain, lib,
+            8 * B * H * D * pairs, reads + 2 * 2 * B * Hkv * S * D,
+            max(errs[1][0], errs[2][0])),
+            max_rel_err=max(errs[1][1], errs[2][1]), **note)
 
 
 def _timing_row(name, shape, ms, plain_ms, library_ms, flops, nbytes,
@@ -557,7 +759,6 @@ def _profile_chunk(params, cfg, eng, page):
     a depth of ~320 tokens, timed on the host clock, then once under
     torch.profiler for device time by kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from ray_tpu_torch.llm import _model
     B, steps, depth = eng.max_slots, 8, 320
     P = math.ceil((depth + steps + 1) / page)
@@ -578,9 +779,27 @@ def _profile_chunk(params, cfg, eng, page):
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
+    busy_ms, top, _kinds = _device_time(run)
+    return {"slots": B, "steps": steps, "depth": depth,
+            "wall_ms_per_step": wall * 1e3 / steps,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "device_idle_share": (1 - busy_ms / (wall * 1e3)
+                                  if busy_ms else None),
+            "top_kernels_ms_per_step": [
+                [name[:48], round(us / 1e3 / steps, 4), n // steps]
+                for name, (us, n) in top]}
+
+
+def _device_time(run, top: int = 8):
+    """Device time of one call of ``run`` under torch.profiler: (busy ms,
+    the ``top`` largest kernels as [(name, (us, launches))], device ms by
+    kind of kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
+        torch.cuda.synchronize()
     by_kernel = {}
     for ev in prof.key_averages():
         # Kernel events only: an aten op's own entry repeats the device
@@ -592,15 +811,244 @@ def _profile_chunk(params, cfg, eng, page):
         if dev_us > 0:
             by_kernel[ev.key] = (dev_us, ev.count)
     busy_ms = sum(us for us, _n in by_kernel.values()) / 1e3
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"slots": B, "steps": steps, "depth": depth,
-            "wall_ms_per_step": wall * 1e3 / steps,
-            "device_busy_ms_per_step": busy_ms / steps,
-            "device_idle_share": (1 - busy_ms / (wall * 1e3)
-                                  if busy_ms else None),
-            "top_kernels_ms_per_step": [
-                [name[:48], round(us / 1e3 / steps, 4), n // steps]
-                for name, (us, n) in top]}
+    kinds = {}
+    for name, (us, _n) in by_kernel.items():
+        kind = _kernel_kind(name)
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
+    return (busy_ms, sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:top],
+            dict(sorted(kinds.items(), key=lambda kv: -kv[1])))
+
+
+def _kernel_kind(name: str) -> str:
+    for kind, marks in (
+            ("flash_fwd", ("flash_fwd_",)),
+            ("flash_bwd_dq", ("flash_bwd_dq",)),
+            ("flash_bwd_dkv", ("flash_bwd_dkv",)),
+            ("paged_decode", ("paged_decode",)),
+            ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+            ("optimizer (foreach)", ("multi_tensor", "foreach")),
+            ("index / scatter", ("index", "scatter", "gather")),
+            ("reduction", ("reduce_kernel", "softmax", "norm")),
+            ("elementwise", ("elementwise", "vectorized", "copy"))):
+        if any(m in name for m in marks):
+            return kind
+    return "other"
+
+
+def phase_train_exact():
+    """Narrow fp32 model on the card: three adamw steps of
+    make_lm_train_step through the flash kernels equal three through the
+    plain attention, from the same weights and batches."""
+    import torch
+    from ray_tpu_torch._tree import tree_leaves
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from ray_tpu_torch.parallel import build_mesh, make_lm_train_step
+    cfg = LlamaConfig(vocab_size=512, hidden=256, layers=2, heads=4,
+                      kv_heads=2, head_dim=64, mlp_dim=512, max_seq_len=256,
+                      dtype=torch.float32, remat=True)
+    rng = np.random.default_rng(5)
+    batches = [{"tokens": rng.integers(0, 512, (4, 128)).astype(np.int32)}
+               for _ in range(3)]
+    mask = np.ones((4, 128), np.float32)
+    mask[0, 40:] = 0.0
+    batches[1]["loss_mask"] = mask
+    runs = {}
+    for impl in ("flash", "reference"):
+        init_fn, step_fn, place = make_lm_train_step(
+            cfg.replace(attention_impl=impl), build_mesh(),
+            learning_rate=TRAIN_LR)
+        params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+        start = [t.detach().clone() for t in tree_leaves(params)]
+        before = (flash_fwd.launches, flash_bwd_dq.launches,
+                  flash_bwd_dkv.launches)
+        metrics = []
+        for b in batches:
+            params, opt, m = step_fn(params, opt, place(b))
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        launched = [n - b for n, b in zip(
+            (flash_fwd.launches, flash_bwd_dq.launches,
+             flash_bwd_dkv.launches), before)]
+        # What the three updates moved each leaf by (the step, not the
+        # shared initial weights).
+        moved = [t.detach() - s for t, s in zip(tree_leaves(params), start)]
+        runs[impl] = (metrics, moved, launched)
+    (km, kd, kl), (rm, rd, rl) = runs["flash"], runs["reference"]
+    errs = {
+        "loss": max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(km, rm)),
+        "grad_norm": max(abs(a[1] - b[1]) / abs(b[1])
+                         for a, b in zip(km, rm)),
+        "params_moved": max((torch.linalg.vector_norm(a - b)
+                             / torch.linalg.vector_norm(b)).item()
+                            for a, b in zip(kd, rd))}
+    elem = max(((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(kd, rd))
+    res = {"phase": "train_exact", "steps": 3, "losses": [m[0] for m in km],
+           "grad_norms": [m[1] for m in km], "max_rel_err": errs,
+           "params_moved_max_elem_err_over_leaf_max": elem,
+           "tol": TOL_TRAIN_EXACT,
+           "launches": {"flash_fwd": kl[0], "flash_bwd_dq": kl[1],
+                        "flash_bwd_dkv": kl[2], "reference_run": rl}}
+    emit(res)
+    check(kl == [3 * 2 * cfg.layers, 3 * cfg.layers, 3 * cfg.layers]
+          and rl == [0, 0, 0], f"train_exact launches {res['launches']}")
+    check(all(errs[k] <= TOL_TRAIN_EXACT[k] for k in errs),
+          f"train_exact: kernel path vs plain path {errs}")
+
+
+def phase_train(smi):
+    """The JAX bench's training config at full width and depth through
+    make_lm_train_step: 2 warm-up steps, then 5 timed steps on one repeated
+    batch (the main path), then one profiled step and a kernel-vs-plain
+    comparison at B=2."""
+    import torch
+    from ray_tpu_torch.models.llama import LlamaConfig, num_params
+    from ray_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from ray_tpu_torch.parallel import build_mesh, make_lm_train_step
+    cfg = LlamaConfig(**TRAIN_CFG, dtype=torch.bfloat16, remat=True,
+                      attention_impl="flash")
+    init_fn, step_fn, place = make_lm_train_step(
+        cfg, build_mesh(), learning_rate=TRAIN_LR,
+        param_dtype=torch.bfloat16)
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = place({"tokens": rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), dtype=np.int32)})
+    losses = []
+    for _ in range(2):          # warm-up: cuBLAS handles, allocator
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+
+    # -- the main path: launch counts read from this window only.
+    flash_fwd.launches = 0
+    flash_bwd_dq.launches = 0
+    flash_bwd_dkv.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    steps = 5
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash_fwd.launches,
+                "flash_bwd_dq": flash_bwd_dq.launches,
+                "flash_bwd_dkv": flash_bwd_dkv.launches}
+    peak = torch.cuda.max_memory_allocated()
+    # -- end of the main path.
+
+    losses = [x.item() for x in losses]
+    per_step = {k: n / steps for k, n in launches.items()}
+    want = {"flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
+            "flash_bwd_dkv": cfg.layers}
+    check(per_step == want, f"launches per step {per_step} != {want}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    step_s = wall / steps
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    n_params = num_params(cfg)
+
+    busy_ms, top, kinds = _device_time(lambda: step_fn(params, opt, batch),
+                                       top=12)
+    compare = _train_compare(cfg, params, rng)
+    emit({"phase": "train", "config": "bench.py:3384-3390", "card": smi,
+          "num_params": n_params, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+          "remat": True, "param_dtype": "bfloat16", "lr": TRAIN_LR,
+          "steps_timed": steps, "step_ms": step_s * 1e3,
+          "tokens_per_s": tok_s,
+          "mfu": 6.0 * n_params * tok_s / PEAK_BF16_FLOPS,
+          "peak_mem_gb": peak / 2**30, "losses": losses,
+          "launches_per_step": per_step,
+          "profile_one_step": {
+              "device_busy_ms": busy_ms,
+              "device_idle_share": 1 - busy_ms / (step_s * 1e3),
+              "device_ms_by_kind": kinds,
+              "top_kernels_ms": [[name[:48], round(us / 1e3, 3), n]
+                                 for name, (us, n) in top]},
+          "kernel_vs_plain_B2": compare})
+    errs, tol = compare["rel_err"], TOL_TRAIN_BF16
+    check(all(errs[k] <= tol[k] for k in tol),
+          f"train B=2 kernel vs plain {compare}")
+    check(all(e > tol["attn_grad"] for e, _ in
+              compare["planted_faults_attn_grad"].values()),
+          f"a planted backward fault passes the attention-gradient check: "
+          f"{compare}")
+    return launches
+
+
+ATTN_LEAVES = ("wq", "wk", "wv", "wo")
+# Faults planted in flash_bwd's output for the B=2 comparison (dq, dk, dv
+# scales): each must fail the attention-gradient check, which shows that the
+# check can see a wrong backward.
+PLANTED_FAULTS = {"dq zeroed": (0.0, 1.0, 1.0), "dq x0.9": (0.9, 1.0, 1.0),
+                  "dk x0.9": (1.0, 0.9, 1.0), "dv x0.9": (1.0, 1.0, 0.9)}
+
+
+def _loss_and_grads(cfg, params, batch):
+    """One loss_fn forward and backward: (loss, global grad norm, the
+    attention leaves' gradients [L, ...] by name)."""
+    import torch
+    from ray_tpu_torch._tree import tree_leaves
+    from ray_tpu_torch.models.llama import loss_fn
+    from ray_tpu_torch.optim import global_norm
+    leaves = tree_leaves(params)
+    loss = loss_fn(params, batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    at = {id(t): i for i, t in enumerate(leaves)}
+    attn = {n: grads[at[id(params["blocks"][n])]] for n in ATTN_LEAVES}
+    return loss.item(), global_norm(grads).item(), attn
+
+
+def _worst_layer_err(got, ref):
+    """The largest ||a - b|| / ||b|| over every layer of every attention
+    leaf, and where it is."""
+    import torch
+    worst = (0.0, None)
+    for n in ATTN_LEAVES:
+        a, b = got[n].float().flatten(1), ref[n].float().flatten(1)
+        per_layer = (torch.linalg.vector_norm(a - b, dim=1)
+                     / torch.linalg.vector_norm(b, dim=1))
+        i = int(per_layer.argmax())
+        if per_layer[i].item() > worst[0]:
+            worst = (per_layer[i].item(), f"{n}[{i}]")
+    return worst
+
+
+def _train_compare(cfg, params, rng):
+    """At the same width and depth with B=2, from the same params: loss,
+    global grad norm and the gradient of every layer's wq, wk, wv and wo,
+    the flash kernels against attention_impl="reference".  Then the same
+    with each planted fault in flash_bwd's output."""
+    import importlib
+    import torch
+    # The module (ray_tpu_torch.ops re-exports its function `attention`).
+    attn_mod = importlib.import_module("ray_tpu_torch.ops.attention")
+    batch ={"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, TRAIN_SEQ), dtype=np.int32)).cuda()}
+    kl, kg, kgrads = _loss_and_grads(cfg, params, batch)
+    rl, rg, rgrads = _loss_and_grads(
+        cfg.replace(attention_impl="reference"), params, batch)
+    planted = {}
+    real = attn_mod.flash_bwd
+    for fault, scales in PLANTED_FAULTS.items():
+        def faulty(*args, _scales=scales, **kw):
+            return tuple(g * s for g, s in zip(real(*args, **kw), _scales))
+        attn_mod.flash_bwd = faulty
+        try:
+            planted[fault] = _worst_layer_err(
+                _loss_and_grads(cfg, params, batch)[2], rgrads)
+        finally:
+            attn_mod.flash_bwd = real
+    worst, where = _worst_layer_err(kgrads, rgrads)
+    return {"loss": [kl, rl], "grad_norm": [kg, rg],
+            "rel_err": {"loss": abs(kl - rl) / abs(rl),
+                        "grad_norm": abs(kg - rg) / abs(rg),
+                        "attn_grad": worst},
+            "attn_grad_worst_at": where,
+            "planted_faults_attn_grad": planted, "tol": TOL_TRAIN_BF16}
 
 
 def main() -> int:
@@ -625,16 +1073,25 @@ def main() -> int:
     phase_kernel_check()
     rows = phase_kernel_time(smi)
     phase_serve_exact()
-    launches = phase_serve(smi)
+    serve = phase_serve(smi)
+    torch.cuda.empty_cache()
+    phase_train_exact()
+    train = phase_train(smi)
     kernels = []
-    for name, row, src, rep in (
+    for name, row, src, rep, by_path in (
             ("flash_fwd", rows["flash_fwd_S256"], FLASH_SOURCE,
-             FLASH_REPLACES),
+             FLASH_REPLACES, {"serve": serve["flash_fwd"],
+                              "train": train["flash_fwd"]}),
             ("paged_decode", rows["paged_decode"], PAGED_SOURCE,
-             PAGED_REPLACES)):
+             PAGED_REPLACES, {"serve": serve["paged_decode"]}),
+            ("flash_bwd_dq", rows["flash_bwd_dq"], BWD_SOURCE, DQ_REPLACES,
+             {"train": train["flash_bwd_dq"]}),
+            ("flash_bwd_dkv", rows["flash_bwd_dkv"], BWD_SOURCE,
+             DKV_REPLACES, {"train": train["flash_bwd_dkv"]})):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -12,5 +12,7 @@ Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``; with
 no card visible and the CPU not asked for, they raise (``_device.py``).
 
 Slices ported so far: serving (``llm``: engine, paged cache, model forward
-passes; ``ops``: norms, rope, flash forward, paged decode; ``models.llama``).
+passes; ``ops``: norms, rope, flash forward, paged decode; ``models.llama``)
+and training on one card (``parallel.spmd.make_lm_train_step`` over
+``models.llama.loss_fn`` with remat, ``optim.adamw``, the flash backward).
 """

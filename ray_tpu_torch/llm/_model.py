@@ -30,7 +30,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models.llama import (LlamaConfig, attention_impl, layer_params,
+from ..models.llama import (LlamaConfig, attention_impl, layers,
                             logits_f32, mlp)
 from ..ops.attention import attention
 from ..ops.norms import rms_norm
@@ -83,8 +83,7 @@ def prefill(params: Dict[str, Any], tokens: torch.Tensor, length: int,
     rope = _rope_tables(cfg, tokens.device)
     x = _embed(params, tokens, dt)
     ks, vs = [], []
-    for li in range(params["blocks"]["wq"].shape[0]):
-        layer = layer_params(params, li)
+    for layer in layers(params):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(cfg, layer, h, positions[None, :], rope)
         # Causal masking suffices: queries at/after `length` are padding
@@ -150,8 +149,7 @@ def prefill_chunk(params: Dict[str, Any], kv_pages, tokens: torch.Tensor,
     mask = (kv_pos[None, :] <= positions[:, None]) & (kv_pos[None, :] < total)
     rope = _rope_tables(cfg, dev)
     x = _embed(params, tokens, dt)                # [1, C, E]
-    for li, kv in enumerate(kv_pages):
-        layer = layer_params(params, li)
+    for kv, layer in zip(kv_pages, layers(params)):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(cfg, layer, h, rope_pos[None, :], rope)
         # Write this chunk's K/V first, then gather the WHOLE sequence back
@@ -207,8 +205,7 @@ def decode_step(params: Dict[str, Any], kv_pages, tokens: torch.Tensor,
     rope_pos = positions.clamp(max=cfg.max_seq_len - 1).long()
     rope = _rope_tables(cfg, dev)
     plain = attention_impl(cfg) == "reference"
-    for li, kv in enumerate(kv_pages):
-        layer = layer_params(params, li)
+    for kv, layer in zip(kv_pages, layers(params)):
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(cfg, layer, h, rope_pos[:, None], rope)
         kv[page_idx, page_off] = combine_kv(k[:, :, 0, :],

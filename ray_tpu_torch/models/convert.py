@@ -1,10 +1,11 @@
-"""Carry the JAX package's parameters over to the port.
+"""Carry the JAX package's parameters and optimizer state over to the port.
 
 ``params_from_numpy`` turns a JAX parameter pytree (any nesting of dicts
 whose leaves ``np.asarray`` accepts) into the port's dict of tensors.  The
 layout is kept exactly: the stacked ``[L, ...]`` blocks and every axis order
 of ``ray_tpu/models/llama.py:init_params``, with no transposes, so a test or
-a checkpoint feeds both packages the same weights.
+a checkpoint feeds both packages the same weights.  ``opt_state_from_numpy``
+does the same for optax's adamw state.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..optim import AdamState
 
 
 def _leaf(x, dtype: Optional[torch.dtype], device: torch.device):
@@ -41,3 +43,29 @@ def params_from_numpy(tree: Any, dtype: Optional[torch.dtype] = None,
         return _leaf(node, dtype, dev)
 
     return conv(tree)
+
+
+def _find_adam(node):
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, (list, tuple)):
+        for v in node:
+            found = _find_adam(v)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_numpy(state: Any, device: DeviceLike = None) -> AdamState:
+    """optax adamw state as numpy (``jax.tree.map(np.asarray, opt_state)``:
+    the chain's tuple holding ``ScaleByAdamState(count, mu, nu)`` and two
+    empty states) -> the port's ``optim.AdamState``.  mu and nu keep their
+    dtypes and the params' layout; ``count`` becomes the int32 CPU scalar
+    the port's adamw keeps."""
+    adam = _find_adam(state)
+    if adam is None:
+        raise ValueError("no adam state (count, mu, nu) in the given tree")
+    return AdamState(
+        count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32),
+        mu=params_from_numpy(adam.mu, device=device),
+        nu=params_from_numpy(adam.nu, device=device))

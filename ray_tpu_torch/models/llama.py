@@ -7,10 +7,12 @@ leading ``[L, ...]`` axis, projections as ``wq [L, E, H, D]`` and friends, so
 transposes.  Activations run in ``cfg.dtype`` with weights cast at each use,
 as the JAX code does; logits are fp32.
 
-Attention dispatches to ``ops.attention``: the CUDA flash forward on the card
-(``attention_impl`` "auto" or "flash"), the plain version for "reference".
-Dense models only in this slice: ring/Ulysses attention, MoE and pipeline
-parallelism raise ``NotImplementedError`` naming the slice they come with.
+Attention dispatches to ``ops.attention``: the CUDA flash kernels on the card
+(``attention_impl`` "auto" or "flash"; forward and, under autograd, the flash
+backward), the plain version for "reference".  ``loss_fn`` is the training
+objective, with the JAX package's remat modes as ``torch.utils.checkpoint``.
+Dense models only: ring/Ulysses attention, MoE and pipeline parallelism raise
+``NotImplementedError`` naming the slice they come with.
 """
 
 from __future__ import annotations
@@ -18,10 +20,12 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from functools import partial
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import attention as _attention
@@ -50,7 +54,8 @@ class LlamaConfig:
     # "ring"/"ulysses" come with a later slice.
     attention_impl: str = "auto"
     seq_axis: str = "sp"
-    # Rematerialization mode of the training step (training slice).
+    # False | True/"full" | "mlp_only" (see _forward_hidden); "dots" and
+    # "dots_nobatch" come with a later slice.
     remat: Any = True
     # Pipeline parallelism: number of microbatches (0 = off).
     pp_microbatches: int = 0
@@ -87,17 +92,17 @@ def check_supported(cfg: LlamaConfig) -> None:
         raise NotImplementedError(
             f"attention_impl={cfg.attention_impl!r} (sequence-parallel "
             "attention) comes with a later slice of the port: ROADMAP "
-            "Queue 1 item 9")
+            "Queue 1 item 7")
     if cfg.attention_impl not in ("auto", "flash", "reference"):
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
     if cfg.num_experts > 0:
         raise NotImplementedError(
             "mixture-of-experts layers come with a later slice of the port: "
-            "ROADMAP Queue 1 item 9 (ops/moe.py)")
+            "ROADMAP Queue 1 item 7 (ops/moe.py)")
     if cfg.pp_microbatches > 0:
         raise NotImplementedError(
             "pipeline parallelism comes with a later slice of the port: "
-            "ROADMAP Queue 1 item 9 (parallel/pipeline.py)")
+            "ROADMAP Queue 1 item 7 (parallel/pipeline.py)")
 
 
 def attention_impl(cfg: LlamaConfig) -> Optional[str]:
@@ -146,9 +151,37 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     }
 
 
-def layer_params(params: Dict[str, Any], li: int) -> Dict[str, Any]:
-    """Layer ``li``'s slice of the stacked block parameters (views)."""
-    return {k: v[li] for k, v in params["blocks"].items()}
+def layers(params: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Every layer's parameters (views of the stacked block tensors), from
+    one ``unbind(0)`` per stacked tensor.  Under autograd its backward is a
+    single ``stack`` (the counterpart of the gradient of JAX's
+    ``lax.scan``); per-layer ``select`` views would each add a zero tensor
+    the size of the whole stack."""
+    blocks = params["blocks"]
+    names = list(blocks)
+    return [dict(zip(names, per))
+            for per in zip(*(blocks[n].unbind(0) for n in names))]
+
+
+class _MmF32(torch.autograd.Function):
+    """bf16 x [N, E] @ bf16 w [E, V] with an fp32 result on the card
+    (``torch.mm(..., out_dtype=torch.float32)``, which has no derivative of
+    its own).  The backward is the two products with the incoming fp32
+    gradient rounded to w's dtype, as a bf16 matrix unit takes it, so the
+    weight is never copied to fp32."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(w.dtype)
+        dx = torch.mm(g, w.t()) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(x.t(), g) if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def logits_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -163,7 +196,7 @@ def logits_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if w.dtype == torch.float32:
         out = x2.float() @ w
     elif x2.is_cuda:
-        out = torch.mm(x2.to(w.dtype), w, out_dtype=torch.float32)
+        out = _MmF32.apply(x2.to(w.dtype), w)
     else:
         out = x2.float() @ w.float()
     return out.reshape(*lead, w.shape[-1])
@@ -194,29 +227,137 @@ def _attn_half(cfg: LlamaConfig, cos, sin, positions, x, layer):
     return x + attn_out
 
 
+def _mlp_half(cfg: LlamaConfig, x, layer):
+    """MLP residual branch. x: [B, S, E] -> [B, S, E]."""
+    return x + mlp(cfg, layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
+
+
+def _block(cfg: LlamaConfig, cos, sin, positions, x, layer):
+    """One transformer block. x: [B, S, E]."""
+    return _mlp_half(cfg, _attn_half(cfg, cos, sin, positions, x, layer),
+                     layer)
+
+
+def _remat(fn):
+    """``fn`` recomputed in the backward instead of keeping its
+    activations (JAX's ``jax.checkpoint`` with ``nothing_saveable``)."""
+    return partial(checkpoint, fn, use_reentrant=False,
+                   preserve_rng_state=False)
+
+
+def _block_fn(cfg: LlamaConfig, cos, sin, positions):
+    """The per-layer function for ``cfg.remat``: False keeps every
+    activation; True/"full" recomputes the whole block in the backward;
+    "mlp_only" keeps the attention half's residuals (the flash kernel's
+    q/k/v/out/LSE: the quadratic part is never recomputed) and recomputes
+    only the MLP half."""
+    block = partial(_block, cfg, cos, sin, positions)
+    if not torch.is_grad_enabled() or cfg.remat is False:
+        return block
+    if cfg.remat is True or cfg.remat == "full":
+        return _remat(block)
+    if cfg.remat == "mlp_only":
+        mlp_half = _remat(partial(_mlp_half, cfg))
+        return lambda x, layer: mlp_half(
+            _attn_half(cfg, cos, sin, positions, x, layer), layer)
+    if cfg.remat in ("dots", "dots_nobatch"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} (save the matmul outputs, recompute the "
+            "rest) comes with a later slice of the port: ROADMAP Queue 1 "
+            "item 1 (remat policies)")
+    raise ValueError(f"unknown remat mode {cfg.remat!r}")
+
+
+def _forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
+                    cfg: LlamaConfig,
+                    positions: Optional[torch.Tensor] = None):
+    """tokens: [B, S] int -> (final hidden [B, S, E], aux loss 0);
+    forward_with_aux applies the lm_head on top."""
+    check_supported(cfg)
+    dt = cfg.dtype
+    # Cast, then gather (as JAX does): under autograd the embedding's
+    # gradient is then scatter-added in the compute dtype.
+    x = params["embed"].to(dt)[tokens]
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
+                                cfg.rope_theta, device=x.device)
+    block = _block_fn(cfg, cos, sin, positions)
+    for layer in layers(params):
+        x = block(x, layer)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def forward_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
                      cfg: LlamaConfig,
                      positions: Optional[torch.Tensor] = None):
     """tokens: [B, S] int -> (fp32 logits [B, S, vocab], aux loss 0).
 
     ``positions``: absolute positions [S] (defaults to arange)."""
-    check_supported(cfg)
-    dt = cfg.dtype
-    x = params["embed"][tokens].to(dt)
-    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
-                                cfg.rope_theta, device=x.device)
-    for li in range(params["blocks"]["wq"].shape[0]):
-        layer = layer_params(params, li)
-        x = _attn_half(cfg, cos, sin, positions, x, layer)
-        x = x + mlp(cfg, layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_f32(x, params["lm_head"].to(dt))
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _forward_hidden(params, tokens, cfg, positions)
+    return logits_f32(x, params["lm_head"].to(cfg.dtype)), aux
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     return forward_with_aux(params, tokens, cfg, positions)[0]
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-position NLL as LSE(logits) - logit[target] (the logsumexp form
+    of the JAX loss: no second [B, S, vocab] log-softmax array)."""
+    logits = logits.float()
+    tgt = logits.gather(-1, targets[..., None].long())[..., 0]
+    return torch.logsumexp(logits, dim=-1) - tgt
+
+
+def _chunked_nll_sum(x, lm_head, targets, mask, num_chunks: int, dt):
+    """Masked next-token NLL sum with the lm_head applied per sequence
+    chunk, each chunk recomputed in the backward: peak logits memory is one
+    chunk's [B, S/c, vocab] fp32 slab instead of the full tensor."""
+    S = x.shape[1]
+    if S % num_chunks:
+        raise ValueError(f"sequence {S} not divisible by loss_chunks="
+                         f"{num_chunks}")
+    c = S // num_chunks
+
+    def chunk_nll(xc, tc, mc):
+        return (_nll(logits_f32(xc, lm_head.to(dt)), tc) * mc).sum()
+
+    if torch.is_grad_enabled():
+        chunk_nll = _remat(chunk_nll)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    # split (not per-chunk slices): its backward is one cat.
+    for xc, tc, mc in zip(x.split(c, dim=1), targets.split(c, dim=1),
+                          mask.split(c, dim=1)):
+        total = total + chunk_nll(xc, tc, mc)
+    return total
+
+
+def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            cfg: LlamaConfig,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross-entropy (fp32 scalar).  batch: tokens [B, S] int,
+    optional loss_mask [B, S] and loss_denom (gradient accumulation passes
+    the full batch's token count)."""
+    tokens = batch["tokens"]
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                        dim=1)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.cat([torch.ones_like(tokens[:, 1:]),
+                          torch.zeros_like(tokens[:, :1])], dim=1)
+    mask = mask.float()
+    denom = batch.get("loss_denom")
+    if denom is None:
+        denom = mask.sum().clamp_min(1.0)
+    if cfg.loss_chunks:
+        x, _aux = _forward_hidden(params, tokens, cfg, positions)
+        nll_sum = _chunked_nll_sum(x, params["lm_head"], targets, mask,
+                                   cfg.loss_chunks, cfg.dtype)
+    else:
+        logits, _aux = forward_with_aux(params, tokens, cfg, positions)
+        nll_sum = (_nll(logits, targets) * mask).sum()
+    return nll_sum / denom
 
 
 def num_params(cfg: LlamaConfig) -> int:

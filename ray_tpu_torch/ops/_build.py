@@ -8,8 +8,9 @@ so a build takes seconds (``torch.utils.cpp_extension.load`` takes minutes
 for one file).
 
 Libraries build at first use into ``ray_tpu_torch/_build/``, named by a hash
-of their source and flags, so a fresh checkout builds everything on its first
-call and a changed source rebuilds.  ``build()`` starts one ``nvcc`` per
+of their source, the headers in ``csrc/`` and the flags, so a fresh checkout
+builds everything on its first call and a changed source or header
+rebuilds.  ``build()`` starts one ``nvcc`` per
 source, all at once.  Nothing here runs at import: the CPU tests import every
 module on machines with no ``nvcc``.
 """
@@ -29,7 +30,7 @@ from typing import Dict, Iterable, List, Sequence
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("flash_fwd", "paged_decode")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -58,9 +59,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library's path, named by a hash of its source, every header in
+    ``csrc/`` (any source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:

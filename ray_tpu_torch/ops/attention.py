@@ -11,8 +11,14 @@ PyTorch version (counterpart of ray_tpu/ops/attention.py).
   Unlike the TPU kernel it masks the ragged edge, so any Sq and Sk work and
   nothing is padded.  On CPU tensors it takes the plain version; on CUDA
   tensors it launches the kernel or raises.
-- ``flash_attention`` is the forward-only entry point: the backward kernels
-  come with the training slice, so CUDA inputs that require grad raise.
+- ``flash_bwd`` wraps the two CUDA kernels of ``csrc/flash_bwd.cu``, which
+  replace the Pallas ``_dq_kernel`` and ``_dkv_kernel``: P is recomputed from
+  the forward's fp32 LSE, delta = rowsum(dO * O) is a plain reduction outside
+  the kernels (as in JAX), and dK/dV come out already summed over each KV
+  head's query heads.  ``_flash_bwd_plain`` is its plain version.
+- ``flash_attention`` ties the two together in ``_Flash``, a
+  ``torch.autograd.Function``: forward with LSE, backward through
+  ``flash_bwd``.  Without a gradient to take it runs the forward alone.
 - ``attention`` dispatches: the kernel path by default, the plain version
   for ``impl="reference"``.
 
@@ -76,30 +82,32 @@ def _flash_plain(q, k, v, causal, scale, q_offset, need_lse):
 def _check_flash(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"flash_fwd: {name} must be on {q.device}")
+            raise ValueError(f"flash attention: {name} must be on {q.device}")
         if t.dtype != q.dtype:
-            raise ValueError(f"flash_fwd: {name} is {t.dtype}, q is "
+            raise ValueError(f"flash attention: {name} is {t.dtype}, q is "
                              f"{q.dtype}")
         if t.dim() != 4:
-            raise ValueError(f"flash_fwd: {name} must be 4-D, got "
+            raise ValueError(f"flash attention: {name} must be 4-D, got "
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"flash_fwd: {name} must be contiguous")
+            raise ValueError(f"flash attention: {name} must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError(f"flash_fwd: {name} must be 16-byte aligned")
+            raise ValueError(f"flash attention: {name} must be 16-byte "
+                             "aligned")
     if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_fwd takes bfloat16 or float32, not "
+        raise ValueError(f"flash attention takes bfloat16 or float32, not "
                          f"{q.dtype}")
     B, H, Sq, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
-        raise ValueError(f"flash_fwd: k {tuple(k.shape)} / v "
+        raise ValueError(f"flash attention: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_fwd takes head_dim in {_HEAD_DIMS}, not {D}")
+        raise ValueError(f"flash attention takes head_dim in {_HEAD_DIMS}, "
+                         f"not {D}")
     if H % k.shape[1]:
         raise ValueError(f"H={H} not divisible by Hkv={k.shape[1]}")
     if Sq == 0 or k.shape[2] == 0:
-        raise ValueError("flash_fwd: empty sequence")
+        raise ValueError("flash attention: empty sequence")
 
 
 def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
@@ -139,17 +147,158 @@ def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
 flash_fwd.launches = 0
 
 
+def _flash_bwd_plain(q, k, v, out, lse, dout, causal, scale, q_offset):
+    """The backward pair's math in plain torch: P = exp(S - LSE) from the
+    saved fp32 LSE, delta = rowsum(dO * O), dS = P * (dP - delta) * scale;
+    P and dS are rounded to the inputs' dtype before the second products
+    (the kernels' and the TPU's bf16 operands), which accumulate in fp32.
+    dK/dV are summed over each KV head's query heads."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = H // Hkv
+    kr = k.repeat_interleave(group, dim=1) if group > 1 else k
+    vr = v.repeat_interleave(group, dim=1) if group > 1 else v
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    if causal:
+        qpos = torch.arange(Sq, device=q.device) + q_offset
+        kpos = torch.arange(Sk, device=q.device)
+        p = p.masked_fill(~(qpos[:, None] >= kpos[None, :]), 0.0)
+    delta = (dout.float() * out.float()).sum(-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), vr.float())
+    ds = p * (dp - delta[..., None]) * scale
+    p = p.to(q.dtype).float()
+    ds = ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dout.float())
+    if group > 1:
+        dk = dk.reshape(B, Hkv, group, Sk, D).sum(2)
+        dv = dv.reshape(B, Hkv, group, Sk, D).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd(q, k, v, dout, lse, delta) -> None:
+    _check_flash(q, k, v)
+    if (dout.shape != q.shape or dout.dtype != q.dtype
+            or dout.device != q.device or not dout.is_contiguous()
+            or dout.data_ptr() % 16):
+        raise ValueError(f"flash_bwd: dout must be contiguous, 16-byte "
+                         f"aligned {q.dtype} {tuple(q.shape)} on {q.device}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != q.shape[:3] or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"flash_bwd: {name} must be contiguous fp32 "
+                             f"{tuple(q.shape[:3])} on {q.device}")
+
+
+def _bwd_fn(symbol: str, n_out: int):
+    return _build.function("flash_bwd", symbol, (
+        [ctypes.c_void_p] * (6 + n_out)
+        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_void_p]))
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal, scale, q_offset):
+    """Launch the dq kernel: dQ [B, H, Sq, D] in q's dtype, from CUDA
+    tensors (raises on anything else).  ``flash_bwd_dq.launches`` counts."""
+    _check_bwd(q, k, v, dout, lse, delta)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        code = _bwd_fn("rt_flash_bwd_dq", 1)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, H, Hkv, Sq, Sk, D, float(scale),
+            int(causal), int(q_offset),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_bwd", code, "flash_bwd dq launch")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal, scale, q_offset):
+    """Launch the dk/dv kernel: (dK, dV) [B, Hkv, Sk, D] in k's dtype,
+    summed over each KV head's query heads, from CUDA tensors (raises on
+    anything else).  ``flash_bwd_dkv.launches`` counts."""
+    _check_bwd(q, k, v, dout, lse, delta)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        code = _bwd_fn("rt_flash_bwd_dkv", 2)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, H, Hkv, Sq, Sk, D, float(scale),
+            int(causal), int(q_offset),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_bwd", code, "flash_bwd dk/dv launch")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+              scale: Optional[float] = None, q_offset: int = 0
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash attention backward.  q/out/dout: [B, H, Sq, D]; k/v:
+    [B, Hkv, Sk, D]; lse: the forward's fp32 [B, H, Sq].
+
+    Returns (dq, dk, dv) in the inputs' dtypes, dk/dv summed over each KV
+    head's query heads.  CPU tensors take the plain version; CUDA tensors
+    launch the dq and dk/dv kernels (bf16 or fp32, D in {64, 128}) or
+    raise."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return _flash_bwd_plain(q, k, v, out, lse, dout, causal, scale,
+                                q_offset)
+    if out.shape != q.shape:
+        raise ValueError(f"flash_bwd: out {tuple(out.shape)} does not "
+                         f"match q {tuple(q.shape)}")
+    # delta_i = rowsum(dO * O): a plain reduction outside the kernels, as
+    # the JAX code computes it outside Pallas.
+    delta = (dout.float() * out.float()).sum(-1)
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset)
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """flash_fwd (with LSE) forward, flash_bwd backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset):
+        out, lse = flash_fwd(q, k, v, causal=causal, scale=scale,
+                             q_offset=q_offset, need_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, scale, q_offset = ctx.args
+        # The gradient of the output projection arrives strided.
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(),
+                               causal=causal, scale=scale, q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """Flash attention, forward only.  q: [B, H, Sq, D]; k/v: [B, Hkv, Sk, D].
-
-    The backward kernels come with the training slice: CUDA inputs that
-    require grad raise instead of silently taking the plain version."""
-    if q.is_cuda and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "backward kernels come with the training slice")
+    """Flash attention with a flash backward.  q: [B, H, Sq, D]; k/v:
+    [B, Hkv, Sk, D].  Where no gradient is taken only the forward runs
+    (no LSE)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Flash.apply(q, k, v, causal, scale, q_offset)
     return flash_fwd(q, k, v, causal=causal, scale=scale,
                      q_offset=q_offset)[0]
 

@@ -1,0 +1,105 @@
+"""The optimizer of the training step: the port's own copy of the optax
+behaviour that ``ray_tpu/parallel/spmd.py`` relies on
+(``optax.adamw(lr, b1=0.9, b2=0.95, weight_decay=0.1)``), and
+``global_norm``.
+
+``adamw`` follows ``optax.adamw`` with its defaults (``eps_root=0``,
+``mu_dtype=None``, ``mask=None``): mu and nu in the params' dtype,
+bias-corrected m_hat / (sqrt(v_hat) + eps) with the correction cast to each
+moment's dtype before the division, plus decoupled weight decay ``wd * p``
+on every leaf (norms and embedding included), all times ``-lr``.
+
+Unlike optax, ``update`` applies the step to the parameters in place with
+``torch._foreach_*`` ops and uses the gradients as scratch: the port's form
+of ``donate_argnums``, so params, grads, mu and nu never exist twice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from ._tree import tree_leaves, tree_map
+
+_INT32_MAX = np.iinfo(np.int32).max
+
+
+@dataclass
+class AdamState:
+    """optax's ``ScaleByAdamState``: ``count`` is an int32 scalar kept on
+    the CPU (the bias correction needs it on the host every step); ``mu``
+    and ``nu`` mirror the params' tree."""
+    count: torch.Tensor
+    mu: Any
+    nu: Any
+
+
+def _correction(decay: float, count: int, dtype: torch.dtype) -> float:
+    """1 - decay**count in fp32, then rounded to ``dtype`` (optax's
+    ``tree_bias_correction``)."""
+    c = np.float32(1.0) - np.power(np.float32(decay), np.float32(count),
+                                   dtype=np.float32)
+    return torch.tensor(float(c), dtype=torch.float32).to(dtype).item()
+
+
+class AdamW:
+    def __init__(self, learning_rate: float, b1: float = 0.9,
+                 b2: float = 0.95, eps: float = 1e-8,
+                 weight_decay: float = 0.1):
+        self.learning_rate = learning_rate
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+
+    def init(self, params: Any) -> AdamState:
+        zeros = lambda p: torch.zeros_like(p, requires_grad=False)
+        return AdamState(count=torch.zeros((), dtype=torch.int32),
+                         mu=tree_map(zeros, params),
+                         nu=tree_map(zeros, params))
+
+    @torch.no_grad()
+    def update(self, grads: Any, state: AdamState,
+               params: Any) -> AdamState:
+        """One adamw step on ``params`` in place; returns the new state
+        (``mu``/``nu`` updated in place).  ``grads`` are overwritten."""
+        g = tree_leaves(grads)
+        p, mu, nu = (tree_leaves(t) for t in (params, state.mu, state.nu))
+        b1, b2 = self.b1, self.b2
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, g, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, g, g, value=1 - b2)
+        count = min(int(state.count) + 1, _INT32_MAX)
+        for dtype in dict.fromkeys(t.dtype for t in p):
+            idx = [i for i, t in enumerate(p) if t.dtype == dtype]
+            pd, gd = [p[i] for i in idx], [g[i] for i in idx]
+            mud, nud = [mu[i] for i in idx], [nu[i] for i in idx]
+            # gd becomes sqrt(nu_hat) + eps, then u = mu_hat / gd.
+            torch._foreach_copy_(gd, nud)
+            torch._foreach_div_(gd, _correction(b2, count, dtype))
+            torch._foreach_sqrt_(gd)
+            torch._foreach_add_(gd, self.eps)
+            u = torch._foreach_div(mud, _correction(b1, count, dtype))
+            torch._foreach_div_(u, gd)
+            torch._foreach_add_(u, pd, alpha=self.weight_decay)
+            torch._foreach_add_(pd, u, alpha=-self.learning_rate)
+        return AdamState(count=torch.tensor(count, dtype=torch.int32),
+                         mu=state.mu, nu=state.nu)
+
+
+def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.95,
+          eps: float = 1e-8, weight_decay: float = 0.1) -> AdamW:
+    """``optax.adamw`` with ``init(params)`` and ``update(grads, state,
+    params)`` (in place, see the module docstring)."""
+    return AdamW(learning_rate, b1=b1, b2=b2, eps=eps,
+                 weight_decay=weight_decay)
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, as an fp32 scalar (each
+    leaf's norm accumulated in fp32)."""
+    leaves = tree_leaves(tree)
+    norms = torch._foreach_norm(leaves, 2, dtype=torch.float32)
+    return torch.linalg.vector_norm(torch.stack(norms))

@@ -7,7 +7,8 @@ has no interpret mode).  On the card:
 
 Tolerances (max abs error vs the plain version on the same inputs): fp32
 1e-4 (another summation order, exp2 vs exp); bf16 2e-2 (P and O rounded to
-bf16: one ulp at |x| ~ 2 is 2**-6).
+bf16: one ulp at |x| ~ 2 is 2**-6).  The backward's are relative to each
+gradient's largest magnitude (``BWD_TOL``).
 """
 
 from __future__ import annotations
@@ -119,12 +120,97 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         paged.paged_decode(qd[:, :4].contiguous(), kv, bt.long(), sl, 16)
 
 
-def test_flash_attention_has_no_backward_yet(cuda):
-    q = torch.randn(1, 4, 64, 64, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        attn.flash_attention(q, q.detach(), q.detach())
+def _grad_err(got, ref):
+    """Max abs error relative to the reference's largest magnitude: dK and
+    dV sum over every query (and the GQA group), so their scale grows with
+    S and an absolute bound would mean different things at each shape."""
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-6)).item()
+
+
+# Relative to the gradient's largest magnitude: fp32 sums in another order
+# (1e-4); bf16 rounds P, dS and the outputs to bf16 (2**-8 = 4e-3 per
+# rounding; 2e-2 leaves room for the few P entries that round apart).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,causal,q_offset", [
+    (1, 16, 16, 256, 256, True, 0),
+    (1, 16, 8, 1000, 1000, True, 0),
+    (1, 8, 2, 256, 256, False, 0),
+    (2, 4, 2, 77, 300, False, 0),
+    (1, 16, 8, 128, 640, True, 512),
+    (3, 8, 1, 33, 33, True, 0),
+])
+def test_flash_bwd_matches_plain(cuda, dtype, D, B, H, Hkv, Sq, Sk, causal,
+                                 q_offset):
+    gen = torch.Generator(device="cuda").manual_seed(Sq * 11 + D)
+    q = _randn(gen, B, H, Sq, D, dtype=dtype)
+    k = _randn(gen, B, Hkv, Sk, D, dtype=dtype)
+    v = _randn(gen, B, Hkv, Sk, D, dtype=dtype)
+    dout = _randn(gen, B, H, Sq, D, dtype=dtype)
+    out, lse = attn.flash_fwd(q, k, v, causal=causal, q_offset=q_offset,
+                              need_lse=True)
+    before = (attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches)
+    got = attn.flash_bwd(q, k, v, out, lse, dout, causal=causal,
+                         q_offset=q_offset)
+    assert (attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = attn._flash_bwd_plain(q, k, v, out, lse, dout, causal,
+                                1 / math.sqrt(D), q_offset)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        assert _grad_err(g, r) <= BWD_TOL[dtype], (name, _grad_err(g, r))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_grad_goes_through_the_kernels(cuda, dtype):
+    """autograd through flash_attention launches the forward once and each
+    backward kernel once, and equals autograd through the plain attention."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = _randn(gen, 2, 8, 200, 64, dtype=dtype)
+    k = _randn(gen, 2, 4, 200, 64, dtype=dtype)
+    v = _randn(gen, 2, 4, 200, 64, dtype=dtype)
+    # A strided upstream gradient, as the output projection's arrives.
+    dout = _randn(gen, 2, 200, 8, 64, dtype=dtype).transpose(1, 2)
+    counts = lambda: (attn.flash_fwd.launches, attn.flash_bwd_dq.launches,
+                      attn.flash_bwd_dkv.launches)
+    before = counts()
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(attn.flash_attention(*qkv), qkv, dout)
+    assert counts() == tuple(n + 1 for n in before)
+    qkv = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(attn.reference_attention(*qkv), qkv,
+                              dout.float())
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype
+        assert _grad_err(g, r) <= BWD_TOL[dtype]
     with torch.no_grad():
-        attn.flash_attention(q, q, q)
+        attn.flash_attention(q, k, v)
+    assert counts()[0] == before[0] + 2 and counts()[1] == before[1] + 1
+
+
+def test_flash_bwd_refuses_what_the_kernels_do_not_take(cuda):
+    q = torch.randn(1, 4, 64, 64, device="cuda")
+    out, lse = attn.flash_fwd(q, q, q, need_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        attn.flash_bwd(q, q, q, out, lse.double(), q)
+    with pytest.raises(ValueError, match="dout"):
+        attn.flash_bwd(q, q, q, out, lse, q.bfloat16())
+    with pytest.raises(ValueError, match="out"):
+        attn.flash_bwd(q, q, q, out[:, :2], lse, q)
+    delta = torch.zeros_like(lse)
+    with pytest.raises(ValueError, match="must be on"):
+        attn.flash_bwd_dq(q, q.cpu(), q, q, lse, delta, causal=True,
+                          scale=0.125, q_offset=0)
+    with pytest.raises(ValueError, match="delta"):
+        attn.flash_bwd_dkv(q, q, q, q, lse, delta[:, :2], causal=True,
+                           scale=0.125, q_offset=0)
 
 
 def test_engine_greedy_through_kernels_equals_plain_path(cuda):

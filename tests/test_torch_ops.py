@@ -194,6 +194,57 @@ class TestAttention:
         t_attn.flash_attention(q, k, v).sum().backward()
         assert q.grad is not None and torch.isfinite(q.grad).all()
 
+    @pytest.mark.parametrize("H,Hkv,Sq,Sk,causal,q_offset",
+                             [c for c in ATTN_CASES if c[2] % 32 == 0
+                              and c[3] % 32 == 0])
+    def test_flash_bwd_plain_matches_jax_backward_kernels(
+            self, H, Hkv, Sq, Sk, causal, q_offset):
+        """The port's flash_bwd (plain on CPU) against the Pallas dq and
+        dk/dv kernels in interpret mode, both fed the JAX forward's own out
+        and LSE.  fp32; 1e-4 absolute (another summation order)."""
+        q, k, v = _qkv(70, 2, H, Hkv, Sq, Sk)
+        dout = _rand(73, 2, H, Sq, 32)
+        scale = 1.0 / math.sqrt(32)
+        j_out, j_lse = j_attn._flash_forward(
+            _jj(q), _jj(k), _jj(v), causal, scale, 32, 32, q_offset, True,
+            need_lse=True)
+        want = j_attn._flash_backward(
+            _jj(q), _jj(k), _jj(v), j_out, j_lse, _jj(dout), causal, scale,
+            32, 32, q_offset, True)
+        before = (t_attn.flash_bwd_dq.launches, t_attn.flash_bwd_dkv.launches)
+        got = t_attn.flash_bwd(_tt(q), _tt(k), _tt(v), _tt(j_out),
+                               _tt(j_lse), _tt(dout), causal=causal,
+                               q_offset=q_offset)
+        assert (t_attn.flash_bwd_dq.launches,
+                t_attn.flash_bwd_dkv.launches) == before
+        for g, w, shape in zip(got, want, (q.shape, k.shape, v.shape)):
+            assert g.dtype == torch.float32 and g.shape == shape
+            np.testing.assert_allclose(_np(g), _np(w), atol=1e-4, rtol=1e-4)
+
+    @pytest.mark.parametrize("causal,q_offset", [(True, 0), (False, 0),
+                                                 (True, 32)])
+    def test_flash_attention_grad_matches_jax_grad(self, causal, q_offset):
+        """autograd through the port's flash_attention (the _Flash
+        Function; plain on CPU) against jax.vjp of the Pallas flash
+        attention in interpret mode.  fp32, 1e-4 absolute."""
+        q, k, v = _qkv(80, 1, 4, 2, 32, 64)
+        dout = _rand(83, 1, 4, 32, 32)
+
+        def j_fn(q, k, v):
+            return j_attn.flash_attention(q, k, v, causal=causal,
+                                          q_offset=q_offset, block_q=32,
+                                          block_k=32, interpret=True)
+
+        _out, vjp = jax.vjp(j_fn, _jj(q), _jj(k), _jj(v))
+        want = vjp(_jj(dout))
+        qkv = [_tt(a).requires_grad_() for a in (q, k, v)]
+        out = t_attn.flash_attention(*qkv, causal=causal, q_offset=q_offset)
+        assert out.grad_fn is not None and "_Flash" in type(
+            out.grad_fn).__name__
+        got = torch.autograd.grad(out, qkv, _tt(dout))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(_np(g), _np(w), atol=1e-4, rtol=1e-4)
+
 
 class TestPaged:
     def test_combine_kv(self):
@@ -258,6 +309,23 @@ class TestBuild:
         assert set(_build.SOURCES) == {
             f.stem for f in _build.CSRC_DIR.glob("*.cu")}
 
+    def test_header_edit_changes_every_library_path(self, monkeypatch,
+                                                    tmp_path):
+        """A header in csrc/ may be included by any source: editing it
+        must rename (and so rebuild) every library."""
+        for name in ("a", "b"):
+            (tmp_path / f"{name}.cu").write_text(f"// {name}\n")
+        (tmp_path / "common.cuh").write_text("// v1\n")
+        monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+        before = {n: _build.library_path(n) for n in ("a", "b")}
+        assert before == {n: _build.library_path(n) for n in ("a", "b")}
+        (tmp_path / "common.cuh").write_text("// v2\n")
+        after = {n: _build.library_path(n) for n in ("a", "b")}
+        assert all(after[n] != before[n] for n in ("a", "b"))
+        (tmp_path / "a.cu").write_text("// a, edited\n")
+        assert _build.library_path("a") != after["a"]
+        assert _build.library_path("b") == after["b"]
+
     def test_no_nvcc_raises(self, monkeypatch):
         monkeypatch.delenv("CUDA_HOME", raising=False)
         monkeypatch.setattr(_build.shutil, "which", lambda _n: None)
@@ -282,7 +350,8 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     for f in files:
-        # Whole-word roots: ray_tpu_torch is the port itself.
+        # Whole-word roots: ray_tpu_torch is the port itself.  optax, chex
+        # and flax each import JAX.
         bad = {r for r in _imported_roots(f)
-               if r in ("jax", "jaxlib", "ray_tpu")}
+               if r in ("jax", "jaxlib", "ray_tpu", "optax", "chex", "flax")}
         assert not bad, f"{f.relative_to(REPO)} imports {bad}"
