@@ -49,6 +49,19 @@ DKV_REPLACES = "ray_tpu/ops/attention.py:278"          # _dkv_kernel
 # fp32 sums in another order and exp2 vs exp; bf16 rounds P and O to bf16
 # (one ulp of bf16 at |x| ~ 2 is 2**-6).
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# flash_fwd's second measure, the worst row's ||out - ref|| / ||ref|| over
+# D (row_rel_err).  A long row's output is small (about sqrt(e / keys) per
+# element at randn inputs: 0.04 at 2048 keys), so the absolute limit alone
+# lets an error of tens of percent there pass.  Each of PLANTED_FWD_FAULTS
+# must exceed the limit (tests/test_torch_build.py shows that the 5% one
+# passes the absolute limit alone).  On an H100 the clean bf16 readings
+# are 4.1e-3 to 5.6e-3 and the milder fault reads 5.3e-2; 2e-2 sits 3.6x
+# above the one and 2.6x below the other.
+TOL_ROW_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+# Faults planted in the forward's output on the long rows only (the last
+# 128-row query tile), as a wrong ring stage or tile index there would
+# make them: key tile 1 skipped, or the rows 5% too large.
+PLANTED_FWD_FAULTS = ("skip_key_tile_1", "rows_x1.05")
 # llama_1b logits, kernel path vs plain path, teacher-forced: bf16 attention
 # outputs differ by rounding and the difference compounds over 16 layers;
 # the logits themselves have a std of about 1.
@@ -117,6 +130,36 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def eager_ms(fn, iters: int, repeats: int = 5) -> float:
+    """The least of ``repeats`` readings of ``time_ms``: the per-call cost
+    of an eager caller, host cost included, with less of the noise that
+    other load on the machine's CPU adds to any one reading."""
+    return min(time_ms(fn, iters) for _ in range(repeats))
+
+
+def graph_ms(fn, calls: int = 10, replays: int = 10) -> float:
+    """Mean device time of ``fn`` from CUDA events around replays of a CUDA
+    graph holding ``calls`` calls of it: the kernels alone, without the
+    host's per-call cost, which at small shapes exceeds the kernel's."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
 def pct(xs, q):
     return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
 
@@ -137,7 +180,11 @@ def phase_device():
     return info
 
 
-KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel",
+# Every __global__ kernel of ray_tpu_torch/csrc (tests/test_torch_build.py
+# holds this list to the sources).  flash_fwd_wgmma_check_kernel is the
+# test-only one-wgmma check of tests/test_torch_kernels.py.
+KERNEL_NAMES = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma_check_kernel",
+                "flash_fwd_f32_kernel",
                 "flash_bwd_dq_bf16_kernel", "flash_bwd_dq_f32_kernel",
                 "flash_bwd_dkv_bf16_kernel", "flash_bwd_dkv_f32_kernel",
                 "paged_decode_kernel")
@@ -209,6 +256,32 @@ def _paged_inputs(B, H, Hkv, D, page, lens, dtype, seed):
             torch.tensor(lens, dtype=torch.int32, device="cuda"))
 
 
+def row_rel_err(out, ref) -> float:
+    """Worst over query rows of ||out - ref|| / ||ref|| along D."""
+    a, b = out.float(), ref.float()
+    return ((a - b).norm(dim=-1)
+            / b.norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def planted_fwd_faults(q, k, v, out, ref):
+    """PLANTED_FWD_FAULTS in a copy of ``out`` (causal, Sq = Sk >= 256):
+    {fault: (max abs error, row_rel_err)} against ``ref``."""
+    import torch
+    from ray_tpu_torch.ops.attention import reference_attention
+    S = q.shape[2]
+    skip = out.clone()
+    # The last tile's rows without keys 128-255: the other keys keep their
+    # order, so the diagonal moves 128 down.
+    drop = [torch.cat((t[:, :, :128], t[:, :, 256:]), dim=2) for t in (k, v)]
+    skip[:, :, -128:] = reference_attention(q[:, :, -128:], *drop,
+                                            causal=True, q_offset=S - 256)
+    big = out.clone()
+    big[:, :, -128:] *= 1.05
+    return {name: ((f.float() - ref.float()).abs().max().item(),
+                   row_rel_err(f, ref))
+            for name, f in zip(PLANTED_FWD_FAULTS, (skip, big))}
+
+
 def phase_kernel_check():
     import torch
     from ray_tpu_torch.ops.attention import (_scores, flash_fwd,
@@ -225,6 +298,10 @@ def phase_kernel_check():
         # q_offset: a query block that starts mid-sequence.
         cases.append((1, 16, 8, 256, 1000, 128, dtype, True, 744))
         cases.append((2, 16, 8, 1000, 2048, 64, dtype, True, 1048))
+        # The bf16 kernel's 128-row / 128-key tiles at their edges.
+        cases.append((1, 16, 8, 129, 129, 128, dtype, True, 0))
+        cases.append((2, 16, 8, 1, 300, 64, dtype, True, 299))
+        cases.append((1, 16, 16, 300, 400, 128, dtype, True, 100))
     # The shape the training path gives the forward (out and LSE).
     cases.append(_train_attn_case())
     for i, (B, H, Hkv, Sq, Sk, D, dtype, causal, qo) in enumerate(cases):
@@ -237,14 +314,23 @@ def phase_kernel_check():
         torch.cuda.synchronize()
         name = str(dtype).split(".")[-1]
         err = (out.float() - ref.float()).abs().max().item()
+        rel = row_rel_err(out, ref)
         lse_err = (lse - ref_lse).abs().max().item()
-        results["flash"].append({
-            "dtype": name, "B": B, "H": H, "Hkv": Hkv, "Sq": Sq, "Sk": Sk,
-            "D": D, "causal": causal, "q_offset": qo,
-            "max_abs_err": err, "lse_max_abs_err": lse_err,
-            "tol": TOL[name]})
-        if not (err <= TOL[name] and lse_err <= 1e-3):
-            failed.append(("flash_fwd", results["flash"][-1]))
+        row = {"dtype": name, "B": B, "H": H, "Hkv": Hkv, "Sq": Sq,
+               "Sk": Sk, "D": D, "causal": causal, "q_offset": qo,
+               "max_abs_err": err, "row_rel_err": rel,
+               "lse_max_abs_err": lse_err, "tol": TOL[name],
+               "tol_row_rel": TOL_ROW_REL[name]}
+        if (B, H, Hkv, Sq, Sk, D, dtype, causal, qo) == _train_attn_case():
+            # The limit has to see a fault on the long rows alone.
+            row["planted"] = planted_fwd_faults(q, k, v, out, ref)
+            if min(r for _a, r in row["planted"].values()) <= \
+                    TOL_ROW_REL[name]:
+                failed.append(("flash_fwd planted fault passed", row))
+        results["flash"].append(row)
+        if not (err <= TOL[name] and rel <= TOL_ROW_REL[name]
+                and lse_err <= 1e-3):
+            failed.append(("flash_fwd", row))
     rng = np.random.default_rng(0)
     for j, (H, Hkv, D, dtype) in enumerate([
             (16, 8, 128, torch.bfloat16), (16, 8, 128, torch.float32),
@@ -374,25 +460,46 @@ def phase_kernel_time(smi):
     from ray_tpu_torch.ops.attention import flash_fwd, reference_attention
     from ray_tpu_torch.ops.paged_attention import _exact_path, paged_decode
     rows = {}
-    B, H, Hkv, D = 1, 16, 8, 128
-    for S in (256, 2048):
+    # Serving's prefill shapes (llama_1b: H 16 / Hkv 8), then the training
+    # step's (need_lse, as the training path calls it).  The kernel and SDPA
+    # are timed twice: by graph replay (ms, library_ms: device time) and
+    # eager (eager_ms, library_eager_ms: back-to-back calls, host cost
+    # included, which is what serving's eager prefill pays; the least of
+    # five readings).  The plain version eager.
+    train = _train_attn_case()
+    for key, (B, H, Hkv, S, D), iters, lse in (
+            ("flash_fwd_S256", (1, 16, 8, 256, 128), 200, False),
+            ("flash_fwd_S2048", (1, 16, 8, 2048, 128), 50, False),
+            ("flash_fwd_train", (train[0], train[1], train[2], train[3],
+                                 train[5]), 20, True)):
         q, k, v = _flash_inputs(B, H, Hkv, S, S, D, torch.bfloat16, seed=7)
-        iters = 200 if S == 256 else 50
         err = (flash_fwd(q, k, v, causal=True)[0].float() - reference_attention(
             q, k, v, causal=True).float()).abs().max().item()
-        ms = time_ms(lambda: flash_fwd(q, k, v, causal=True), iters)
+
+        def kernel():
+            return flash_fwd(q, k, v, causal=True, need_lse=lse)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+        ms, lib = graph_ms(kernel), graph_ms(sdpa)
+        eager, lib_eager = eager_ms(kernel, iters), eager_ms(sdpa, iters)
         plain = time_ms(lambda: reference_attention(q, k, v, causal=True),
                         max(5, iters // 10))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), iters)
         pairs = S * (S + 1) // 2                  # causal (q, k) pairs
         flops = 4 * B * H * D * pairs
-        nbytes = 2 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
-        rows[f"flash_fwd_S{S}"] = _timing_row(
+        # q, k, v read once, o written once (and the fp32 LSE).
+        nbytes = (2 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
+                  + (4 * B * H * S if lse else 0))
+        rows[key] = dict(_timing_row(
             "flash_fwd", {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D,
-                          "dtype": "bfloat16", "causal": True},
-            ms, plain, lib, flops, nbytes, err)
-    Bd, page = 32, 16
+                          "dtype": "bfloat16", "causal": True,
+                          "need_lse": lse},
+            ms, plain, lib, flops, nbytes, err), timed_by="graph",
+            eager_ms=eager, library_eager_ms=lib_eager)
+        del q, k, v
+    Bd, H, Hkv, D, page = 32, 16, 8, 128, 16    # llama_1b's decode shape
     rng = np.random.default_rng(1)
     lens = rng.integers(256, 385, size=Bd).tolist()
     # Four copies of the cache (each ~50 MB) in turn: each launch reads its
@@ -491,10 +598,19 @@ def _timing_row(name, shape, ms, plain_ms, library_ms, flops, nbytes,
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return {"kernel": name, "shape": shape, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "timed_by": "eager", "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
+
+
+def _line_numbers(row):
+    """A kernel_time row's numbers as the kernels line names them (the
+    eager times too, where the row was timed by graph replay)."""
+    keys = ("shape", "max_abs_err", "ms", "timed_by", "eager_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_eager_ms")
+    return {k: row[k] for k in keys if k in row}
 
 
 def phase_serve_exact():
@@ -820,6 +936,9 @@ def _device_time(run, top: int = 8):
 
 
 def _kernel_kind(name: str) -> str:
+    """The kind of a profiled kernel.  The port's own kernels are matched
+    first, so a CUTLASS or CuTe name in their symbols files them under
+    their own kind, never under the library's."""
     for kind, marks in (
             ("flash_fwd", ("flash_fwd_",)),
             ("flash_bwd_dq", ("flash_bwd_dq",)),
@@ -1088,14 +1207,12 @@ def main() -> int:
              {"train": train["flash_bwd_dq"]}),
             ("flash_bwd_dkv", rows["flash_bwd_dkv"], BWD_SOURCE,
              DKV_REPLACES, {"train": train["flash_bwd_dkv"]})):
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]})
+        kernels.append(dict(
+            {"name": name, "route": "cuda", "source": src, "replaces": rep,
+             "launches": sum(by_path.values()),
+             "launches_by_path": by_path}, **_line_numbers(row)))
+    # The forward where training spends its time, beside its serving row.
+    kernels[0]["at_train_shape"] = _line_numbers(rows["flash_fwd_train"])
     emit({"kernels": kernels, "card": smi,
           "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",

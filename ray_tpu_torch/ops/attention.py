@@ -110,6 +110,18 @@ def _check_flash(q, k, v) -> None:
         raise ValueError("flash attention: empty sequence")
 
 
+_SM_COUNT = {}
+
+
+def _sm_count(device) -> int:
+    """The card's SM count, asked once per device."""
+    n = _SM_COUNT.get(device)
+    if n is None:
+        n = _SM_COUNT[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
 def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
               q_offset: int = 0, need_lse: bool = False
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -128,16 +140,28 @@ def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if need_lse else None)
+    # Scratch for the bf16 kernel's tile counter.  It is persistent: one
+    # block per SM takes 128-row query tiles until none is left.  Where
+    # every tile has a block of its own it needs none, and its allocation
+    # would add to an eager call's host cost at small shapes.  launch_bf16
+    # (csrc/flash_fwd.cu) decides the same way and refuses a launch that
+    # needs a counter and was given none.
+    counter = None
+    if (q.dtype == torch.bfloat16
+            and B * H * -(-Sq // 128) > _sm_count(q.device)):
+        counter = torch.empty(1, dtype=torch.int32, device=q.device)
     fn = _build.function("flash_fwd", "rt_flash_fwd", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p])
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   lse.data_ptr() if lse is not None else None,
                   _DTYPE_CODE[q.dtype], B, H, Hkv, Sq, Sk, D, float(scale),
                   int(causal), int(q_offset),
+                  counter.data_ptr() if counter is not None else None,
                   torch.cuda.current_stream().cuda_stream)
     _build.check("flash_fwd", code, "flash_fwd launch")
     flash_fwd.launches += 1

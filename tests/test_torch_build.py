@@ -1,0 +1,120 @@
+"""The port's kernel sources against the instrumentation that reports them.
+
+``chip_smoke.py`` names every kernel of ``ray_tpu_torch/csrc`` to read its
+registers, shared memory and spills from the build, and files profiled
+kernels by kind to say where a step's device time goes; ``_build`` names
+every library by a hash of its source and of the headers in ``csrc/``.
+These tests hold each of those to the sources, on the CPU: a kernel added
+or renamed, or a header included from outside ``csrc/``, must not drop out
+of them.  The last ones hold ``chip_smoke.py``'s check of the flash
+forward to the faults it is there to catch.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import pathlib
+import re
+
+import pytest
+import torch
+
+from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops.attention import reference_attention
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+_GLOBAL = re.compile(
+    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+([<"])([^>"]+)[>"]', re.M)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _kernels(path: pathlib.Path):
+    return _GLOBAL.findall(path.read_text())
+
+
+def _own_kind(stem: str, kernel: str) -> str:
+    """The kind a kernel of csrc/<stem>.cu is reported under: its source's,
+    with flash_bwd.cu's two kernels told apart."""
+    if stem == "flash_bwd":
+        return "flash_bwd_dq" if kernel.startswith("flash_bwd_dq") \
+            else "flash_bwd_dkv"
+    return stem
+
+
+@pytest.mark.parametrize("stem", _build.SOURCES)
+def test_kernel_declarations_are_found(stem):
+    """The pattern the tests below read kernels with finds them all."""
+    path = _build.CSRC_DIR / f"{stem}.cu"
+    found = _kernels(path)
+    assert found and len(found) == path.read_text().count("__global__")
+
+
+@pytest.mark.parametrize("stem", _build.SOURCES)
+def test_every_kernel_is_named_in_chip_smoke(stem):
+    names = _chip_smoke().KERNEL_NAMES
+    for kernel in _kernels(_build.CSRC_DIR / f"{stem}.cu"):
+        assert kernel in names, f"{stem}.cu: {kernel} not in KERNEL_NAMES"
+
+
+@pytest.mark.parametrize("stem", _build.SOURCES)
+def test_every_kernel_is_filed_under_its_own_kind(stem):
+    """As the profiler names a kernel (demangled, with template arguments
+    and parameter types), also when CUTLASS or CuTe types appear in it."""
+    kind_of = _chip_smoke()._kernel_kind
+    for kernel in _kernels(_build.CSRC_DIR / f"{stem}.cu"):
+        want = _own_kind(stem, kernel)
+        for shown in (
+                f"void (anonymous namespace)::{kernel}<128>(Params)",
+                f"void (anonymous namespace)::{kernel}<128>(CUtensorMap_st, "
+                f"CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::"
+                f"Params)",
+                f"void {kernel}<cutlass::bfloat16_t, cute::tuple<cute::C<"
+                f"128>>>(cutlass::gemm::GemmCoord)"):
+            assert kind_of(shown) == want, (shown, kind_of(shown), want)
+
+
+@pytest.mark.parametrize("stem", _build.SOURCES)
+def test_every_included_header_is_hashed(stem):
+    """A quoted include names a .cuh in csrc/ itself, which library_path
+    hashes into every library; anything else must come from the toolkit
+    (<...>) so that no header outside csrc/ can change a kernel unseen."""
+    text = (_build.CSRC_DIR / f"{stem}.cu").read_text()
+    hashed = {p.name for p in _build.CSRC_DIR.glob("*.cuh")}
+    for bracket, name in _INCLUDE.findall(text):
+        if bracket == '"':
+            assert "/" not in name and name in hashed, (
+                f"{stem}.cu includes {name!r}, not a csrc/*.cuh")
+        else:
+            assert not (_build.CSRC_DIR / name).exists(), (
+                f"{stem}.cu includes csrc/{name} as a system header")
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_fwd_check_sees_faults_on_long_rows(D):
+    """bf16, causal, S 2048: an output rounded otherwise (the fp32 plain
+    version cast to bf16) passes both of kernel_check's limits; each planted
+    fault on the last query tile's rows fails the row-relative one, and the
+    5% one would pass the absolute limit alone."""
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(D)
+    q, k, v = (torch.randn(1, 2, 2048, D, generator=gen).bfloat16()
+               for _ in range(3))
+    ref = reference_attention(q, k, v, causal=True)
+    clean = reference_attention(q.float(), k.float(), v.float(),
+                                causal=True).bfloat16()
+    assert (clean.float() - ref.float()).abs().max().item() \
+        <= cs.TOL["bfloat16"]
+    assert cs.row_rel_err(clean, ref) <= cs.TOL_ROW_REL["bfloat16"] / 2
+    faults = cs.planted_fwd_faults(q, k, v, clean, ref)
+    assert set(faults) == set(cs.PLANTED_FWD_FAULTS)
+    for name, (_abs, rel) in faults.items():
+        assert rel > 2 * cs.TOL_ROW_REL["bfloat16"], (name, rel)
+    assert faults["rows_x1.05"][0] <= cs.TOL["bfloat16"]

@@ -7,12 +7,16 @@ has no interpret mode).  On the card:
 
 Tolerances (max abs error vs the plain version on the same inputs): fp32
 1e-4 (another summation order, exp2 vs exp); bf16 2e-2 (P and O rounded to
-bf16: one ulp at |x| ~ 2 is 2**-6).  The backward's are relative to each
-gradient's largest magnitude (``BWD_TOL``).
+bf16: one ulp at |x| ~ 2 is 2**-6).  The flash forward is also held to the
+worst row's ||out - ref|| / ||ref|| (``ROW_REL_TOL``): a long row's output
+is small, so the absolute limit alone would let a wrong tile there pass.
+The backward's are relative to each gradient's largest magnitude
+(``BWD_TOL``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import importlib
 import math
 
@@ -20,12 +24,14 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import paged_attention as paged
 
 attn = importlib.import_module("ray_tpu_torch.ops.attention")
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+ROW_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -50,6 +56,12 @@ def _randn(gen, *shape, dtype):
     (1, 8, 2, 77, 300, False, 0),
     (1, 16, 8, 128, 640, True, 512),
     (3, 8, 1, 33, 33, True, 0),
+    # The bf16 kernel's 128-row query and 128-key tiles at their edges.
+    (1, 4, 2, 129, 129, True, 0),          # one row past a tile
+    (2, 8, 4, 1, 300, True, 299),          # one query row
+    (1, 8, 4, 300, 400, True, 100),        # ragged, diagonal off a tile
+    (2, 16, 16, 2048, 2048, True, 0),      # the training shape at B=2
+    (1, 8, 1, 1000, 1000, True, 0),        # GQA 8/1
 ])
 def test_flash_fwd_matches_plain(cuda, dtype, D, B, H, Hkv, Sq, Sk, causal,
                                  q_offset):
@@ -67,7 +79,55 @@ def test_flash_fwd_matches_plain(cuda, dtype, D, B, H, Hkv, Sq, Sk, causal,
     torch.cuda.synchronize()
     assert out.dtype == dtype and lse.dtype == torch.float32
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    row_rel = ((out.float() - ref.float()).norm(dim=-1)
+               / ref.float().norm(dim=-1)).max().item()
+    assert row_rel <= ROW_REL_TOL[dtype]
     assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+def _wgmma_check(form, a, a32, b, n):
+    """One wgmma of the flash forward's operand form ``form`` through the
+    test-only entry point of csrc/flash_fwd.cu."""
+    c = torch.empty(64, 128 if form == 0 else n, device="cuda")
+    fn = _build.function("flash_fwd", "rt_wgmma_check", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    code = fn(form, a.data_ptr() if a is not None else None,
+              a32.data_ptr() if a32 is not None else None, b.data_ptr(),
+              c.data_ptr(), n, torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_fwd", code, "rt_wgmma_check")
+    torch.cuda.synchronize()
+    return c
+
+
+# bf16 products are exact in fp32; the sums over n <= 128 terms of size ~1
+# differ from torch.matmul's only in order.
+WGMMA_TOL = 1e-3
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_wgmma_k_major_descriptors_match_matmul(cuda, n):
+    """S = Q K^T's form: A [64, n] and B [128, n] both K-major in 128-byte
+    swizzled shared memory (TMA), stepped over n in k16 slices."""
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    a = _randn(gen, 64, n, dtype=torch.bfloat16)
+    b = _randn(gen, 128, n, dtype=torch.bfloat16)
+    c = _wgmma_check(0, a, None, b, n)
+    ref = torch.matmul(a.float(), b.float().T)
+    assert (c - ref).abs().max().item() <= WGMMA_TOL
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_wgmma_mn_major_transposed_descriptor_matches_matmul(cuda, n):
+    """O += P V's form: A from registers (fp32 accumulator fragments
+    packed to bf16, as P is), B = V [128 keys, n] MN-major through the
+    transposed descriptor."""
+    gen = torch.Generator(device="cuda").manual_seed(100 + n)
+    a32 = torch.randn(64, 128, generator=gen, device="cuda")
+    b = _randn(gen, 128, n, dtype=torch.bfloat16)
+    c = _wgmma_check(1, None, a32, b, n)
+    ref = torch.matmul(a32.bfloat16().float(), b.float())
+    assert (c - ref).abs().max().item() <= WGMMA_TOL
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
