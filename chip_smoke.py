@@ -71,6 +71,28 @@ TOL_1B_LOGITS = 0.1
 # fp32 sums in another order; bf16 rounds P, dS and the outputs to bf16
 # (2**-8 relative each).
 TOL_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
+# flash_bwd's second measure, the worst row's ||got - ref|| / ||ref|| over D
+# (row_rel_err): per query row for dq, per key row for dk and dv.  Under
+# causal attention the last keys' dK and dV rows sum over few queries and
+# are small, so the limit above, relative to the largest magnitude, lets a
+# wrong last key tile or ragged edge pass.  Each of PLANTED_BWD_FAULTS must
+# exceed the limit (tests/test_torch_build.py shows that the 5% ones pass
+# TOL_BWD alone).  bf16 rounds P and dS to bf16 (2**-9 relative each) and
+# the outputs once more; a row of few terms keeps that whole.  On an H100
+# the clean readings are at most 5.7e-3 over the bf16 cases (fp32: 3.0e-6)
+# and the milder faults read 0.051: 2e-2 sits 3.5x above the one and 2.5x
+# below the other.
+TOL_BWD_ROW_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+# ... with a row's ||ref|| taken as at least this share of the largest
+# row's: a query that sees one key has dQ = 0 (dP = delta there), and the
+# residue of two summation orders would read as a 100% error.
+BWD_ROW_FLOOR = 1e-3
+# Faults planted in the backward's output on the edge tiles, as a wrong
+# ring phase or tile index there would make them: the last 128-key tile of
+# dK and dV left out (zeros) or 5% too large, the last 128-row query tile of
+# dQ 5% too large.
+PLANTED_BWD_FAULTS = ("dkv_last_key_tile_skipped", "dkv_last_key_tile_x1.05",
+                      "dq_last_query_tile_x1.05")
 # train_exact (fp32, kernels vs plain attention, 3 adamw steps at lr 1e-4):
 # losses and grad norms relative; what the steps moved each leaf by
 # (p3 - p0), norm-wise relative per leaf (||a - b|| / ||b||).  Not
@@ -181,13 +203,17 @@ def phase_device():
 
 
 # Every __global__ kernel of ray_tpu_torch/csrc (tests/test_torch_build.py
-# holds this list to the sources).  flash_fwd_wgmma_check_kernel is the
-# test-only one-wgmma check of tests/test_torch_kernels.py.
+# holds this list to the sources).  The two *_wgmma_check_kernel are the
+# test-only one-wgmma checks of tests/test_torch_kernels.py.
 KERNEL_NAMES = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma_check_kernel",
                 "flash_fwd_f32_kernel",
-                "flash_bwd_dq_bf16_kernel", "flash_bwd_dq_f32_kernel",
-                "flash_bwd_dkv_bf16_kernel", "flash_bwd_dkv_f32_kernel",
-                "paged_decode_kernel")
+                "flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_f32_kernel",
+                "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_f32_kernel",
+                "flash_bwd_wgmma_check_kernel", "paged_decode_kernel")
+# Kernels whose registers must all be their own: a spill of their
+# accumulators to local memory would cost more than the kernel gains.
+NO_SPILL = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+            "flash_bwd_dkv_wgmma_kernel")
 
 
 def _ptxas_summary(lines):
@@ -224,9 +250,12 @@ def phase_build():
     t0 = time.perf_counter()
     _build.build()
     seconds = time.perf_counter() - t0
+    summary = _ptxas_summary(_build.ptxas_lines())
     emit({"phase": "build", "seconds": round(seconds, 2),
-          "cached": not _build.build_log,
-          "ptxas": _ptxas_summary(_build.ptxas_lines())})
+          "cached": not _build.build_log, "ptxas": summary})
+    spilled = [ln for ln in summary if ln.split("<")[0] in NO_SPILL
+               and not ln.endswith(" 0 B spilled")]
+    check(not spilled, f"kernels spill registers: {spilled}")
 
 
 def _flash_inputs(B, H, Hkv, Sq, Sk, D, dtype, seed):
@@ -256,11 +285,13 @@ def _paged_inputs(B, H, Hkv, D, page, lens, dtype, seed):
             torch.tensor(lens, dtype=torch.int32, device="cuda"))
 
 
-def row_rel_err(out, ref) -> float:
-    """Worst over query rows of ||out - ref|| / ||ref|| along D."""
+def row_rel_err(out, ref, floor: float = 0.0) -> float:
+    """Worst over rows of ||out - ref|| / ||ref|| along D, a row's ||ref||
+    taken as at least ``floor`` times the largest row's."""
     a, b = out.float(), ref.float()
-    return ((a - b).norm(dim=-1)
-            / b.norm(dim=-1).clamp_min(1e-30)).max().item()
+    norm = b.norm(dim=-1)
+    least = max(floor * norm.max().item(), 1e-30)
+    return ((a - b).norm(dim=-1) / norm.clamp_min(least)).max().item()
 
 
 def planted_fwd_faults(q, k, v, out, ref):
@@ -280,6 +311,25 @@ def planted_fwd_faults(q, k, v, out, ref):
     return {name: ((f.float() - ref.float()).abs().max().item(),
                    row_rel_err(f, ref))
             for name, f in zip(PLANTED_FWD_FAULTS, (skip, big))}
+
+
+def planted_bwd_faults(got, ref):
+    """PLANTED_BWD_FAULTS in copies of ``got`` = (dq, dk, dv): {fault:
+    (max abs error over the largest magnitude, row_rel_err)}, the worst
+    over the gradients it touches, against ``ref``."""
+    def edge(t, factor):                  # the last 128 rows of each head
+        f = t.clone()
+        f[:, :, -128:] *= factor
+        return f
+
+    dq, dk, dv = got
+    cases = dict(zip(PLANTED_BWD_FAULTS, (
+        [(edge(dk, 0.0), ref[1]), (edge(dv, 0.0), ref[2])],
+        [(edge(dk, 1.05), ref[1]), (edge(dv, 1.05), ref[2])],
+        [(edge(dq, 1.05), ref[0])])))
+    return {name: (max(_grad_errs(f, r)[1] for f, r in pairs),
+                   max(row_rel_err(f, r, BWD_ROW_FLOOR) for f, r in pairs))
+            for name, pairs in cases.items()}
 
 
 def phase_kernel_check():
@@ -380,8 +430,10 @@ def _grad_errs(got, ref):
 
 def _check_flash_bwd(failed):
     """dq, dk and dv of flash_bwd against _flash_bwd_plain on the same
-    inputs: bf16 and fp32, D 64 and 128, causal and full, H/Hkv 16/16, 16/8
-    and 8/2, S 256, 1000 and 2048, and q_offset > 0 with Sq != Sk."""
+    inputs (TOL_BWD and TOL_BWD_ROW_REL): bf16 and fp32, D 64 and 128,
+    causal and full, H/Hkv 16/16, 16/8 and 8/2, S 256, 1000 and 2048,
+    q_offset > 0 with Sq != Sk, and the training shape with
+    PLANTED_BWD_FAULTS."""
     import torch
     from ray_tpu_torch.ops.attention import _flash_bwd_plain, flash_bwd
     cases = []
@@ -405,15 +457,24 @@ def _check_flash_bwd(failed):
         name = str(dtype).split(".")[-1]
         errs = {g: _grad_errs(a, r) for g, a, r in zip(("dq", "dk", "dv"),
                                                          got, ref)}
+        rel = {g: row_rel_err(a, r, BWD_ROW_FLOOR)
+               for g, a, r in zip(("dq", "dk", "dv"), got, ref)}
         row = {"dtype": name, "B": B, "H": H, "Hkv": Hkv, "Sq": Sq,
                "Sk": Sk, "D": D, "causal": causal, "q_offset": qo,
                "max_abs_err": {g: e[0] for g, e in errs.items()},
                "max_rel_err": {g: e[1] for g, e in errs.items()},
-               "tol_rel": TOL_BWD[name]}
+               "row_rel_err": rel, "tol_rel": TOL_BWD[name],
+               "tol_row_rel": TOL_BWD_ROW_REL[name]}
+        if (B, H, Hkv, Sq, Sk, D, dtype, causal, qo) == _train_attn_case():
+            # The row limit has to see a fault on the edge tiles alone.
+            row["planted"] = planted_bwd_faults(got, ref)
+            if min(r for _a, r in row["planted"].values()) <= \
+                    TOL_BWD_ROW_REL[name]:
+                failed.append(("flash_bwd planted fault passed", row))
         out_rows.append(row)
         finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
-        if not (finite and max(e[1] for e in errs.values())
-                <= TOL_BWD[name]):
+        if not (finite and max(e[1] for e in errs.values()) <= TOL_BWD[name]
+                and max(rel.values()) <= TOL_BWD_ROW_REL[name]):
             failed.append(("flash_bwd", row))
     del q, k, v, out, lse, dout, got, ref
     out_rows.append(_check_flash_grad_end_to_end(failed))
@@ -535,9 +596,13 @@ def phase_kernel_time(smi):
     return rows
 
 
-def _sdpa_bwd_ms(q, k, v, dout, iters):
-    """SDPA's backward alone: forward plus autograd.grad, less the forward
-    timed apart (the yardstick; the port never calls SDPA)."""
+def sdpa_bwd(q, k, v, dout):
+    """SDPA's backward alone, as one call for the timers (the yardstick;
+    the port never calls SDPA): (call, name of the backward node of the
+    backend SDPA picked).  The forward runs once inside a captured CUDA
+    graph, so autograd records it on the capture stream; each call is one
+    ``autograd.grad`` through that backend's backward op, which a graph
+    capture on the same stream (``graph_ms``) holds as it is."""
     import torch
     import torch.nn.functional as F
     qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -546,51 +611,84 @@ def _sdpa_bwd_ms(q, k, v, dout, iters):
         return F.scaled_dot_product_attention(*qkv, is_causal=True,
                                               enable_gqa=True)
 
-    fwd_ms = time_ms(fwd, iters)
-    both_ms = time_ms(lambda: torch.autograd.grad(fwd(), qkv, dout), iters)
-    return both_ms - fwd_ms
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm-up, as capture asks
+        torch.autograd.grad(fwd(), qkv, dout)
+    torch.cuda.current_stream().wait_stream(side)
+    fwd_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(fwd_graph):
+        out = fwd()
+    fwd_graph.replay()
+
+    def call(_keep=fwd_graph):
+        return torch.autograd.grad(out, qkv, dout, retain_graph=True)
+
+    return call, out.grad_fn.name()
 
 
 def _time_flash_bwd(rows):
-    """flash_bwd_dq and flash_bwd_dkv at the training config's attention
-    shape (B=1, H=Hkv=16, S=2048, D=128, bf16, causal) and with GQA 16/8."""
+    """flash_bwd_dq and flash_bwd_dkv (bf16, causal, S 2048, D 128) at B=1
+    with H=Hkv=16 and GQA 16/8, and at the training step's shape (B 12,
+    H=Hkv=16): by graph replay (ms, library_ms) and eager (eager_ms,
+    library_eager_ms), SDPA's backward beside them (sdpa_bwd)."""
     import torch
     from ray_tpu_torch.ops.attention import (_flash_bwd_plain, flash_bwd,
                                              flash_bwd_dkv, flash_bwd_dq)
-    B, S, D = 1, 2048, 128
+    train = _train_attn_case()
+    S, D = train[3], train[5]
     scale = 1.0 / math.sqrt(D)
-    for H, Hkv, tag in ((16, 16, ""), (16, 8, "_gqa16_8")):
+    for B, H, Hkv, tag, iters in ((1, 16, 16, "", 30),
+                                  (1, 16, 8, "_gqa16_8", 30),
+                                  (train[0], train[1], train[2], "_train",
+                                   5)):
         q, k, v, out, lse, dout = _bwd_inputs(B, H, Hkv, S, S, D,
                                               torch.bfloat16, True, 0, 11)
-        delta = (dout.float() * out.float()).sum(-1)
         kw = dict(causal=True, scale=scale, q_offset=0)
         got = flash_bwd(q, k, v, out, lse, dout, **kw)
         ref = _flash_bwd_plain(q, k, v, out, lse, dout, True, scale, 0)
         errs = [_grad_errs(a, r) for a, r in zip(got, ref)]
-        dq_ms = time_ms(lambda: flash_bwd_dq(q, k, v, dout, lse, delta,
-                                             **kw), 30)
-        dkv_ms = time_ms(lambda: flash_bwd_dkv(q, k, v, dout, lse, delta,
-                                               **kw), 30)
+        del got, ref
+        delta = flash_bwd_dq(q, k, v, out, dout, lse, **kw)[1]
+
+        def dq():
+            return flash_bwd_dq(q, k, v, out, dout, lse, **kw)
+
+        def dkv():
+            return flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+
+        calls = 5 if B > 1 else 10
+        dq_ms, dkv_ms = graph_ms(dq, calls), graph_ms(dkv, calls)
+        dq_eager, dkv_eager = eager_ms(dq, iters), eager_ms(dkv, iters)
         # The plain version computes dq, dk and dv together: one time for
         # both rows.  So does SDPA's backward.
         plain = time_ms(lambda: _flash_bwd_plain(q, k, v, out, lse, dout,
-                                                 True, scale, 0), 5)
-        lib = _sdpa_bwd_ms(q, k, v, dout, 30)
+                                                 True, scale, 0), 3)
+        sdpa, backend = sdpa_bwd(q, k, v, dout)
+        lib, lib_eager = graph_ms(sdpa, calls), eager_ms(sdpa, iters)
+        del sdpa
         pairs = S * (S + 1) // 2                  # causal (q, k) pairs
-        # Read once: q, dO, k, v (bf16), LSE and delta (fp32).
-        reads = 2 * (2 * B * H * S * D + 2 * B * Hkv * S * D) + 8 * B * H * S
+        # Read once: q, dO, k, v (bf16) and LSE (fp32); dq also reads O
+        # and writes delta, dk/dv reads delta.
+        reads = 2 * (2 * B * H * S * D + 2 * B * Hkv * S * D) + 4 * B * H * S
         shape = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D,
                  "dtype": "bfloat16", "causal": True}
-        note = {"plain_and_library_cover": "dq, dk and dv together"}
+        note = {"plain_and_library_cover": "dq, dk and dv together",
+                "library": f"SDPA backward ({backend})"}
         rows[f"flash_bwd_dq{tag}"] = dict(_timing_row(
             "flash_bwd_dq", shape, dq_ms, plain, lib, 6 * B * H * D * pairs,
-            reads + 2 * B * H * S * D, errs[0][0]),
-            max_rel_err=errs[0][1], **note)
+            reads + 2 * B * H * S * D + 2 * B * H * S * D + 4 * B * H * S,
+            errs[0][0]), timed_by="graph", eager_ms=dq_eager,
+            library_eager_ms=lib_eager, max_rel_err=errs[0][1], **note)
         rows[f"flash_bwd_dkv{tag}"] = dict(_timing_row(
             "flash_bwd_dkv", shape, dkv_ms, plain, lib,
-            8 * B * H * D * pairs, reads + 2 * 2 * B * Hkv * S * D,
-            max(errs[1][0], errs[2][0])),
+            8 * B * H * D * pairs,
+            reads + 4 * B * H * S + 2 * 2 * B * Hkv * S * D,
+            max(errs[1][0], errs[2][0])), timed_by="graph",
+            eager_ms=dkv_eager, library_eager_ms=lib_eager,
             max_rel_err=max(errs[1][1], errs[2][1]), **note)
+        del q, k, v, out, lse, dout, delta
+        torch.cuda.empty_cache()
 
 
 def _timing_row(name, shape, ms, plain_ms, library_ms, flops, nbytes,
@@ -608,7 +706,7 @@ def _line_numbers(row):
     """A kernel_time row's numbers as the kernels line names them (the
     eager times too, where the row was timed by graph replay)."""
     keys = ("shape", "max_abs_err", "ms", "timed_by", "eager_ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "plain_ms", "bound_ms", "bound_by", "library", "library_ms",
             "library_eager_ms")
     return {k: row[k] for k in keys if k in row}
 
@@ -943,6 +1041,7 @@ def _kernel_kind(name: str) -> str:
             ("flash_fwd", ("flash_fwd_",)),
             ("flash_bwd_dq", ("flash_bwd_dq",)),
             ("flash_bwd_dkv", ("flash_bwd_dkv",)),
+            ("flash_bwd (test-only check)", ("flash_bwd_",)),
             ("paged_decode", ("paged_decode",)),
             ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
             ("optimizer (foreach)", ("multi_tensor", "foreach")),
@@ -1211,8 +1310,12 @@ def main() -> int:
             {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": sum(by_path.values()),
              "launches_by_path": by_path}, **_line_numbers(row)))
-    # The forward where training spends its time, beside its serving row.
-    kernels[0]["at_train_shape"] = _line_numbers(rows["flash_fwd_train"])
+    # Each attention kernel where training spends its time, beside its
+    # B=1 row.
+    for entry in kernels:
+        if entry["name"].startswith("flash"):
+            entry["at_train_shape"] = _line_numbers(
+                rows[f"{entry['name']}_train"])
     emit({"kernels": kernels, "card": smi,
           "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",

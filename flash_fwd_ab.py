@@ -40,9 +40,9 @@ SHAPES = (("S256", (1, 16, 8, 256, 128), 200, False),
 ROUNDS = 7
 
 
-def load_tree(root: str, alias: str):
+def load_tree(root: str, alias: str, lib: str = "flash_fwd"):
     """``ray_tpu_torch.ops.attention`` of the tree at ``root``, imported as
-    ``<alias>.ops.attention``, with its flash_fwd library built."""
+    ``<alias>.ops.attention``, with its library ``lib`` built."""
     pkg = os.path.join(root, "ray_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         alias, os.path.join(pkg, "__init__.py"),
@@ -51,7 +51,7 @@ def load_tree(root: str, alias: str):
     sys.modules[alias] = mod
     spec.loader.exec_module(mod)
     build = importlib.import_module(f"{alias}.ops._build")
-    build.build(["flash_fwd"])
+    build.build([lib])
     return importlib.import_module(f"{alias}.ops.attention"), build
 
 

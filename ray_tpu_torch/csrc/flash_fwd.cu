@@ -107,34 +107,10 @@ struct Tiles {
       1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES;
 };
 
-// wgmma accumulator layout (sm90.cuh): element i of a thread of warp `warp`
-// (lane = 4 g + t) is row 16 warp + g + 8 ((i % 4) / 2), column
-// 8 (i / 4) + 2 t + i % 2 of the 64-row tile.
-__device__ __forceinline__ int acc_row(int i, int warp, int g) {
-  return 16 * warp + g + 8 * ((i & 3) >> 1);
-}
-__device__ __forceinline__ int acc_col(int i, int t) {
-  return 8 * (i >> 2) + 2 * t + (i & 1);
-}
-
-// 64 x 128 fp32 accumulator -> bf16 A fragments of eight k16 steps: the
-// accumulator's column blocks 2 kk and 2 kk + 1 are the A fragment's
-// columns 0-7 and 8-15 of step kk.
-__device__ __forceinline__ void acc_to_a(const float (&s)[64],
-                                         uint32_t (&a)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[kk][r] = sm90::pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-  }
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+using sm90::acc_col;
+using sm90::acc_row;
+using sm90::acc_to_a;
+using sm90::ex2;
 
 // S = Q K^T for one warpgroup's 64 rows x 128 keys (K-major A and B).
 template <int D>

@@ -54,6 +54,16 @@ static inline EncodeTiledFn encode_tiled_fn() {
 static inline int make_tmap_bf16(CUtensorMap* map, const void* base,
                                  uint64_t cols, uint64_t rows,
                                  uint64_t outer, uint32_t box_rows) {
+  // The driver encodes against the calling thread's current context, which
+  // the runtime binds only at a thread's first call that needs it: on
+  // autograd's device thread the backward can come first and the encode
+  // would fail.  cudaFree(nullptr) binds it and frees nothing.
+  static thread_local bool bound = false;
+  if (!bound) {
+    const cudaError_t err = cudaFree(nullptr);
+    if (err != cudaSuccess) return (int)err;
+    bound = true;
+  }
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {cols, rows, outer};
@@ -208,6 +218,20 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// The same with N = 64: d[4 j + e] is row 16 w + g + 8 (e/2), column
+// 8 j + 2 t + e % 2, j < 8.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : RT_F32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d[64 x 128] (+)= A[64 x 16] * B[16 x 128]: A from registers (the bf16
 // A-fragment of mma.m16n8k16 on each warp's 16 rows: a[0] row g columns
 // 2t, 2t+1; a[1] row g+8; a[2] row g columns 2t+8, 2t+9; a[3] row g+8),
@@ -254,6 +278,36 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
     static_assert(N == 64, "wgmma_rs: N in {64, 128}");
     wgmma_rs_n64(d, a, db, accumulate);
   }
+}
+
+// wgmma accumulator layout (N = 64 or 128): element i of a thread of warp
+// `warp` (lane = 4 g + t) is row 16 warp + g + 8 ((i % 4) / 2), column
+// 8 (i / 4) + 2 t + i % 2 of the 64-row tile.
+__device__ __forceinline__ int acc_row(int i, int warp, int g) {
+  return 16 * warp + g + 8 * ((i & 3) >> 1);
+}
+__device__ __forceinline__ int acc_col(int i, int t) {
+  return 8 * (i >> 2) + 2 * t + (i & 1);
+}
+
+// 64 x N fp32 accumulator (NA = N / 2 floats a thread) -> bf16 A fragments
+// of N / 16 k16 steps: the accumulator's column blocks 2 kk and 2 kk + 1
+// are the A fragment's columns 0-7 and 8-15 of step kk.
+template <int NA>
+__device__ __forceinline__ void acc_to_a(const float (&s)[NA],
+                                         uint32_t (&a)[NA / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NA / 8; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 #undef RT_F4

@@ -13,9 +13,10 @@ PyTorch version (counterpart of ray_tpu/ops/attention.py).
   tensors it launches the kernel or raises.
 - ``flash_bwd`` wraps the two CUDA kernels of ``csrc/flash_bwd.cu``, which
   replace the Pallas ``_dq_kernel`` and ``_dkv_kernel``: P is recomputed from
-  the forward's fp32 LSE, delta = rowsum(dO * O) is a plain reduction outside
-  the kernels (as in JAX), and dK/dV come out already summed over each KV
-  head's query heads.  ``_flash_bwd_plain`` is its plain version.
+  the forward's fp32 LSE, the bf16 dq kernel computes delta = rowsum(dO * O)
+  in fp32 itself and hands it to the dk/dv kernel (fp32 takes a plain
+  reduction outside, as JAX does), and dK/dV come out already summed over
+  each KV head's query heads.  ``_flash_bwd_plain`` is its plain version.
 - ``flash_attention`` ties the two together in ``_Flash``, a
   ``torch.autograd.Function``: forward with LSE, backward through
   ``flash_bwd``.  Without a gradient to take it runs the forward alone.
@@ -202,57 +203,67 @@ def _flash_bwd_plain(q, k, v, out, lse, dout, causal, scale, q_offset):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_bwd(q, k, v, dout, lse, delta) -> None:
+def _check_bwd(q, k, v, like_q, fp32_rows) -> None:
+    """The kernels' inputs: q, k, v, then (name, tensor) pairs shaped and
+    typed like q (dout, out) and fp32 [B, H, Sq] ones (lse, delta)."""
     _check_flash(q, k, v)
-    if (dout.shape != q.shape or dout.dtype != q.dtype
-            or dout.device != q.device or not dout.is_contiguous()
-            or dout.data_ptr() % 16):
-        raise ValueError(f"flash_bwd: dout must be contiguous, 16-byte "
-                         f"aligned {q.dtype} {tuple(q.shape)} on {q.device}")
-    for name, t in (("lse", lse), ("delta", delta)):
+    for name, t in like_q:
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"flash_bwd: {name} must be contiguous, 16-byte "
+                             f"aligned {q.dtype} {tuple(q.shape)} on "
+                             f"{q.device}")
+    for name, t in fp32_rows:
         if (t.shape != q.shape[:3] or t.dtype != torch.float32
                 or t.device != q.device or not t.is_contiguous()):
             raise ValueError(f"flash_bwd: {name} must be contiguous fp32 "
                              f"{tuple(q.shape[:3])} on {q.device}")
 
 
-def _bwd_fn(symbol: str, n_out: int):
+def _bwd_fn(symbol: str):
     return _build.function("flash_bwd", symbol, (
-        [ctypes.c_void_p] * (6 + n_out)
+        [ctypes.c_void_p] * 8
         + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_void_p]))
 
 
-def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal, scale, q_offset):
-    """Launch the dq kernel: dQ [B, H, Sq, D] in q's dtype, from CUDA
-    tensors (raises on anything else).  ``flash_bwd_dq.launches`` counts."""
-    _check_bwd(q, k, v, dout, lse, delta)
+def flash_bwd_dq(q, k, v, out, dout, lse, *, causal, scale, q_offset):
+    """Launch the dq kernel from CUDA tensors (raises on anything else):
+    (dQ [B, H, Sq, D] in q's dtype, delta = rowsum(dO * O) fp32 [B, H, Sq]
+    for ``flash_bwd_dkv``).  bf16: the kernel computes delta itself; fp32:
+    a plain reduction before the launch.  ``flash_bwd_dq.launches``
+    counts."""
+    _check_bwd(q, k, v, (("dout", dout), ("out", out)), (("lse", lse),))
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:
+        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    else:
+        delta = (dout.float() * out.float()).sum(-1)
     with torch.cuda.device(q.device):
-        code = _bwd_fn("rt_flash_bwd_dq", 1)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        code = _bwd_fn("rt_flash_bwd_dq")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             _DTYPE_CODE[q.dtype], B, H, Hkv, Sq, Sk, D, float(scale),
             int(causal), int(q_offset),
             torch.cuda.current_stream().cuda_stream)
     _build.check("flash_bwd", code, "flash_bwd dq launch")
     flash_bwd_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal, scale, q_offset):
     """Launch the dk/dv kernel: (dK, dV) [B, Hkv, Sk, D] in k's dtype,
     summed over each KV head's query heads, from CUDA tensors (raises on
     anything else).  ``flash_bwd_dkv.launches`` counts."""
-    _check_bwd(q, k, v, dout, lse, delta)
+    _check_bwd(q, k, v, (("dout", dout),), (("lse", lse), ("delta", delta)))
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        code = _bwd_fn("rt_flash_bwd_dkv", 2)(
+        code = _bwd_fn("rt_flash_bwd_dkv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _DTYPE_CODE[q.dtype], B, H, Hkv, Sq, Sk, D, float(scale),
@@ -281,14 +292,8 @@ def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     if q.device.type == "cpu":
         return _flash_bwd_plain(q, k, v, out, lse, dout, causal, scale,
                                 q_offset)
-    if out.shape != q.shape:
-        raise ValueError(f"flash_bwd: out {tuple(out.shape)} does not "
-                         f"match q {tuple(q.shape)}")
-    # delta_i = rowsum(dO * O): a plain reduction outside the kernels, as
-    # the JAX code computes it outside Pallas.
-    delta = (dout.float() * out.float()).sum(-1)
     kw = dict(causal=causal, scale=scale, q_offset=q_offset)
-    dq = flash_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    dq, delta = flash_bwd_dq(q, k, v, out, dout, lse, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
     return dq, dk, dv
 

@@ -6,8 +6,8 @@ kernels by kind to say where a step's device time goes; ``_build`` names
 every library by a hash of its source and of the headers in ``csrc/``.
 These tests hold each of those to the sources, on the CPU: a kernel added
 or renamed, or a header included from outside ``csrc/``, must not drop out
-of them.  The last ones hold ``chip_smoke.py``'s check of the flash
-forward to the faults it is there to catch.
+of them.  The last ones hold ``chip_smoke.py``'s checks of the flash
+forward and backward to the faults they are there to catch.
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ import pytest
 import torch
 
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.ops.attention import reference_attention
+from ray_tpu_torch.ops.attention import (_flash_bwd_plain, _scores,
+                                         reference_attention)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 _GLOBAL = re.compile(
@@ -42,10 +43,12 @@ def _kernels(path: pathlib.Path):
 
 def _own_kind(stem: str, kernel: str) -> str:
     """The kind a kernel of csrc/<stem>.cu is reported under: its source's,
-    with flash_bwd.cu's two kernels told apart."""
+    with flash_bwd.cu's two kernels and its test-only check told apart."""
     if stem == "flash_bwd":
-        return "flash_bwd_dq" if kernel.startswith("flash_bwd_dq") \
-            else "flash_bwd_dkv"
+        for kind in ("flash_bwd_dq", "flash_bwd_dkv"):
+            if kernel.startswith(kind):
+                return kind
+        return "flash_bwd (test-only check)"
     return stem
 
 
@@ -118,3 +121,33 @@ def test_flash_fwd_check_sees_faults_on_long_rows(D):
     for name, (_abs, rel) in faults.items():
         assert rel > 2 * cs.TOL_ROW_REL["bfloat16"], (name, rel)
     assert faults["rows_x1.05"][0] <= cs.TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_check_sees_faults_on_edge_rows(D):
+    """bf16, causal, S 2048: gradients rounded otherwise (the fp32 plain
+    backward cast to bf16) pass both of kernel_check's limits; each planted
+    fault on the edge tiles (the last key tile of dk/dv, the last query
+    tile of dq) fails the row-relative one, and the 5% ones would pass the
+    limit relative to the largest magnitude alone."""
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(100 + D)
+    q, k, v, dout = (torch.randn(1, 2, 2048, D, generator=gen).bfloat16()
+                     for _ in range(4))
+    scale = D ** -0.5
+    out = reference_attention(q, k, v, causal=True)
+    lse = torch.logsumexp(_scores(q, k, True, scale, 0), dim=-1)
+    ref = _flash_bwd_plain(q, k, v, out, lse, dout, True, scale, 0)
+    clean = [g.bfloat16() for g in _flash_bwd_plain(
+        q.float(), k.float(), v.float(), out.float(), lse, dout.float(), True,
+        scale, 0)]
+    for g, r in zip(clean, ref):
+        assert cs._grad_errs(g, r)[1] <= cs.TOL_BWD["bfloat16"]
+        assert cs.row_rel_err(g, r, cs.BWD_ROW_FLOOR) \
+            <= cs.TOL_BWD_ROW_REL["bfloat16"] / 2
+    faults = cs.planted_bwd_faults(clean, ref)
+    assert set(faults) == set(cs.PLANTED_BWD_FAULTS)
+    for name, (rel_max, rel_row) in faults.items():
+        assert rel_row > 2 * cs.TOL_BWD_ROW_REL["bfloat16"], (name, rel_row)
+        if "x1.05" in name:
+            assert rel_max <= cs.TOL_BWD["bfloat16"], (name, rel_max)

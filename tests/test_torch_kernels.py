@@ -11,7 +11,7 @@ bf16: one ulp at |x| ~ 2 is 2**-6).  The flash forward is also held to the
 worst row's ||out - ref|| / ||ref|| (``ROW_REL_TOL``): a long row's output
 is small, so the absolute limit alone would let a wrong tile there pass.
 The backward's are relative to each gradient's largest magnitude
-(``BWD_TOL``).
+(``BWD_TOL``) and per row (``BWD_ROW_REL_TOL``).
 """
 
 from __future__ import annotations
@@ -192,6 +192,18 @@ def _grad_err(got, ref):
 # (1e-4); bf16 rounds P, dS and the outputs to bf16 (2**-8 = 4e-3 per
 # rounding; 2e-2 leaves room for the few P entries that round apart).
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The worst row's ||got - ref|| / ||ref|| (per query row of dq, per key row
+# of dk and dv), a row's ||ref|| taken as at least BWD_ROW_FLOOR of the
+# largest row's: chip_smoke.py's TOL_BWD_ROW_REL and its reasons.
+BWD_ROW_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_ROW_FLOOR = 1e-3
+
+
+def _row_rel_err(got, ref):
+    a, b = got.float(), ref.float()
+    norm = b.norm(dim=-1)
+    least = max(BWD_ROW_FLOOR * norm.max().item(), 1e-30)
+    return ((a - b).norm(dim=-1) / norm.clamp_min(least)).max().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -203,6 +215,19 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     (2, 4, 2, 77, 300, False, 0),
     (1, 16, 8, 128, 640, True, 512),
     (3, 8, 1, 33, 33, True, 0),
+    # The bf16 kernels' tiles at their edges: 64-key and 128-row tiles of
+    # the dq kernel, 128-key and 64-row tiles of the dk/dv kernel.  (Sk = 1
+    # is left out: there dK = 0 exactly and only rounding residue remains.)
+    (2, 4, 2, 1, 129, True, 128),          # one query row
+    (1, 8, 2, 63, 63, True, 0),
+    (1, 8, 2, 65, 65, True, 0),
+    (1, 4, 4, 127, 127, True, 0),
+    (1, 8, 2, 129, 129, True, 0),
+    (1, 8, 2, 1000, 1000, True, 0),        # GQA 8/2
+    (1, 8, 2, 65, 129, True, 64),          # q_offset, Sq != Sk
+    (1, 4, 2, 127, 1000, True, 873),
+    (2, 4, 1, 129, 63, False, 0),
+    (1, 4, 2, 1000, 65, False, 0),
 ])
 def test_flash_bwd_matches_plain(cuda, dtype, D, B, H, Hkv, Sq, Sk, causal,
                                  q_offset):
@@ -225,6 +250,25 @@ def test_flash_bwd_matches_plain(cuda, dtype, D, B, H, Hkv, Sq, Sk, causal,
         assert g.dtype == dtype and g.shape == r.shape, name
         assert torch.isfinite(g.float()).all(), name
         assert _grad_err(g, r) <= BWD_TOL[dtype], (name, _grad_err(g, r))
+        assert _row_rel_err(g, r) <= BWD_ROW_REL_TOL[dtype], (
+            name, _row_rel_err(g, r))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_is_deterministic(cuda, D):
+    """No atomics: two calls on the same inputs give bit-equal dq, dk and
+    dv (GQA, so the dk/dv kernel sums over a group)."""
+    gen = torch.Generator(device="cuda").manual_seed(D)
+    q = _randn(gen, 2, 16, 1000, D, dtype=torch.bfloat16)
+    k = _randn(gen, 2, 4, 1000, D, dtype=torch.bfloat16)
+    v = _randn(gen, 2, 4, 1000, D, dtype=torch.bfloat16)
+    dout = _randn(gen, 2, 16, 1000, D, dtype=torch.bfloat16)
+    out, lse = attn.flash_fwd(q, k, v, need_lse=True)
+    first = attn.flash_bwd(q, k, v, out, lse, dout)
+    second = attn.flash_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -255,6 +299,59 @@ def test_flash_attention_grad_goes_through_the_kernels(cuda, dtype):
     assert counts()[0] == before[0] + 2 and counts()[1] == before[1] + 1
 
 
+def _bwd_wgmma_check(form, a, a32, b, n):
+    """One wgmma of the flash backward's operand form ``form`` through the
+    test-only entry point of csrc/flash_bwd.cu."""
+    c = torch.empty(64, 64 if form == 0 else n, device="cuda")
+    fn = _build.function("flash_bwd", "rt_bwd_wgmma_check", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    code = fn(form, a.data_ptr() if a is not None else None,
+              a32.data_ptr() if a32 is not None else None, b.data_ptr(),
+              c.data_ptr(), n, torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_bwd", code, "rt_bwd_wgmma_check")
+    torch.cuda.synchronize()
+    return c
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_bwd_wgmma_ss_n64_descriptors_match_matmul(cuda, n):
+    """S^T = K Q^T's form (and S = Q K^T's): SS m64n64k16, A the second
+    64 rows of a [128, n] tile and B a [64, n] tile, both K-major."""
+    gen = torch.Generator(device="cuda").manual_seed(200 + n)
+    a = _randn(gen, 128, n, dtype=torch.bfloat16)
+    b = _randn(gen, 64, n, dtype=torch.bfloat16)
+    c = _bwd_wgmma_check(0, a, None, b, n)
+    ref = torch.matmul(a[64:].float(), b.float().T)
+    assert (c - ref).abs().max().item() <= WGMMA_TOL
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_bwd_wgmma_rs_mn_major_64_rows_matches_matmul(cuda, n):
+    """dV += P^T dO's form (and dQ += dS K's): A from registers (a 64 x 64
+    accumulator packed to bf16), B [64, n] MN-major."""
+    gen = torch.Generator(device="cuda").manual_seed(300 + n)
+    a32 = torch.randn(64, 64, generator=gen, device="cuda")
+    b = _randn(gen, 64, n, dtype=torch.bfloat16)
+    c = _bwd_wgmma_check(1, None, a32, b, n)
+    ref = torch.matmul(a32.bfloat16().float(), b.float())
+    assert (c - ref).abs().max().item() <= WGMMA_TOL
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_bwd_wgmma_one_tile_k_major_then_mn_major_matches_matmul(cuda, n):
+    """dK += dS^T Q reads the Q tile that S^T = K Q^T read: the same
+    swizzled [64, n] tile K-major, then MN-major."""
+    gen = torch.Generator(device="cuda").manual_seed(400 + n)
+    a = _randn(gen, 128, n, dtype=torch.bfloat16) * 0.25
+    b = _randn(gen, 64, n, dtype=torch.bfloat16)
+    c = _bwd_wgmma_check(2, a, None, b, n)
+    s = torch.matmul(a[64:].float(), b.float().T)
+    ref = torch.matmul(s.bfloat16().float(), b.float())
+    # s rounds to bf16 in both; a sum of n products may round apart.
+    assert ((c - ref).abs().max() / ref.abs().max()).item() <= 1e-2
+
+
 def test_flash_bwd_refuses_what_the_kernels_do_not_take(cuda):
     q = torch.randn(1, 4, 64, 64, device="cuda")
     out, lse = attn.flash_fwd(q, q, q, need_lse=True)
@@ -266,7 +363,7 @@ def test_flash_bwd_refuses_what_the_kernels_do_not_take(cuda):
         attn.flash_bwd(q, q, q, out[:, :2], lse, q)
     delta = torch.zeros_like(lse)
     with pytest.raises(ValueError, match="must be on"):
-        attn.flash_bwd_dq(q, q.cpu(), q, q, lse, delta, causal=True,
+        attn.flash_bwd_dq(q, q.cpu(), q, q, q, lse, causal=True,
                           scale=0.125, q_offset=0)
     with pytest.raises(ValueError, match="delta"):
         attn.flash_bwd_dkv(q, q, q, q, lse, delta[:, :2], causal=True,

@@ -347,7 +347,8 @@ def _imported_roots(path: pathlib.Path):
 
 def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "flash_fwd_ab.py",
+              REPO / "flash_bwd_ab.py"]
     assert len(files) > 10
     for f in files:
         # Whole-word roots: ray_tpu_torch is the port itself.  optax, chex
