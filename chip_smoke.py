@@ -62,6 +62,18 @@ TOL_ROW_REL = {"float32": 1e-4, "bfloat16": 2e-2}
 # 128-row query tile), as a wrong ring stage or tile index there would
 # make them: key tile 1 skipped, or the rows 5% too large.
 PLANTED_FWD_FAULTS = ("skip_key_tile_1", "rows_x1.05")
+# paged_decode's second measure, the worst live row's ||out - ref|| /
+# ||ref|| over D (row_rel_err).  A row averages V over hundreds to
+# thousands of tokens, so its elements are small (about sqrt(1 / len) at
+# randn inputs) and the absolute limit alone would let a lost split or page
+# pass.  Each of PLANTED_PAGED_FAULTS must exceed it
+# (tests/test_torch_build.py shows it on the CPU); bf16 rounds the output
+# once (2**-9 relative).
+TOL_PAGED_ROW_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+# Faults planted in one live slot's output, as a wrong arrival count or
+# range end would make them: the last split's partial left out of the
+# merge, or the slot's last page skipped.
+PLANTED_PAGED_FAULTS = ("split_partial_dropped", "last_page_skipped")
 # llama_1b logits, kernel path vs plain path, teacher-forced: bf16 attention
 # outputs differ by rounding and the difference compounds over 16 layers;
 # the logits themselves have a std of about 1.
@@ -209,11 +221,11 @@ KERNEL_NAMES = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma_check_kernel",
                 "flash_fwd_f32_kernel",
                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_f32_kernel",
                 "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_f32_kernel",
-                "flash_bwd_wgmma_check_kernel", "paged_decode_kernel")
+                "flash_bwd_wgmma_check_kernel", "paged_decode_split_kernel")
 # Kernels whose registers must all be their own: a spill of their
 # accumulators to local memory would cost more than the kernel gains.
 NO_SPILL = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-            "flash_bwd_dkv_wgmma_kernel")
+            "flash_bwd_dkv_wgmma_kernel", "paged_decode_split_kernel")
 
 
 def _ptxas_summary(lines):
@@ -268,12 +280,12 @@ def _flash_inputs(B, H, Hkv, Sq, Sk, D, dtype, seed):
     return rnd(B, H, Sq, D), rnd(B, Hkv, Sk, D), rnd(B, Hkv, Sk, D)
 
 
-def _paged_inputs(B, H, Hkv, D, page, lens, dtype, seed):
-    """kv_pages over shuffled pages, block tables naming each slot's pages,
-    int32 seq_lens."""
+def _paged_inputs(B, H, Hkv, D, page, lens, dtype, seed, P=None):
+    """kv_pages over shuffled pages, [B, P] block tables naming each slot's
+    pages (P: the longest length's pages unless given), int32 seq_lens."""
     import torch
     rng = np.random.default_rng(seed)
-    P = max(1, math.ceil(max(lens) / page))
+    P = P or max(1, math.ceil(max(lens) / page))
     NP = B * P + 1
     perm = rng.permutation(np.arange(1, NP)).astype(np.int32)
     bt = perm[:B * P].reshape(B, P)
@@ -313,6 +325,41 @@ def planted_fwd_faults(q, k, v, out, ref):
             for name, f in zip(PLANTED_FWD_FAULTS, (skip, big))}
 
 
+def planted_paged_faults(q, kv, bt, sl, page, out, ref, splits):
+    """PLANTED_PAGED_FAULTS in copies of ``out``, on the live slot with the
+    most non-empty splits (of those, the fullest last page), each computed
+    by the plain versions: {fault: (max abs error, row_rel_err over the
+    live rows)} against ``ref``."""
+    from ray_tpu_torch.ops.paged_attention import (_exact_path,
+                                                   _merge_partials,
+                                                   _split_partials,
+                                                   split_ranges)
+    P = bt.shape[1]
+    lo, hi = split_ranges(sl, P, page, splits)
+    n_splits = (hi > lo).sum(dim=0)
+    reach = sl.long().clamp(max=P * page)
+    last_fill = (reach - 1) % page + 1
+    b = int((n_splits * (page + 1) + last_fill * (reach > 0)).argmax())
+    check(int(n_splits[b]) > 1 and int(reach[b]) > page,
+          f"planted_paged_faults: slot {b} has one split or one page")
+    one = (q[b:b + 1], kv, bt[b:b + 1], sl[b:b + 1], page)
+    m, l, acc = _split_partials(*one, splits)
+    last = int(n_splits[b]) - 1
+    m[last], l[last], acc[last] = -math.inf, 0.0, 0.0
+    dropped = _merge_partials(m, l, acc, q.dtype)
+    short = sl[b:b + 1].clone()
+    short[0] = (int(reach[b]) - 1) // page * page
+    skipped = _exact_path(*one[:3], short, page)
+    live = sl > 0
+    res = {}
+    for name, row in zip(PLANTED_PAGED_FAULTS, (dropped, skipped)):
+        f = out.clone()
+        f[b] = row[0]
+        res[name] = ((f[live].float() - ref[live].float()).abs().max()
+                     .item(), row_rel_err(f[live], ref[live]))
+    return res
+
+
 def planted_bwd_faults(got, ref):
     """PLANTED_BWD_FAULTS in copies of ``got`` = (dq, dk, dv): {fault:
     (max abs error over the largest magnitude, row_rel_err)}, the worst
@@ -336,8 +383,7 @@ def phase_kernel_check():
     import torch
     from ray_tpu_torch.ops.attention import (_scores, flash_fwd,
                                              reference_attention)
-    from ray_tpu_torch.ops.paged_attention import _exact_path, paged_decode
-    results = {"flash": [], "paged": []}
+    results = {"flash": []}
     failed = []
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -381,32 +427,88 @@ def phase_kernel_check():
         if not (err <= TOL[name] and rel <= TOL_ROW_REL[name]
                 and lse_err <= 1e-3):
             failed.append(("flash_fwd", row))
-    rng = np.random.default_rng(0)
-    for j, (H, Hkv, D, dtype) in enumerate([
-            (16, 8, 128, torch.bfloat16), (16, 8, 128, torch.float32),
-            (8, 2, 64, torch.bfloat16), (8, 8, 64, torch.float32)]):
-        lens = rng.integers(1, 401, size=32).tolist()
-        lens[5] = 0                       # an inactive slot
-        q, kv, bt, sl = _paged_inputs(32, H, Hkv, D, 16, lens, dtype,
-                                      seed=100 + j)
-        out = paged_decode(q, kv, bt, sl, 16)
-        ref = _exact_path(q, kv, bt, sl, 16)
-        torch.cuda.synchronize()
-        live = sl > 0
-        name = str(dtype).split(".")[-1]
-        err = (out[live].float() - ref[live].float()).abs().max().item()
-        finite = bool(torch.isfinite(out[~live].float()).all().item())
-        results["paged"].append({
-            "dtype": name, "B": 32, "H": H, "Hkv": Hkv, "D": D,
-            "page": 16, "max_seq_len": max(lens), "max_abs_err": err,
-            "inactive_finite": finite, "tol": TOL[name]})
-        if not (err <= TOL[name] and finite):
-            failed.append(("paged_decode", results["paged"][-1]))
+    results["paged"] = _check_paged(failed)
     results["flash_bwd"] = _check_flash_bwd(failed)
     for kind in ("flash", "paged", "flash_bwd"):
         emit({"phase": "kernel_check", "kernel": kind,
               "cases": results[kind]})
     check(not failed, f"kernels disagree with their plain versions: {failed}")
+
+
+# paged_decode's kernel_check cases: (B, H, Hkv, D, dtype, lens, P, plant).
+# P None: the longest length's pages.  plant: hold PLANTED_PAGED_FAULTS to
+# the row limit there (cases the split rule splits).
+def _paged_cases():
+    import torch
+    rng = np.random.default_rng(0)
+    cases = []
+    for H, Hkv, D, dtype in ((16, 8, 128, torch.bfloat16),
+                             (16, 8, 128, torch.float32),
+                             (8, 2, 64, torch.bfloat16),
+                             (8, 8, 64, torch.float32)):
+        lens = rng.integers(1, 401, size=32).tolist()
+        lens[5] = 0                       # an inactive slot
+        cases.append((32, H, Hkv, D, dtype, lens, None, False))
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        # The engine's table width (llama_1b: P = 128) at serving's lengths.
+        cases.append((32, 16, 8, 128, dtype,
+                      rng.integers(256, 385, size=32).tolist(), 128, False))
+        # Long context: one slot at llama_1b's max_seq_len, 32 splits.
+        cases.append((1, 16, 8, 128, dtype, [2048], 128, bf16))
+        # Edge lengths at a table of 8 pages, GQA 8.
+        cases.append((12, 32, 4, 128, dtype,
+                      [1, 16, 17, 31, 32, 33, 63, 64, 65, 128, 200, 0], 8,
+                      False))
+    cases.append((4, 16, 8, 128, torch.bfloat16,
+                  rng.integers(1000, 2049, size=4).tolist(), 128, True))
+    # The 7B preset's heads (G 1).
+    cases.append((8, 32, 32, 128, torch.bfloat16,
+                  rng.integers(512, 1025, size=8).tolist(), 128, False))
+    # One long context as the engine sends it: 32 slots, 31 inactive.
+    cases.append((32, 16, 8, 128, torch.bfloat16, [2048] + [0] * 31, 128,
+                  False))
+    return cases
+
+
+def _check_paged(failed):
+    """paged_decode against _exact_path on the same inputs (TOL and
+    TOL_PAGED_ROW_REL over the live slots; inactive slots finite zeros),
+    with PLANTED_PAGED_FAULTS at long context (one slot, 32 splits) and
+    at B 4 (8 splits)."""
+    import torch
+    from ray_tpu_torch.ops import paged_attention as paged
+    rows = []
+    for j, (B, H, Hkv, D, dtype, lens, P, plant) in enumerate(
+            _paged_cases()):
+        q, kv, bt, sl = _paged_inputs(B, H, Hkv, D, 16, lens, dtype,
+                                      seed=100 + j, P=P)
+        out = paged.paged_decode(q, kv, bt, sl, 16)
+        ref = paged._exact_path(q, kv, bt, sl, 16)
+        torch.cuda.synchronize()
+        live = sl > 0
+        name = str(dtype).split(".")[-1]
+        err = (out[live].float() - ref[live].float()).abs().max().item()
+        rel = row_rel_err(out[live], ref[live])
+        zeros = bool((out[~live] == 0).all().item())
+        splits = paged._splits(q.device, B, Hkv, bt.shape[1])
+        row = {"dtype": name, "B": B, "H": H, "Hkv": Hkv, "D": D,
+               "page": 16, "P": bt.shape[1], "splits": splits,
+               "seq_lens": [min(lens), max(lens)], "max_abs_err": err,
+               "row_rel_err": rel, "inactive_zeros": zeros,
+               "tol": TOL[name], "tol_row_rel": TOL_PAGED_ROW_REL[name]}
+        if plant:
+            row["planted"] = planted_paged_faults(q, kv, bt, sl, 16, out,
+                                                  ref, splits)
+            if min(r for _a, r in row["planted"].values()) <= \
+                    TOL_PAGED_ROW_REL[name]:
+                failed.append(("paged_decode planted fault passed", row))
+        rows.append(row)
+        if not (err <= TOL[name] and rel <= TOL_PAGED_ROW_REL[name]
+                and zeros):
+            failed.append(("paged_decode", row))
+        del q, kv, bt, sl, out, ref
+    return rows
 
 
 def _bwd_inputs(B, H, Hkv, Sq, Sk, D, dtype, causal, q_offset, seed):
@@ -519,7 +621,6 @@ def phase_kernel_time(smi):
     import torch
     import torch.nn.functional as F
     from ray_tpu_torch.ops.attention import flash_fwd, reference_attention
-    from ray_tpu_torch.ops.paged_attention import _exact_path, paged_decode
     rows = {}
     # Serving's prefill shapes (llama_1b: H 16 / Hkv 8), then the training
     # step's (need_lse, as the training path calls it).  The kernel and SDPA
@@ -560,40 +661,102 @@ def phase_kernel_time(smi):
             ms, plain, lib, flops, nbytes, err), timed_by="graph",
             eager_ms=eager, library_eager_ms=lib_eager)
         del q, k, v
-    Bd, H, Hkv, D, page = 32, 16, 8, 128, 16    # llama_1b's decode shape
-    rng = np.random.default_rng(1)
-    lens = rng.integers(256, 385, size=Bd).tolist()
-    # Four copies of the cache (each ~50 MB) in turn: each launch reads its
-    # pages from device memory, not from the 50 MB L2, as a decode step
-    # does when it walks 16 layers' caches.
-    bufs = [_paged_inputs(Bd, H, Hkv, D, page, lens, torch.bfloat16,
-                          seed=200 + i) for i in range(4)]
-    turn = [0]
-
-    def run_paged():
-        q, kv, bt, sl = bufs[turn[0] % 4]
-        turn[0] += 1
-        return paged_decode(q, kv, bt, sl, page)
-
-    ms = time_ms(run_paged, 200)
-    q, kv, bt, sl = bufs[0]
-    err = (paged_decode(q, kv, bt, sl, page).float()
-           - _exact_path(q, kv, bt, sl, page).float()).abs().max().item()
-    plain = time_ms(lambda: _exact_path(q, kv, bt, sl, page), 20)
-    live = int(sum(lens))
-    flops = 4 * H * D * live
-    pages_read = sum(math.ceil(n / page) for n in lens)
-    nbytes = (live * 2 * Hkv * D * 2 + 2 * Bd * H * D * 2
-              + pages_read * 4 + Bd * 4)
-    rows["paged_decode"] = _timing_row(
-        "paged_decode", {"B": Bd, "H": H, "Hkv": Hkv, "D": D, "page": page,
-                         "seq_lens": [min(lens), max(lens)],
-                         "dtype": "bfloat16"},
-        ms, plain, None, flops, nbytes, err)
+    _time_paged(rows)
     _time_flash_bwd(rows)
     for row in rows.values():
         emit(dict(row, phase="kernel_time", card=smi))
     return rows
+
+
+# paged_decode's timed shapes (kernel_time, paged_decode_ab.py): key, B, H,
+# Hkv, lengths drawn from [lo, hi] for the first `live` slots (the rest
+# inactive, length 0), live; D 128, page 16, bf16, at the engine's table
+# width for llama_1b (P = 128).  (a) serving's decode; (b) one long
+# context; (c) a few long ones; (d) the 7B preset's heads (G 1); (e) one
+# long context as the engine sends it: all 32 slots, 31 of them inactive.
+PAGED_SHAPES = (("paged_decode", 32, 16, 8, (256, 384), 32),
+                ("paged_decode_long", 1, 16, 8, (2048, 2048), 1),
+                ("paged_decode_B4", 4, 16, 8, (1000, 2048), 4),
+                ("paged_decode_g1", 8, 32, 32, (512, 1024), 8),
+                ("paged_decode_long_B32", 32, 16, 8, (2048, 2048), 1))
+PAGED_D, PAGED_PAGE, PAGED_P = 128, 16, 128
+L2_BYTES = 50e6
+
+
+def paged_shape_inputs(B, H, Hkv, lens_range, live, seed, copies=None):
+    """One PAGED_SHAPES row's inputs: (copies, lens), copies being (unless
+    given) enough caches of the same lengths that, rotated, their live
+    bytes exceed twice the L2 (a decode step walks 16 layers' caches: none
+    is in L2)."""
+    import torch
+    lens = np.random.default_rng(seed).integers(
+        lens_range[0], lens_range[1] + 1, size=live).tolist()
+    lens += [0] * (B - live)
+    live = sum(lens) * 2 * Hkv * PAGED_D * 2
+    n = copies or max(2, math.ceil(2 * L2_BYTES / live))
+    return [_paged_inputs(B, H, Hkv, PAGED_D, PAGED_PAGE, lens,
+                          torch.bfloat16, seed=seed + i, P=PAGED_P)
+            for i in range(n)], lens
+
+
+def paged_bound(B, H, Hkv, lens):
+    """(flops, bytes) the kernel must do and move: 4*D flops per live
+    token and query head; live K/V, q, out, the live block-table entries
+    and seq_lens, each once."""
+    live = int(sum(lens))
+    pages = sum(math.ceil(n / PAGED_PAGE) for n in lens)
+    return (4 * H * PAGED_D * live,
+            live * 2 * Hkv * PAGED_D * 2 + 2 * B * H * PAGED_D * 2
+            + pages * 4 + B * 4)
+
+
+def rotating(call, copies):
+    """A call of ``call(*copies[i])`` taking the copies in turn."""
+    turn = [0]
+
+    def run():
+        args = copies[turn[0] % len(copies)]
+        turn[0] += 1
+        return call(*args)
+
+    return run
+
+
+def _time_paged(rows):
+    """paged_decode at PAGED_SHAPES: by graph replay (ms) and eager
+    (eager_ms), the caches rotated past the L2; the plain version eager on
+    one copy.  No one-call PyTorch equivalent exists."""
+    import torch
+    from ray_tpu_torch.ops import paged_attention as paged
+    for key, B, H, Hkv, lens_range, live in PAGED_SHAPES:
+        copies, lens = paged_shape_inputs(B, H, Hkv, lens_range, live,
+                                          seed=200)
+
+        def kernel(q, kv, bt, sl):
+            return paged.paged_decode(q, kv, bt, sl, PAGED_PAGE)
+
+        run = rotating(kernel, copies)
+        calls = len(copies) * math.ceil(10 / len(copies))
+        ms = graph_ms(run, calls=calls)
+        eager = eager_ms(run, 200)
+        q, kv, bt, sl = copies[0]
+        on = sl > 0
+        err = (kernel(q, kv, bt, sl)[on].float() - paged._exact_path(
+            q, kv, bt, sl, PAGED_PAGE)[on].float()).abs().max().item()
+        plain = time_ms(lambda: paged._exact_path(q, kv, bt, sl,
+                                                  PAGED_PAGE), 5)
+        flops, nbytes = paged_bound(B, H, Hkv, lens)
+        rows[key] = dict(_timing_row(
+            "paged_decode", {"B": B, "H": H, "Hkv": Hkv, "D": PAGED_D,
+                             "page": PAGED_PAGE, "P": PAGED_P,
+                             "seq_lens": [min(lens), max(lens)],
+                             "dtype": "bfloat16"},
+            ms, plain, None, flops, nbytes, err), timed_by="graph",
+            eager_ms=eager, splits=paged._splits(q.device, B, Hkv, PAGED_P),
+            cache_copies=len(copies),
+            library="none (no one-call PyTorch equivalent)")
+        del copies, q, kv, bt, sl
+        torch.cuda.empty_cache()
 
 
 def sdpa_bwd(q, k, v, dout):
@@ -707,7 +870,7 @@ def _line_numbers(row):
     eager times too, where the row was timed by graph replay)."""
     keys = ("shape", "max_abs_err", "ms", "timed_by", "eager_ms",
             "plain_ms", "bound_ms", "bound_by", "library", "library_ms",
-            "library_eager_ms")
+            "library_eager_ms", "splits", "cache_copies")
     return {k: row[k] for k in keys if k in row}
 
 
@@ -1311,11 +1474,14 @@ def main() -> int:
              "launches": sum(by_path.values()),
              "launches_by_path": by_path}, **_line_numbers(row)))
     # Each attention kernel where training spends its time, beside its
-    # B=1 row.
+    # B=1 row; the paged kernel's other timed shapes beside serving's.
     for entry in kernels:
         if entry["name"].startswith("flash"):
             entry["at_train_shape"] = _line_numbers(
                 rows[f"{entry['name']}_train"])
+        elif entry["name"] == "paged_decode":
+            entry["at_shapes"] = {key: _line_numbers(rows[key])
+                                  for key, *_ in PAGED_SHAPES[1:]}
     emit({"kernels": kernels, "card": smi,
           "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -64,7 +64,7 @@ def host_us(fn, args, calls: int = 100) -> float:
     us = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
     if code != 0:
-        raise RuntimeError(f"rt_flash_fwd returned {code}")
+        raise RuntimeError(f"the C entry point returned {code}")
     return us
 
 

@@ -7,7 +7,8 @@ every library by a hash of its source and of the headers in ``csrc/``.
 These tests hold each of those to the sources, on the CPU: a kernel added
 or renamed, or a header included from outside ``csrc/``, must not drop out
 of them.  The last ones hold ``chip_smoke.py``'s checks of the flash
-forward and backward to the faults they are there to catch.
+forward and backward and of the paged decode to the faults they are there
+to catch.
 """
 
 from __future__ import annotations
@@ -16,10 +17,12 @@ import importlib.util
 import pathlib
 import re
 
+import numpy as np
 import pytest
 import torch
 
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import paged_attention as paged
 from ray_tpu_torch.ops.attention import (_flash_bwd_plain, _scores,
                                          reference_attention)
 
@@ -151,3 +154,61 @@ def test_flash_bwd_check_sees_faults_on_edge_rows(D):
         assert rel_row > 2 * cs.TOL_BWD_ROW_REL["bfloat16"], (name, rel_row)
         if "x1.05" in name:
             assert rel_max <= cs.TOL_BWD["bfloat16"], (name, rel_max)
+
+
+@pytest.mark.parametrize("B,lens,P,splits", [
+    (8, (256, 384), 24, 2),        # serving's lengths, 2 splits
+    (1, (2048, 2048), 128, 32),    # long context, 32 splits
+])
+def test_paged_check_sees_faults(B, lens, P, splits):
+    """bf16, H 16 / Hkv 8, D 128, page 16: the split-and-merge's output
+    (another summation order) passes both of kernel_check's limits; each
+    planted fault (the last split's partial dropped, the last page
+    skipped) fails the row-relative one; at long context the page fault
+    would pass the absolute limit alone."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(B)
+    ln = rng.integers(lens[0], lens[1] + 1, size=B).tolist()
+    NP = B * P + 1
+    bt = rng.permutation(np.arange(1, NP))[:B * P].reshape(B, P)
+    gen = torch.Generator().manual_seed(B)
+    kv = torch.randn(NP, 16, 16, 128, generator=gen).bfloat16()
+    q = torch.randn(B, 16, 128, generator=gen).bfloat16()
+    bt = torch.from_numpy(bt.astype(np.int32))
+    sl = torch.tensor(ln, dtype=torch.int32)
+    ref = paged._exact_path(q, kv, bt, sl, 16)
+    clean = paged._split_path(q, kv, bt, sl, 16, splits)
+    tol, tol_row = cs.TOL["bfloat16"], cs.TOL_PAGED_ROW_REL["bfloat16"]
+    assert (clean.float() - ref.float()).abs().max().item() <= tol
+    assert cs.row_rel_err(clean, ref) <= tol_row / 2
+    faults = cs.planted_paged_faults(q, kv, bt, sl, 16, clean, ref, splits)
+    assert set(faults) == set(cs.PLANTED_PAGED_FAULTS)
+    for name, (_abs, rel) in faults.items():
+        assert rel > 2 * tol_row, (name, rel)
+    if B == 1:
+        assert faults["last_page_skipped"][0] <= tol, faults
+
+
+def test_launch_struct_agrees_with_the_kernel():
+    """paged_attention._Launch lays out the kernel's struct Launch: the
+    same fields in the same order, a pointer and then ints and a float."""
+    src = (_build.CSRC_DIR / "paged_decode.cu").read_text()
+    body = re.search(r"struct Launch \{(.*?)\};", src, re.S).group(1)
+    fields = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        if decl.strip():
+            kind, names = re.match(r"\s*(float\*|int|float)\s+(.*)",
+                                   decl, re.S).groups()
+            fields += [(kind, n.strip()) for n in names.split(",")]
+    ctype = {"float*": "c_void_p", "int": "c_int", "float": "c_float"}
+    assert [(n, ctype[k]) for k, n in fields] == [
+        (n, t.__name__) for n, t in paged._Launch._fields_]
+
+
+@pytest.mark.parametrize("name", ["MIN_PAGES_PER_SPLIT", "MAX_SPLITS"])
+def test_split_constants_agree_with_the_kernel(name):
+    """The split rule and _split_path use these; the kernel's own
+    constants must be the same."""
+    src = (_build.CSRC_DIR / "paged_decode.cu").read_text()
+    m = re.search(rf"constexpr int {name} = (\d+);", src)
+    assert m and int(m.group(1)) == getattr(paged, name)

@@ -130,31 +130,178 @@ def test_wgmma_mn_major_transposed_descriptor_matches_matmul(cuda, n):
     assert (c - ref).abs().max().item() <= WGMMA_TOL
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("H,Hkv,D", [(16, 8, 128), (8, 8, 64), (8, 2, 64),
-                                     (16, 2, 128)])
-def test_paged_decode_matches_plain(cuda, dtype, H, Hkv, D):
-    B, page = 12, 16
-    rng = np.random.default_rng(H + Hkv + D)
-    lens = rng.integers(1, 300, size=B)
-    lens[3] = 0                                   # inactive slot
-    P = math.ceil(lens.max() / page)
+def _paged_case(B, H, Hkv, D, page, lens, P, dtype, seed):
+    """q, kv_pages over shuffled pages, a [B, P] block table naming each
+    slot's pages, int32 seq_lens (lens past P * page reach the table's
+    end)."""
+    rng = np.random.default_rng(seed)
     NP = B * P + 1
     bt = rng.permutation(np.arange(1, NP))[:B * P].reshape(B, P)
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     kv = _randn(gen, NP, page, 2 * Hkv, D, dtype=dtype)
     q = _randn(gen, B, H, D, dtype=dtype)
-    bt = torch.from_numpy(bt.astype(np.int32)).cuda()
-    sl = torch.from_numpy(lens.astype(np.int32)).cuda()
-    before = paged.paged_decode.launches
-    out = paged.paged_decode(q, kv, bt, sl, page)
-    assert paged.paged_decode.launches == before + 1
-    ref = paged._exact_path(q, kv, bt, sl, page)
-    torch.cuda.synchronize()
+    return (q, kv, torch.from_numpy(bt.astype(np.int32)).cuda(),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+def _paged_errs(out, ref, sl):
+    """(max abs error, worst row's ||out - ref|| / ||ref||) over the live
+    slots, and whether the inactive slots' rows are zeros."""
     live = sl > 0
-    assert (out[live].float() - ref[live].float()).abs().max().item() \
-        <= TOL[dtype]
-    assert torch.isfinite(out[~live].float()).all()
+    a, b = out[live].float(), ref[live].float()
+    rel = ((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item()
+    zeros = bool((out[~live] == 0).all())
+    return (a - b).abs().max().item(), rel, zeros
+
+
+# Page 16, a table of 8 pages (reach 128): lengths 1, a page, a page + 1,
+# either side of the boundary of a forced 3-way split's 2-page runs (32,
+# 64), the reach, past it, and an inactive slot.
+EDGE_LENS = [1, 16, 17, 31, 32, 33, 63, 64, 65, 128, 200, 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,Hkv,D", [
+    (16, 8, 128), (8, 8, 64), (8, 2, 64), (16, 2, 128), (32, 4, 128),
+    (8, 1, 64), (4, 4, 128), (16, 4, 64)])
+@pytest.mark.parametrize("splits", [1, 3, None])
+def test_paged_decode_matches_plain(cuda, monkeypatch, dtype, H, Hkv, D,
+                                    splits):
+    """The kernel at a forced split count (None: the split rule's) against
+    the plain version, at the edge lengths, in two calls of half the slots
+    each (so that a forced layout's B * Hkv * splits stays within the
+    workspace, BLOCKS_PER_SM blocks an SM)."""
+    if splits is not None:
+        monkeypatch.setattr(paged, "_splits", lambda *_a: splits)
+        monkeypatch.setattr(paged, "_LAUNCH", {})
+    q, kv, bt, sl = _paged_case(len(EDGE_LENS), H, Hkv, D, 16, EDGE_LENS,
+                                8, dtype, seed=H + Hkv + D)
+    half = len(EDGE_LENS) // 2
+    assert half * Hkv * (splits or 1) <= \
+        paged.BLOCKS_PER_SM * paged._sm_count(q.device)
+    before = paged.paged_decode.launches
+    out = torch.cat([paged.paged_decode(q[s].clone(), kv, bt[s].clone(),
+                                        sl[s].clone(), 16)
+                     for s in (slice(0, half), slice(half, None))])
+    assert paged.paged_decode.launches == before + 2
+    ref = paged._exact_path(q, kv, bt, sl, 16)
+    torch.cuda.synchronize()
+    err, rel, zeros = _paged_errs(out, ref, sl)
+    assert out.dtype == dtype and err <= TOL[dtype] \
+        and rel <= ROW_REL_TOL[dtype] and zeros, (err, rel, zeros)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,Hkv,lens", [
+    # The engine's table width (P = 128) with serving's lengths.
+    (32, 16, 8, "256-384"),
+    # Long context: one slot at llama_1b's max_seq_len, 32 splits.
+    (1, 16, 8, "2048"),
+    (4, 16, 8, "1000-2048"),
+    # The 7B preset's heads (G 1).
+    (8, 32, 32, "512-1024"),
+    # P = 128 with short lengths: most of the table is dead width.
+    (6, 16, 8, "1-40"),
+])
+def test_paged_decode_at_the_engine_width(cuda, dtype, B, H, Hkv, lens):
+    lo, _, hi = lens.partition("-")
+    rng = np.random.default_rng(B)
+    ln = rng.integers(int(lo), int(hi or lo) + 1, size=B).tolist()
+    q, kv, bt, sl = _paged_case(B, H, Hkv, 128, 16, ln, 128, dtype, seed=B)
+    out = paged.paged_decode(q, kv, bt, sl, 16)
+    ref = paged._exact_path(q, kv, bt, sl, 16)
+    torch.cuda.synchronize()
+    err, rel, _ = _paged_errs(out, ref, sl)
+    assert err <= TOL[dtype] and rel <= ROW_REL_TOL[dtype], (err, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_one_live_slot_of_the_engines(cuda, dtype):
+    """The tensors the engine sends with one request live: its 32 slots at
+    P = 128, one at llama_1b's max_seq_len, 31 inactive (one split)."""
+    lens = [0] * 32
+    lens[7] = 2048
+    q, kv, bt, sl = _paged_case(32, 16, 8, 128, 16, lens, 128, dtype,
+                                seed=77)
+    out = paged.paged_decode(q, kv, bt, sl, 16)
+    ref = paged._exact_path(q, kv, bt, sl, 16)
+    torch.cuda.synchronize()
+    err, rel, zeros = _paged_errs(out, ref, sl)
+    assert err <= TOL[dtype] and rel <= ROW_REL_TOL[dtype] and zeros, \
+        (err, rel, zeros)
+
+
+def test_paged_decode_is_deterministic(cuda):
+    """The partials merge in split order: two calls are bit-equal."""
+    q, kv, bt, sl = _paged_case(4, 16, 8, 128, 16, [2048, 900, 17, 0], 128,
+                                torch.bfloat16, seed=5)
+    assert paged._splits(q.device, 4, 8, 128) > 1
+    a = paged.paged_decode(q, kv, bt, sl, 16)
+    b = paged.paged_decode(q, kv, bt, sl, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_paged_decode_after_a_call_of_another_shape(cuda):
+    """Each call leaves the arrival counters at 0, and every split layout
+    uses the one workspace allocated for the device: calls of other shapes
+    in turn stay right, and the workspace is never replaced."""
+    cases = [(2, 8, 8, 64, [64, 65]), (1, 16, 8, 128, [2048]),
+             (32, 16, 8, 128, [300] * 32), (3, 32, 4, 128, [700, 0, 2000]),
+             (1, 16, 8, 128, [1500])]
+    first = None
+    for i, (B, H, Hkv, D, lens) in enumerate(cases * 2):
+        q, kv, bt, sl = _paged_case(B, H, Hkv, D, 16, lens, 128,
+                                    torch.bfloat16, seed=50 + i)
+        out = paged.paged_decode(q, kv, bt, sl, 16)
+        ref = paged._exact_path(q, kv, bt, sl, 16)
+        torch.cuda.synchronize()
+        err, rel, zeros = _paged_errs(out, ref, sl)
+        assert err <= TOL[torch.bfloat16] and rel <= ROW_REL_TOL[
+            torch.bfloat16] and zeros, (i, err, rel)
+        ws, blocks = paged._WORKSPACE[q.device]
+        first = first or (ws, ws.data_ptr())
+        assert ws is first[0] and ws.data_ptr() == first[1]
+        counters = ws[:blocks // 2].view(torch.int32)
+        assert int(counters.abs().sum()) == 0
+
+
+def test_paged_decode_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.randn(2, 8, 128, device="cuda", dtype=torch.bfloat16)
+    kv = torch.randn(5, 16, 4, 128, device="cuda", dtype=torch.bfloat16)
+    bt = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
+    sl = torch.ones(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="page_size"):
+        paged.paged_decode(q, kv, bt, sl, 8)
+    with pytest.raises(ValueError, match="page_size >= 1"):
+        paged.paged_decode(q, kv[:, :0], bt, sl, 0)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        paged.paged_decode(q.half(), kv.half(), bt, sl, 16)
+    with pytest.raises(ValueError, match="one dtype"):
+        paged.paged_decode(q, kv.float(), bt, sl, 16)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged.paged_decode(q[..., :32].contiguous(),
+                           kv[..., :32].contiguous(), bt, sl, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged.paged_decode(q.transpose(0, 1).contiguous().transpose(0, 1),
+                           kv, bt, sl, 16)
+    with pytest.raises(ValueError, match="must be on"):
+        paged.paged_decode(q, kv, bt.cpu(), sl, 16)
+    with pytest.raises(ValueError, match="seq_lens"):
+        paged.paged_decode(q, kv, bt, sl[:1], 16)
+    with pytest.raises(ValueError, match="1 page"):
+        paged.paged_decode(q, kv, bt[:, :0], sl, 16)
+    # The C entry refuses a split layout the workspace cannot hold, and
+    # splits > 1 without a workspace.
+    ws, blocks = paged._workspace(q.device)
+    prepare = _build.function("paged_decode", "rt_paged_decode_prepare",
+                              [ctypes.c_void_p])
+    for ptr, B in ((ws.data_ptr(), blocks // 4 + 1), (None, 1)):
+        launch = paged._Launch(ptr, blocks, 1, B, 8, 2, 128, 128, 16, 2)
+        assert prepare(ctypes.addressof(launch)) != 0
+    launch = paged._Launch(ws.data_ptr(), blocks, 1, blocks // 4, 8, 2, 128,
+                           128, 16, 2)
+    assert prepare(ctypes.addressof(launch)) == 0
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -275,6 +275,100 @@ class TestPaged:
         tol = F32 if dtype == "float32" else BF16
         np.testing.assert_allclose(_np(got), _np(want), **tol)
 
+    # Page 4, a table of 8 pages (reach 32): 1, a page, a page + 1, either
+    # side of the 2-page runs' boundaries (8, 16), the reach, past it, and
+    # an inactive slot.
+    EDGE_LENS = [1, 4, 5, 7, 8, 9, 15, 16, 17, 32, 50, 0]
+
+    @pytest.mark.parametrize("splits", range(1, 33))
+    def test_split_path_matches_jax(self, splits):
+        """The kernel's split-and-merge, in plain torch, against the JAX
+        package's paged_decode_attention (its _exact_path on the CPU) at
+        1e-5 over the live slots; inactive slots give zeros."""
+        lens = np.array(self.EDGE_LENS, np.int32)
+        B, H, Hkv, D, page, P = len(lens), 8, 2, 16, 4, 8
+        rng = np.random.default_rng(90)
+        NP = B * P + 1
+        bt = rng.permutation(np.arange(1, NP))[:B * P].reshape(B, P)
+        bt = bt.astype(np.int32)
+        kv, q = _rand(91, NP, page, 2 * Hkv, D), _rand(92, B, H, D)
+        got = t_paged._split_path(_tt(q), _tt(kv), torch.from_numpy(bt),
+                                  torch.from_numpy(lens), page, splits)
+        want = j_paged.paged_decode_attention(
+            _jj(q), _jj(kv), jnp.asarray(bt), jnp.asarray(lens), page)
+        live = lens > 0
+        np.testing.assert_allclose(_np(got)[live], _np(want)[live], **F32)
+        assert not _np(got)[~live].any()
+
+    @pytest.mark.parametrize("B,Hkv,P", [
+        (32, 8, 128), (1, 8, 128), (4, 8, 128), (8, 32, 128), (64, 8, 128),
+        (1, 1, 1), (1, 8, 3), (2, 2, 5), (1, 1, 4096), (16, 1, 64),
+        (4096, 2, 128)])
+    @pytest.mark.parametrize("sms", [132, 114, 16])
+    def test_split_rule(self, B, Hkv, P, sms):
+        """Never more splits than a table's runs of MIN_PAGES_PER_SPLIT
+        pages (so never more than its pages) or than MAX_SPLITS; where
+        neither caps it, the grid covers the SMs; a split grid has at most
+        BLOCKS_PER_SM blocks for each SM (the workspace's size), so at
+        most half as many (slot, KV head) pairs (its counters)."""
+        n = t_paged.decode_splits(B, Hkv, P, sms)
+        cap = min(t_paged.MAX_SPLITS,
+                  max(1, P // t_paged.MIN_PAGES_PER_SPLIT))
+        assert 1 <= n <= cap and n <= P
+        if n < cap:
+            assert B * Hkv * n >= sms
+        if n > 1:
+            assert B * Hkv * n <= t_paged.BLOCKS_PER_SM * sms
+            assert 2 * B * Hkv <= t_paged.BLOCKS_PER_SM * sms
+
+    @pytest.mark.parametrize("sms", [132, 114, 16])
+    def test_workspace_holds_every_split_layout(self, monkeypatch, sms):
+        """The workspace is allocated once per device, and every layout
+        the split rule makes fits in it: its (slot, KV head) counters,
+        then its partials of G * (D + 2) floats a block."""
+        dev = torch.device("cpu")
+        monkeypatch.setattr(t_paged, "_SM_COUNT", {dev: sms})
+        monkeypatch.setattr(t_paged, "_WORKSPACE", {})
+        ws, blocks = t_paged._workspace(dev)
+        assert t_paged._workspace(dev)[0] is ws
+        assert blocks == t_paged.BLOCKS_PER_SM * sms
+        assert ws.dtype == torch.float32 and not ws.any()
+        for B in range(1, 300):
+            for Hkv in (1, 2, 4, 8, 32):
+                for P in (1, 3, 8, 64, 128, 4096):
+                    n = t_paged.decode_splits(B, Hkv, P, sms)
+                    if n == 1:
+                        continue
+                    assert B * Hkv <= blocks // 2
+                    for G in t_paged._GROUPS:
+                        for D in t_paged._HEAD_DIMS:
+                            assert (blocks // 2 + B * Hkv * n * G * (D + 2)
+                                    <= ws.numel())
+
+    def test_split_ranges_and_empty_partials(self):
+        """Ranges are page-aligned, disjoint and in order, cover each slot's
+        reach min(len, P*page) and nothing else; a split whose range is
+        empty gives m = -inf, l = 0 and acc = 0."""
+        page, P, splits = 4, 16, 8
+        lens = torch.tensor([3, 0, 40, 64, 99], dtype=torch.int32)
+        lo, hi = t_paged.split_ranges(lens, P, page, splits)
+        for b, n in enumerate(lens.tolist()):
+            reach, covered = min(n, P * page), []
+            for s in range(splits):
+                assert lo[s, b] % page == 0
+                if hi[s, b] > lo[s, b]:
+                    covered += range(int(lo[s, b]), int(hi[s, b]))
+            assert covered == list(range(reach))
+        q, kv = _tt(_rand(93, 5, 4, 8)), _tt(_rand(94, 81, page, 4, 8))
+        bt = torch.arange(1, 81, dtype=torch.int32).view(5, P)
+        m, l, acc = t_paged._split_partials(q, kv, bt, lens, page, splits)
+        empty = (hi <= lo)
+        assert empty[1:, 0].all() and empty[:, 1].all()
+        assert not empty[:, 3].any()
+        assert torch.isinf(m[empty]).all() and (m[empty] < 0).all()
+        assert not l[empty].any() and not acc[empty].any()
+        assert (l[~empty] > 0).all()
+
     def test_paged_decode_is_the_same_wrapper(self):
         assert t_paged.paged_decode is t_paged.paged_decode_attention
         assert isinstance(t_paged.paged_decode.launches, int)
@@ -348,7 +442,7 @@ def _imported_roots(path: pathlib.Path):
 def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "flash_fwd_ab.py",
-              REPO / "flash_bwd_ab.py"]
+              REPO / "flash_bwd_ab.py", REPO / "paged_decode_ab.py"]
     assert len(files) > 10
     for f in files:
         # Whole-word roots: ray_tpu_torch is the port itself.  optax, chex
