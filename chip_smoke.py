@@ -5,14 +5,18 @@
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.  It
 builds the port's kernels from ``ray_tpu_torch/csrc``, holds each against its
-plain PyTorch version on the card, times them, checks exact greedy serving
-on a narrow fp32 model, then serves ``llama_1b`` at full width and depth
-(random weights from a seeded generator) through the port's entry points.
-It then checks exact fp32 training on a narrow model and trains the JAX
-bench's 1.36B-parameter config (``bench.py:3384-3390``) at full width and
-depth through ``make_lm_train_step``.  The kernels' launch counts, set to 0
-just before each main path and read just after, show that serving and
-training ran through them.  Each phase prints one JSON line; any failed
+plain PyTorch version on the card (head_dim 32, 64 and 128), times them,
+checks exact greedy serving on a narrow fp32 model, then serves
+``llama_1b`` at full width and depth (random weights from a seeded
+generator) through the port's entry points, greedy and sampled; serves the
+JAX preset ``llama_tiny`` (head_dim 32); decodes on two streams and beside a
+replayed CUDA graph.  It then checks exact fp32 training on a narrow model
+and one step of ``llama_tiny``, trains the JAX bench's 1.36B-parameter
+config (``bench.py:3384-3390``) at full width and depth through
+``make_lm_train_step`` under full remat and under ``"dots"`` and
+``"dots_nobatch"``, and resumes a 4-layer model of its width from a
+checkpoint.  The kernels' launch counts, set to 0 just before each path and
+read just after, show that every path ran through them.  Each phase prints one JSON line; any failed
 check raises and the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -138,6 +142,20 @@ def _train_attn_case():
             True, 0)
 
 
+def _d32_attn_case():
+    """A D 32 attention case the planted faults are held at: the training
+    case's sequence, four query heads of llama_tiny's width a batch row
+    (B 16 keeps the launch wide), bf16."""
+    import torch
+    return (16, 4, 4, TRAIN_SEQ, TRAIN_SEQ, 32, torch.bfloat16, True, 0)
+
+
+def _planted_cases():
+    """The kernel_check cases the planted faults are held at: D 128 (the
+    training shape) and D 32."""
+    return (_train_attn_case(), _d32_attn_case())
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -174,12 +192,18 @@ def eager_ms(fn, iters: int, repeats: int = 5) -> float:
 def graph_ms(fn, calls: int = 10, replays: int = 10) -> float:
     """Mean device time of ``fn`` from CUDA events around replays of a CUDA
     graph holding ``calls`` calls of it: the kernels alone, without the
-    host's per-call cost, which at small shapes exceeds the kernel's."""
+    host's per-call cost, which at small shapes exceeds the kernel's.  The
+    warm-up call runs on the capture stream, as PyTorch asks: it also
+    allocates paged_decode's workspace for that stream, which a capture
+    never does."""
     import torch
-    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -387,7 +411,7 @@ def phase_kernel_check():
     failed = []
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
-        for D in (128, 64):
+        for D in (128, 64, 32):
             for S in (256, 1000, 2048):
                 for causal in (True, False):
                     cases.append((1, 16, 8, S, S, D, dtype, causal, 0))
@@ -398,8 +422,12 @@ def phase_kernel_check():
         cases.append((1, 16, 8, 129, 129, 128, dtype, True, 0))
         cases.append((2, 16, 8, 1, 300, 64, dtype, True, 299))
         cases.append((1, 16, 16, 300, 400, 128, dtype, True, 100))
-    # The shape the training path gives the forward (out and LSE).
-    cases.append(_train_attn_case())
+        # D 32 (llama_tiny's heads) at a query offset and the tile edges.
+        cases.append((2, 4, 2, 1000, 2048, 32, dtype, True, 1048))
+        cases.append((1, 4, 2, 129, 129, 32, dtype, True, 0))
+    # The shapes the planted faults are held at (the training path's
+    # forward: out and LSE).
+    cases += list(_planted_cases())
     for i, (B, H, Hkv, Sq, Sk, D, dtype, causal, qo) in enumerate(cases):
         q, k, v = _flash_inputs(B, H, Hkv, Sq, Sk, D, dtype, seed=i)
         out, lse = flash_fwd(q, k, v, causal=causal, q_offset=qo,
@@ -417,7 +445,7 @@ def phase_kernel_check():
                "max_abs_err": err, "row_rel_err": rel,
                "lse_max_abs_err": lse_err, "tol": TOL[name],
                "tol_row_rel": TOL_ROW_REL[name]}
-        if (B, H, Hkv, Sq, Sk, D, dtype, causal, qo) == _train_attn_case():
+        if (B, H, Hkv, Sq, Sk, D, dtype, causal, qo) in _planted_cases():
             # The limit has to see a fault on the long rows alone.
             row["planted"] = planted_fwd_faults(q, k, v, out, ref)
             if min(r for _a, r in row["planted"].values()) <= \
@@ -445,7 +473,9 @@ def _paged_cases():
     for H, Hkv, D, dtype in ((16, 8, 128, torch.bfloat16),
                              (16, 8, 128, torch.float32),
                              (8, 2, 64, torch.bfloat16),
-                             (8, 8, 64, torch.float32)):
+                             (8, 8, 64, torch.float32),
+                             (4, 2, 32, torch.bfloat16),
+                             (4, 2, 32, torch.float32)):
         lens = rng.integers(1, 401, size=32).tolist()
         lens[5] = 0                       # an inactive slot
         cases.append((32, H, Hkv, D, dtype, lens, None, False))
@@ -462,6 +492,10 @@ def _paged_cases():
                       False))
     cases.append((4, 16, 8, 128, torch.bfloat16,
                   rng.integers(1000, 2049, size=4).tolist(), 128, True))
+    # D 32 (llama_tiny's heads) split, with the planted faults.
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append((4, 4, 2, 32, dtype,
+                      rng.integers(1000, 2049, size=4).tolist(), 128, True))
     # The 7B preset's heads (G 1).
     cases.append((8, 32, 32, 128, torch.bfloat16,
                   rng.integers(512, 1025, size=8).tolist(), 128, False))
@@ -532,22 +566,23 @@ def _grad_errs(got, ref):
 
 def _check_flash_bwd(failed):
     """dq, dk and dv of flash_bwd against _flash_bwd_plain on the same
-    inputs (TOL_BWD and TOL_BWD_ROW_REL): bf16 and fp32, D 64 and 128,
+    inputs (TOL_BWD and TOL_BWD_ROW_REL): bf16 and fp32, D 32, 64 and 128,
     causal and full, H/Hkv 16/16, 16/8 and 8/2, S 256, 1000 and 2048,
-    q_offset > 0 with Sq != Sk, and the training shape with
+    q_offset > 0 with Sq != Sk, and the training shape and a D 32 one with
     PLANTED_BWD_FAULTS."""
     import torch
     from ray_tpu_torch.ops.attention import _flash_bwd_plain, flash_bwd
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
-        for D in (128, 64):
+        for D in (128, 64, 32):
             for causal in (True, False):
                 for H, Hkv in ((16, 16), (16, 8), (8, 2)):
                     for S in (256, 1000, 2048):
                         cases.append((1, H, Hkv, S, S, D, dtype, causal, 0))
         cases.append((1, 16, 8, 256, 1000, 128, dtype, True, 744))
         cases.append((2, 8, 2, 1000, 2048, 64, dtype, True, 1048))
-    cases.append(_train_attn_case())
+        cases.append((2, 4, 2, 1000, 2048, 32, dtype, True, 1048))
+    cases += list(_planted_cases())
     out_rows = []
     for i, (B, H, Hkv, Sq, Sk, D, dtype, causal, qo) in enumerate(cases):
         q, k, v, out, lse, dout = _bwd_inputs(B, H, Hkv, Sq, Sk, D, dtype,
@@ -567,7 +602,7 @@ def _check_flash_bwd(failed):
                "max_rel_err": {g: e[1] for g, e in errs.items()},
                "row_rel_err": rel, "tol_rel": TOL_BWD[name],
                "tol_row_rel": TOL_BWD_ROW_REL[name]}
-        if (B, H, Hkv, Sq, Sk, D, dtype, causal, qo) == _train_attn_case():
+        if (B, H, Hkv, Sq, Sk, D, dtype, causal, qo) in _planted_cases():
             # The row limit has to see a fault on the edge tiles alone.
             row["planted"] = planted_bwd_faults(got, ref)
             if min(r for _a, r in row["planted"].values()) <= \
@@ -663,6 +698,7 @@ def phase_kernel_time(smi):
         del q, k, v
     _time_paged(rows)
     _time_flash_bwd(rows)
+    _time_d32(rows)
     for row in rows.values():
         emit(dict(row, phase="kernel_time", card=smi))
     return rows
@@ -852,6 +888,106 @@ def _time_flash_bwd(rows):
             max_rel_err=max(errs[1][1], errs[2][1]), **note)
         del q, k, v, out, lse, dout, delta
         torch.cuda.empty_cache()
+
+
+# The D 32 instances' timed shapes, those their main paths give them:
+# training at bench.py's small config (B 4, S 256, H = Hkv = 4), serving
+# llama_tiny (H 4, Hkv 2) over 8 slots at the engine's table width
+# (max_seq_len 256 / page 16).
+D32_TRAIN = (4, 4, 4, 256, 32)
+D32_PAGED = (8, 4, 2, (64, 160), 16)
+
+
+def _time_d32(rows):
+    """The D 32 instances of all four kernels, bf16, by graph replay (ms,
+    library_ms) and eager (eager_ms, library_eager_ms), the plain versions
+    eager, at D32_TRAIN and D32_PAGED."""
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import paged_attention as paged
+    from ray_tpu_torch.ops.attention import (_flash_bwd_plain, flash_bwd,
+                                             flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd, reference_attention)
+    B, H, Hkv, S, D = D32_TRAIN
+    shape = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D,
+             "dtype": "bfloat16", "causal": True}
+    pairs = S * (S + 1) // 2
+    q, k, v, out, lse, dout = _bwd_inputs(B, H, Hkv, S, S, D, torch.bfloat16,
+                                          True, 0, 13)
+    kw = dict(causal=True, scale=1.0 / math.sqrt(D), q_offset=0)
+
+    def fwd():
+        return flash_fwd(q, k, v, causal=True, need_lse=True)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    err = (fwd()[0].float() - reference_attention(q, k, v).float()
+           ).abs().max().item()
+    plain = time_ms(lambda: reference_attention(q, k, v), 20)
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * Hkv * S * D) + 4 * B * H * S
+    rows["flash_fwd_d32"] = dict(_timing_row(
+        "flash_fwd", dict(shape, need_lse=True), graph_ms(fwd), plain,
+        graph_ms(sdpa), 4 * B * H * D * pairs, nbytes, err),
+        timed_by="graph", eager_ms=eager_ms(fwd, 100),
+        library_eager_ms=eager_ms(sdpa, 100))
+    got = flash_bwd(q, k, v, out, lse, dout, **kw)
+    ref = _flash_bwd_plain(q, k, v, out, lse, dout, True, kw["scale"], 0)
+    errs = [_grad_errs(a, r) for a, r in zip(got, ref)]
+    delta = flash_bwd_dq(q, k, v, out, dout, lse, **kw)[1]
+
+    def dq():
+        return flash_bwd_dq(q, k, v, out, dout, lse, **kw)
+
+    def dkv():
+        return flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+
+    plain = time_ms(lambda: _flash_bwd_plain(q, k, v, out, lse, dout, True,
+                                             kw["scale"], 0), 10)
+    sdpa_b, backend = sdpa_bwd(q, k, v, dout)
+    lib, lib_eager = graph_ms(sdpa_b), eager_ms(sdpa_b, 50)
+    reads = 2 * (2 * B * H * S * D + 2 * B * Hkv * S * D) + 4 * B * H * S
+    note = {"plain_and_library_cover": "dq, dk and dv together",
+            "library": f"SDPA backward ({backend})"}
+    rows["flash_bwd_dq_d32"] = dict(_timing_row(
+        "flash_bwd_dq", shape, graph_ms(dq), plain, lib,
+        6 * B * H * D * pairs,
+        reads + 2 * B * H * S * D + 2 * B * H * S * D + 4 * B * H * S,
+        errs[0][0]), timed_by="graph", eager_ms=eager_ms(dq, 50),
+        library_eager_ms=lib_eager, max_rel_err=errs[0][1], **note)
+    rows["flash_bwd_dkv_d32"] = dict(_timing_row(
+        "flash_bwd_dkv", shape, graph_ms(dkv), plain, lib,
+        8 * B * H * D * pairs,
+        reads + 4 * B * H * S + 2 * 2 * B * Hkv * S * D,
+        max(errs[1][0], errs[2][0])), timed_by="graph",
+        eager_ms=eager_ms(dkv, 50), library_eager_ms=lib_eager,
+        max_rel_err=max(errs[1][1], errs[2][1]), **note)
+    del q, k, v, out, lse, dout, got, ref, sdpa_b
+    Bp, Hp, Hkvp, (lo, hi), P = D32_PAGED
+    lens = np.random.default_rng(21).integers(lo, hi + 1, size=Bp).tolist()
+    qp, kv, bt, sl = _paged_inputs(Bp, Hp, Hkvp, D, PAGED_PAGE, lens,
+                                   torch.bfloat16, seed=22, P=P)
+
+    def dec():
+        return paged.paged_decode(qp, kv, bt, sl, PAGED_PAGE)
+
+    err = (dec().float() - paged._exact_path(qp, kv, bt, sl, PAGED_PAGE)
+           .float()).abs().max().item()
+    live = int(sum(lens))
+    pages = sum(math.ceil(n / PAGED_PAGE) for n in lens)
+    rows["paged_decode_d32"] = dict(_timing_row(
+        "paged_decode", {"B": Bp, "H": Hp, "Hkv": Hkvp, "D": D,
+                         "page": PAGED_PAGE, "P": P,
+                         "seq_lens": [min(lens), max(lens)],
+                         "dtype": "bfloat16"},
+        graph_ms(dec), time_ms(lambda: paged._exact_path(
+            qp, kv, bt, sl, PAGED_PAGE), 20), None, 4 * Hp * D * live,
+        live * 2 * Hkvp * D * 2 + 2 * Bp * Hp * D * 2 + pages * 4 + Bp * 4,
+        err), timed_by="graph", eager_ms=eager_ms(dec, 200),
+        splits=paged._splits(qp.device, Bp, Hkvp, P),
+        library="none (no one-call PyTorch equivalent)")
+    torch.cuda.empty_cache()
 
 
 def _timing_row(name, shape, ms, plain_ms, library_ms, flops, nbytes,
@@ -1077,9 +1213,10 @@ def _teacher_forced(params, cfg, prompt, page):
     return res
 
 
-def _chunk_syncs(params, cfg, prompt, page):
-    """Host syncs that torch's sync debug mode reports during one greedy
-    decode chunk of 8 steps, and with its readback."""
+def _chunk_syncs(params, cfg, prompt, page, temperature=0.0, top_k=0):
+    """Host syncs that torch's sync debug mode reports during one decode
+    chunk of 8 steps (greedy, or sampled at ``temperature``/``top_k``),
+    and with its readback."""
     import torch
     from ray_tpu_torch.llm import _model
     n, steps = len(prompt), 8
@@ -1099,13 +1236,14 @@ def _chunk_syncs(params, cfg, prompt, page):
         try:
             out, _pos, _kv = _model.decode_chunk(
                 params, kv, tok, pos, bt, active, gen, cfg, page, steps,
-                0.0, 0)
+                temperature, top_k)
             inside = _syncs(caught)
             out.cpu()
             total = _syncs(caught)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    res = {"steps": steps, "inside_chunk": len(inside),
+    res = {"steps": steps, "temperature": temperature, "top_k": top_k,
+           "inside_chunk": len(inside),
            "with_readback": len(total), "sites": sorted(set(total))}
     if inside:
         # Where the first one comes from: in "error" mode the sync raises
@@ -1113,7 +1251,7 @@ def _chunk_syncs(params, cfg, prompt, page):
         torch.cuda.set_sync_debug_mode("error")
         try:
             _model.decode_chunk(params, kv, tok, pos, bt, active, gen, cfg,
-                                page, steps, 0.0, 0)
+                                page, steps, temperature, top_k)
         except RuntimeError as exc:
             res["first_sync_stack"] = [
                 f"{os.path.basename(f.filename)}:{f.lineno}:{f.name}"
@@ -1357,7 +1495,7 @@ def phase_train(smi):
               compare["planted_faults_attn_grad"].values()),
           f"a planted backward fault passes the attention-gradient check: "
           f"{compare}")
-    return launches
+    return launches, params, opt
 
 
 ATTN_LEAVES = ("wq", "wk", "wv", "wo")
@@ -1432,6 +1570,455 @@ def _train_compare(cfg, params, rng):
             "planted_faults_attn_grad": planted, "tol": TOL_TRAIN_BF16}
 
 
+# ---------------------------------------------------------------- this slice
+
+def _launch_counts():
+    from ray_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from ray_tpu_torch.ops.paged_attention import paged_decode
+    return {"flash_fwd": flash_fwd, "paged_decode": paged_decode,
+            "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+
+
+def _reset_launches():
+    for fn in _launch_counts().values():
+        fn.launches = 0
+
+
+def _read_launches():
+    return {k: fn.launches for k, fn in _launch_counts().items()}
+
+
+def phase_serve_tiny():
+    """The JAX preset llama_tiny (head_dim 32) served through LLMServer on
+    the card: in fp32 the greedy streams equal a per-token full forward
+    with the plain attention; in bf16 the kernel path's logits stay within
+    TOL_1B_LOGITS of the plain path's, teacher-forced."""
+    import torch
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.models.llama import forward, init_params, llama_tiny
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, 512, size=n).tolist() for n in (5, 17, 40, 64)]
+    max_new = 12
+    out = {"phase": "serve_tiny", "model": "llama_tiny", "head_dim": 32}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = llama_tiny().replace(dtype=dtype)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            0), param_dtype=dtype, device="cuda")
+        opts = dict(device="cuda", max_slots=4, page_size=16, num_pages=64,
+                    prefill_buckets=(64,))
+        # -- the main path: launch counts read from this window only.
+        _reset_launches()
+        server = LLMServer(lambda: (params, cfg), opts)
+        try:
+            got = [server({"prompt_tokens": p, "max_tokens": max_new})
+                   for p in prompts]
+        finally:
+            server.close()
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        # -- end of the main path.
+        name = str(dtype).split(".")[-1]
+        streams = [r["output_tokens"] for r in got]
+        row = {"launches": launches, "requests": len(prompts)}
+        if dtype == torch.float32:
+            ref_cfg = cfg.replace(attention_impl="reference")
+
+            def gold(prompt):
+                toks, res = list(prompt), []
+                for _ in range(max_new):
+                    logits = forward(params, torch.tensor(
+                        [toks], device="cuda"), ref_cfg)
+                    res.append(int(logits[0, len(toks) - 1].argmax()))
+                    toks.append(res[-1])
+                return res
+
+            row["greedy_equal"] = streams == [gold(p) for p in prompts]
+            check(row["greedy_equal"], f"serve_tiny fp32 streams {streams}")
+        else:
+            row["teacher_forced"] = _teacher_forced(params, cfg, prompts[3],
+                                                    16)
+        check(all(len(t) == max_new for t in streams),
+              f"serve_tiny {name}: {streams}")
+        check(launches["flash_fwd"] > 0 and launches["paged_decode"] > 0,
+              f"serve_tiny {name}: kernels not launched {launches}")
+        out[name] = row
+    emit(out)
+    return {"flash_fwd": sum(out[n]["launches"]["flash_fwd"]
+                             for n in ("float32", "bfloat16")),
+            "paged_decode": sum(out[n]["launches"]["paged_decode"]
+                                for n in ("float32", "bfloat16"))}
+
+
+def phase_train_tiny():
+    """One adamw step of llama_tiny (head_dim 32) and of bench.py's small
+    config (bench.py:3392-3396: kv_heads 4, batch 4 x 256) through
+    make_lm_train_step on the card: the D 32 kernels against the plain
+    attention from the same weights.  fp32 within train_exact's
+    tolerances; bf16 within the train phase's."""
+    import torch
+    from ray_tpu_torch._tree import tree_leaves
+    from ray_tpu_torch.models.llama import llama_tiny
+    from ray_tpu_torch.parallel import build_mesh, make_lm_train_step
+    rng = np.random.default_rng(9)
+    rows, total = [], {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for name, base in (("llama_tiny", llama_tiny()),
+                       ("bench_small", llama_tiny().replace(kv_heads=4))):
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg = base.replace(dtype=dtype, remat=False)
+            batch = {"tokens": rng.integers(0, 512, (4, 256)).astype(
+                np.int32)}
+            res = {}
+            for impl in ("flash", "reference"):
+                init_fn, step_fn, place = make_lm_train_step(
+                    cfg.replace(attention_impl=impl), build_mesh(),
+                    learning_rate=TRAIN_LR, param_dtype=dtype)
+                params, opt = init_fn(torch.Generator(
+                    device="cuda").manual_seed(0))
+                start = [t.detach().clone() for t in tree_leaves(params)]
+                # -- the main path (the flash run): counts from here.
+                _reset_launches()
+                params, opt, m = step_fn(params, opt, place(batch))
+                torch.cuda.synchronize()
+                launches = _read_launches()
+                # -- end of the main path.
+                moved = [t.detach().float() - s.float()
+                         for t, s in zip(tree_leaves(params), start)]
+                res[impl] = (m["loss"].item(), m["grad_norm"].item(), moved,
+                             launches)
+            (kl, kg, kd, kn), (rl, rg, rd, rn) = res["flash"], \
+                res["reference"]
+            errs = {"loss": abs(kl - rl) / abs(rl),
+                    "grad_norm": abs(kg - rg) / abs(rg)}
+            f32 = dtype == torch.float32
+            if f32:
+                errs["params_moved"] = max(
+                    (torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b)).item()
+                    for a, b in zip(kd, rd))
+            tol = TOL_TRAIN_EXACT if f32 else TOL_TRAIN_BF16
+            row = {"config": name, "dtype": str(dtype).split(".")[-1],
+                   "loss": [kl, rl], "max_rel_err": errs,
+                   "tol": {k: tol[k] for k in errs},
+                   "launches": kn, "reference_run": rn}
+            rows.append(row)
+            check(all(errs[k] <= tol[k] for k in errs),
+                  f"train_tiny {row}")
+            want = {"flash_fwd": cfg.layers, "flash_bwd_dq": cfg.layers,
+                    "flash_bwd_dkv": cfg.layers}
+            check({k: kn[k] for k in want} == want
+                  and not any(rn[k] for k in want),
+                  f"train_tiny launches {row}")
+            for k in total:
+                total[k] += kn[k]
+    emit({"phase": "train_tiny", "head_dim": 32, "steps": 1, "rows": rows})
+    return total
+
+
+def phase_serve_sampled(smi):
+    """llama_1b as in serve, sampled at temperature 0.8 and top_k 40: no
+    host sync inside a decode chunk; every generated token inside the
+    top 40 of its step's logits (recomputed by a full forward through the
+    kernels; a token counts as inside when its logit is within
+    TOL_1B_LOGITS of the 40th, the logits' kernel-vs-plain tolerance); the
+    same generator seed gives the same streams."""
+    import torch
+    from ray_tpu_torch.llm import InferenceEngine, SamplingParams
+    from ray_tpu_torch.models.llama import forward, init_params, llama_1b
+    cfg = llama_1b()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         param_dtype=torch.bfloat16, device="cuda")
+    n_req, prompt_len, max_new, page, temp, top_k = 32, 256, 128, 16, 0.8, 40
+    opts = dict(device="cuda", max_slots=32, page_size=page,
+                prefill_buckets=(256,),
+                num_pages=n_req * math.ceil((prompt_len + max_new + 1)
+                                            / page) + 1)
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, cfg.vocab_size, size=prompt_len).tolist()
+               for _ in range(n_req)]
+    sp = SamplingParams(max_tokens=max_new, temperature=temp, top_k=top_k)
+    runs, walls = [], []
+    for _ in range(2):
+        eng = InferenceEngine(params, cfg, generator=torch.Generator(
+            device="cuda").manual_seed(123), **opts)
+        ids = [eng.add_request(p, sp) for p in prompts]
+        if not runs:
+            # -- the main path: launch counts read from this window only.
+            torch.cuda.synchronize()
+            _reset_launches()
+        t0 = time.perf_counter()
+        done = {r.request_id: r.output_tokens for r in eng.run_pipelined(32)}
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if not runs:
+            launches = _read_launches()
+            # -- end of the main path.
+        runs.append([done[i] for i in ids])
+    check(runs[0] == runs[1], "serve_sampled: the same seed gave other "
+          "streams")
+    check(all(len(t) == max_new for t in runs[0]), "serve_sampled lengths")
+    outside, worst = 0, math.inf
+    for p, toks in zip(prompts[:4], runs[0][:4]):
+        seq = torch.tensor([p + toks], device="cuda")
+        with torch.no_grad():
+            logits = forward(params, seq, cfg)[0, len(p) - 1:-1].float()
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1]
+        mine = logits.gather(1, torch.tensor(toks, device="cuda")[:, None])
+        margin = (mine[:, 0] - kth).min().item()
+        worst = min(worst, margin)
+        outside += int((mine[:, 0] < kth - TOL_1B_LOGITS).sum())
+    syncs = _chunk_syncs(params, cfg, prompts[2], page, temp, top_k)
+    greedy = _chunk_syncs(params, cfg, prompts[2], page)
+    res = {"phase": "serve_sampled", "model": "llama_1b", "card": smi,
+           "temperature": temp, "top_k": top_k, "requests": n_req,
+           "new_tokens": max_new, "wall_s": walls,
+           "gen_tok_s": [n_req * max_new / w for w in walls],
+           "same_seed_same_streams": runs[0] == runs[1],
+           "top_k_checked_tokens": 4 * max_new,
+           "outside_top_k": outside, "least_margin_to_kth_logit": worst,
+           "host_syncs_per_chunk": syncs, "greedy_host_syncs": greedy,
+           "launches": launches}
+    emit(res)
+    check(outside == 0, f"serve_sampled: {outside} tokens outside the "
+          f"top-{top_k}")
+    check(syncs["inside_chunk"] == 0, f"serve_sampled syncs {syncs}")
+    check(launches["flash_fwd"] > 0 and launches["paged_decode"] > 0,
+          f"serve_sampled launches {launches}")
+    return {k: launches[k] for k in ("flash_fwd", "paged_decode")}
+
+
+def phase_paged_streams():
+    """Two streams decoding different inputs at once (llama_1b's heads, a
+    layout the split rule splits, so the workspace is used), each equal
+    to the plain version; then a CUDA graph replayed on one stream beside
+    eager calls on another, both right."""
+    import torch
+    from ray_tpu_torch.ops import paged_attention as paged
+    rng = np.random.default_rng(11)
+    ins = [_paged_inputs(4, 16, 8, 128, 16,
+                         rng.integers(1000, 2049, size=4).tolist(),
+                         torch.bfloat16, seed=600 + i, P=128)
+           for i in range(2)]
+    refs = [paged._exact_path(*x, 16) for x in ins]
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    # -- the main path: launch counts read from this window only.
+    torch.cuda.synchronize()
+    _reset_launches()
+    outs = []
+    for _ in range(50):
+        for s, x in zip((s1, s2), ins):
+            with torch.cuda.stream(s):
+                outs.append(paged.paged_decode(*x, 16))
+    torch.cuda.synchronize()
+    eager_launches = paged.paged_decode.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s1):
+        g_out = paged.paged_decode(*ins[0], 16)
+    s2.wait_stream(torch.cuda.current_stream())
+    beside = []
+    for _ in range(20):
+        with torch.cuda.stream(s1):       # the capture stream's workspace
+            graph.replay()
+        with torch.cuda.stream(s2):
+            beside.append(paged.paged_decode(*ins[1], 16))
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    # -- end of the main path.
+    worst = {"max_abs_err": 0.0, "row_rel_err": 0.0}
+    for i, out in enumerate(outs + [g_out] + beside):
+        j = i % 2 if i < len(outs) else (0 if i == len(outs) else 1)
+        live = ins[j][3] > 0
+        worst["max_abs_err"] = max(worst["max_abs_err"], (
+            out[live].float() - refs[j][live].float()).abs().max().item())
+        worst["row_rel_err"] = max(worst["row_rel_err"], row_rel_err(
+            out[live], refs[j][live]))
+    ws = {s.cuda_stream: paged._WORKSPACE[(ins[0][0].device,
+                                           s.cuda_stream)][0].data_ptr()
+          for s in (s1, s2)}
+    res = {"phase": "paged_streams", "eager_calls_each_stream": 50,
+           "graph_replays_beside_eager": 20, "errors": worst,
+           "tol": TOL["bfloat16"], "tol_row_rel": TOL_PAGED_ROW_REL[
+               "bfloat16"], "workspaces_distinct": len(set(ws.values())) == 2,
+           "splits": paged._splits(ins[0][0].device, 4, 8, 128),
+           "launches": launches, "eager_launches": eager_launches}
+    emit(res)
+    check(res["workspaces_distinct"], f"paged_streams workspaces {ws}")
+    check(worst["max_abs_err"] <= TOL["bfloat16"]
+          and worst["row_rel_err"] <= TOL_PAGED_ROW_REL["bfloat16"],
+          f"paged_streams {worst}")
+    check(eager_launches == 100, f"paged_streams launches {launches}")
+    return {"paged_decode": launches["paged_decode"]}
+
+
+def phase_train_dots(smi, params, opt):
+    """The train phase's config at full width and depth (bench.py:
+    3384-3390, 12 x 2048, bf16) under remat "dots" and "dots_nobatch",
+    continuing from the train phase's params: step ms, tokens/s, mfu, GEMM
+    ms (cuBLAS device time in one profiled step), peak memory; then loss
+    and gradients at B 2 against remat False (TOL_TRAIN_BF16)."""
+    import torch
+    from ray_tpu_torch.models.llama import LlamaConfig, num_params
+    from ray_tpu_torch.parallel import build_mesh, make_lm_train_step
+    rng = np.random.default_rng(12)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, TRAIN_CFG["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ),
+        dtype=np.int32)).cuda()}
+    small = {"tokens": batch["tokens"][:2]}
+    base = LlamaConfig(**TRAIN_CFG, dtype=torch.bfloat16,
+                       attention_impl="flash")
+    n_params = num_params(base)
+    out, total = {}, {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for mode in ("dots", "dots_nobatch"):
+        cfg = base.replace(remat=mode)
+        _i, step_fn, _p = make_lm_train_step(cfg, build_mesh(),
+                                             learning_rate=TRAIN_LR)
+        params, opt, m = step_fn(params, opt, batch)        # warm-up
+        torch.cuda.synchronize()
+        # -- the main path: launch counts read from this window only.
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        steps, losses = 3, []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            params, opt, m = step_fn(params, opt, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        # -- end of the main path.
+        step_s = wall / steps
+        busy_ms, top, kinds = _device_time(
+            lambda: step_fn(params, opt, batch), top=8)
+        got = _loss_and_grads(cfg, params, small)
+        want = _loss_and_grads(base.replace(remat=False), params, small)
+        worst, where = _worst_layer_err(got[2], want[2])
+        errs = {"loss": abs(got[0] - want[0]) / abs(want[0]),
+                "grad_norm": abs(got[1] - want[1]) / abs(want[1]),
+                "attn_grad": worst}
+        tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+        out[mode] = {
+            "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
+            "mfu": 6.0 * n_params * tok_s / PEAK_BF16_FLOPS,
+            "gemm_ms": kinds.get("matmul (cuBLAS)"),
+            "peak_mem_gb": peak / 2**30, "losses": [x.item() for x in losses],
+            "launches_per_step": {k: n / steps for k, n in launches.items()},
+            "profile_one_step": {"device_busy_ms": busy_ms,
+                                 "device_ms_by_kind": kinds},
+            "vs_remat_false_B2": {"rel_err": errs, "worst_at": where,
+                                  "tol": TOL_TRAIN_BF16}}
+        check(all(errs[k] <= TOL_TRAIN_BF16[k] for k in errs),
+              f"train_dots {mode}: {errs}")
+        check(all(math.isfinite(x) for x in out[mode]["losses"]),
+              f"train_dots {mode} losses")
+        want_l = {"flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
+                  "flash_bwd_dkv": cfg.layers}
+        check({k: out[mode]["launches_per_step"][k] for k in want_l}
+              == want_l, f"train_dots {mode} launches {launches}")
+        for k in total:
+            total[k] += launches[k]
+    emit(dict({"phase": "train_dots", "config": "bench.py:3384-3390",
+               "card": smi, "num_params": n_params,
+               "batch": [TRAIN_BATCH, TRAIN_SEQ]}, **out))
+    return total
+
+
+# The checkpoint phase's config: the train config's width at 4 layers.
+CKPT_CFG = dict(TRAIN_CFG, layers=4)
+CKPT_BATCH = 4
+
+
+def phase_checkpoint(smi):
+    """Two adamw steps of the train config's width at 4 layers (bf16
+    params and adam state), a save through checkpoint/format.py, a restore
+    onto the card, then step 3: equal to three uninterrupted steps, leaf
+    by leaf (bit-exact, or the differing leaves named and held within
+    1e-6 relative)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from ray_tpu_torch import optim
+    from ray_tpu_torch._tree import (tree_flatten_with_keys, tree_leaves,
+                                     tree_map)
+    from ray_tpu_torch.checkpoint import format as ckpt
+    from ray_tpu_torch.models.llama import LlamaConfig, num_params
+    from ray_tpu_torch.parallel import build_mesh, make_lm_train_step
+    cfg = LlamaConfig(**CKPT_CFG, dtype=torch.bfloat16, remat=True,
+                      attention_impl="flash")
+    init_fn, step_fn, place = make_lm_train_step(
+        cfg, build_mesh(), learning_rate=TRAIN_LR,
+        param_dtype=torch.bfloat16)
+    rng = np.random.default_rng(13)
+    batches = [place({"tokens": rng.integers(
+        0, cfg.vocab_size, (CKPT_BATCH, TRAIN_SEQ), dtype=np.int32)})
+        for _ in range(3)]
+    # -- the main path: launch counts read from this window only.
+    _reset_launches()
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    for b in batches[:2]:
+        params, opt, _m = step_fn(params, opt, b)
+    torch.cuda.synchronize()
+    # Scratch inside the checkout, in a directory git ignores.
+    where = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_chip")
+    os.makedirs(where, exist_ok=True)
+    path = tempfile.mkdtemp(prefix="ckpt-", dir=where)
+    try:
+        t0 = time.perf_counter()
+        snap = ckpt.save(path, {"params": params,
+                                "opt_state": optim.optax_state(opt)},
+                         step=2)
+        save_s = time.perf_counter() - t0
+        nbytes = ckpt.read_manifest(path)["total_bytes"]
+        problems = ckpt.verify_checkpoint(path, deep=True)
+        params, opt, m3 = step_fn(params, opt, batches[2])   # uninterrupted
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = ckpt.restore_tree(path)
+        r_params = tree_map(lambda t: t.to("cuda").requires_grad_(True),
+                            tree["params"])
+        r_opt = optim.from_optax_state(tree["opt_state"])
+        r_opt = optim.AdamState(r_opt.count, tree_map(
+            lambda t: t.to("cuda"), r_opt.mu), tree_map(
+            lambda t: t.to("cuda"), r_opt.nu))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        r_params, r_opt, r3 = step_fn(r_params, r_opt, batches[2])
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        # -- end of the main path.
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    differ = {}
+    for (key, a), b in zip(
+            tree_flatten_with_keys({"params": params, "mu": opt.mu,
+                                    "nu": opt.nu}),
+            tree_leaves({"params": r_params, "mu": r_opt.mu,
+                         "nu": r_opt.nu})):
+        if not torch.equal(a, b):
+            differ[key] = ((a.float() - b.float()).norm()
+                           / a.float().norm().clamp_min(1e-30)).item()
+    res = {"phase": "checkpoint", "card": smi,
+           "config": "bench.py:3384-3390 width, 4 layers",
+           "num_params": num_params(cfg), "bytes": nbytes,
+           "snapshot_bytes": snap.nbytes, "save_s": save_s,
+           "restore_s": restore_s, "verify_problems": problems,
+           "loss_step3": [m3["loss"].item(), r3["loss"].item()],
+           "count": [int(opt.count), int(r_opt.count)],
+           "leaves": len(tree_leaves(params)) * 3,
+           "leaves_differing": differ, "launches": launches}
+    emit(res)
+    check(not problems, f"checkpoint verify {problems}")
+    check(res["loss_step3"][0] == res["loss_step3"][1]
+          and res["count"] == [3, 3], f"checkpoint step 3 {res}")
+    check(all(v <= 1e-6 for v in differ.values()),
+          f"checkpoint: leaves differ after restore {differ}")
+    return {k: launches[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1454,25 +2041,39 @@ def main() -> int:
     phase_kernel_check()
     rows = phase_kernel_time(smi)
     phase_serve_exact()
-    serve = phase_serve(smi)
+    paths = {"serve": phase_serve(smi)}
+    torch.cuda.empty_cache()
+    paths["serve_sampled"] = phase_serve_sampled(smi)
+    torch.cuda.empty_cache()
+    paths["serve_tiny"] = phase_serve_tiny()
+    paths["paged_streams"] = phase_paged_streams()
     torch.cuda.empty_cache()
     phase_train_exact()
-    train = phase_train(smi)
+    paths["train_tiny"] = phase_train_tiny()
+    paths["train"], params, opt = phase_train(smi)
+    paths["train_dots"] = phase_train_dots(smi, params, opt)
+    del params, opt
+    torch.cuda.empty_cache()
+    paths["checkpoint"] = phase_checkpoint(smi)
     kernels = []
-    for name, row, src, rep, by_path in (
+    for name, row, src, rep in (
             ("flash_fwd", rows["flash_fwd_S256"], FLASH_SOURCE,
-             FLASH_REPLACES, {"serve": serve["flash_fwd"],
-                              "train": train["flash_fwd"]}),
+             FLASH_REPLACES),
             ("paged_decode", rows["paged_decode"], PAGED_SOURCE,
-             PAGED_REPLACES, {"serve": serve["paged_decode"]}),
-            ("flash_bwd_dq", rows["flash_bwd_dq"], BWD_SOURCE, DQ_REPLACES,
-             {"train": train["flash_bwd_dq"]}),
+             PAGED_REPLACES),
+            ("flash_bwd_dq", rows["flash_bwd_dq"], BWD_SOURCE, DQ_REPLACES),
             ("flash_bwd_dkv", rows["flash_bwd_dkv"], BWD_SOURCE,
-             DKV_REPLACES, {"train": train["flash_bwd_dkv"]})):
+             DKV_REPLACES)):
+        by_path = {p: n[name] for p, n in paths.items() if name in n}
+        check(all(by_path.values()),
+              f"{name} was not launched on every path that runs it: "
+              f"{by_path}")
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": sum(by_path.values()),
-             "launches_by_path": by_path}, **_line_numbers(row)))
+             "launches_by_path": by_path,
+             "at_d32": _line_numbers(rows[f"{name}_d32"])},
+            **_line_numbers(row)))
     # Each attention kernel where training spends its time, beside its
     # B=1 row; the paged kernel's other timed shapes beside serving's.
     for entry in kernels:

@@ -12,7 +12,10 @@ Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``; with
 no card visible and the CPU not asked for, they raise (``_device.py``).
 
 Slices ported so far: serving (``llm``: engine, paged cache, model forward
-passes; ``ops``: norms, rope, flash forward, paged decode; ``models.llama``)
-and training on one card (``parallel.spmd.make_lm_train_step`` over
-``models.llama.loss_fn`` with remat, ``optim.adamw``, the flash backward).
+passes; ``ops``: norms, rope, flash forward, paged decode; ``models.llama``),
+training on one card (``parallel.spmd.make_lm_train_step`` over
+``models.llama.loss_fn`` with remat, ``optim.adamw``, the flash backward),
+and sharded training (``parallel``: mesh, sharding rules, the sharded step
+over ``torch.distributed``; ``checkpoint``: the JAX package's wire format;
+``train.mesh``: placement helpers and the mesh-reshape restore).
 """

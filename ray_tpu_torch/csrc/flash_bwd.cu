@@ -93,17 +93,28 @@ constexpr int DKV_KEYS = 128;  // dk/dv: keys per block, 64 per consumer
 constexpr int DKV_ROWS = 64;   // dk/dv: query rows per Q/dO tile
 constexpr int STAGES = 4;
 
+// A tile's width in shared memory: D, or 64 at D 32, whose TMA box keeps
+// 64 columns with the 32 past the tensor's last column zero-filled by the
+// copy engine (no bytes read for them).  The 128-byte swizzle, descriptors
+// and fragment layouts of D 64 then serve D 32 unchanged: the D-deep
+// products take D / 16 K-steps, and the products of N = D (dQ, dK, dV)
+// run at N = 64 with zero upper columns, which are never stored.
+template <int D>
+constexpr int padded_width() { return D < 64 ? 64 : D; }
+
 template <int D>
 struct DqTiles {
-  static constexpr uint32_t Q_BYTES = DQ_ROWS * D * 2;   // Q or dO
-  static constexpr uint32_t KV_BYTES = DQ_KEYS * D * 2;  // one K or V tile
+  static constexpr int DP = padded_width<D>();
+  static constexpr uint32_t Q_BYTES = DQ_ROWS * DP * 2;   // Q or dO
+  static constexpr uint32_t KV_BYTES = DQ_KEYS * DP * 2;  // one K or V tile
   static constexpr uint32_t SMEM = 1024 + 2 * Q_BYTES + STAGES * 2 * KV_BYTES;
 };
 
 template <int D>
 struct DkvTiles {
-  static constexpr uint32_t KV_BYTES = DKV_KEYS * D * 2;  // K or V
-  static constexpr uint32_t Q_BYTES = DKV_ROWS * D * 2;   // one Q or dO tile
+  static constexpr int DP = padded_width<D>();
+  static constexpr uint32_t KV_BYTES = DKV_KEYS * DP * 2;  // K or V
+  static constexpr uint32_t Q_BYTES = DKV_ROWS * DP * 2;   // one Q or dO tile
   static constexpr uint32_t SMEM = 1024 + 2 * KV_BYTES + STAGES * 2 * Q_BYTES;
 };
 
@@ -153,11 +164,12 @@ __device__ __forceinline__ void mma_ab(float (&d)[D / 2],
                                        64 * HALF_ROW, 1024), 1);
 }
 
-// Writes a warpgroup's 64 x D fp32 accumulator as bf16 rows row0.. of dst
-// (row stride D); rows >= rows_valid are skipped.
-template <int D>
+// Writes the first D columns of a warpgroup's 64 x N fp32 accumulator (NA =
+// N / 2 floats a thread, N >= D) as bf16 rows row0.. of dst (row stride D);
+// rows >= rows_valid are skipped.
+template <int D, int NA>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
-                                           const float (&acc)[D / 2],
+                                           const float (&acc)[NA],
                                            int row0, int rows_valid, int warp,
                                            int g, int t) {
 #pragma unroll
@@ -199,6 +211,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   block_order(p, blockIdx.x, n_qt, bh, rank);
   const int q0 = (n_qt - 1 - rank) * DQ_ROWS;  // the last tiles first
   const int kvh = (bh / p.H) * p.Hkv + (bh % p.H) / (p.H / p.Hkv);
+  constexpr int DP = T::DP;
   int kend = p.Sk;
   if (p.causal) kend = min(kend, min(q0 + DQ_ROWS, p.Sq) + p.q_offset);
   const int n_tiles = kend <= 0 ? 0 : (kend + DQ_KEYS - 1) / DQ_KEYS;
@@ -221,7 +234,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       sm90::prefetch_tmap(&tv);
       sm90::mbar_arrive_expect_tx(full_q, 2 * T::Q_BYTES);
 #pragma unroll
-      for (int h = 0; h < D / 64; ++h) {
+      for (int h = 0; h < DP / 64; ++h) {
         sm90::tma_load_3d(sq + h * DQ_ROWS * HALF_ROW, &tq, full_q, 64 * h,
                           q0, bh);
         sm90::tma_load_3d(sdo + h * DQ_ROWS * HALF_ROW, &tdo, full_q, 64 * h,
@@ -235,7 +248,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           sm90::mbar_wait(empty + 8 * s, (kt / STAGES - 1) & 1);
         sm90::mbar_arrive_expect_tx(full + 8 * s, 2 * T::KV_BYTES);
 #pragma unroll
-        for (int h = 0; h < D / 64; ++h) {
+        for (int h = 0; h < DP / 64; ++h) {
           sm90::tma_load_3d(ks + h * DQ_KEYS * HALF_ROW, &tk, full + 8 * s,
                             64 * h, kt * DQ_KEYS, kvh);
           sm90::tma_load_3d(ks + T::KV_BYTES + h * DQ_KEYS * HALF_ROW, &tv,
@@ -304,10 +317,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     auto release = [&](int kt) {
       if (lane == 0) sm90::mbar_arrive(empty + 8 * (kt % STAGES));
     };
-    float dq[D / 2], sc[32], dp[32];
+    float dq[DP / 2], sc[32], dp[32];
     uint32_t da[4][4];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
     // S and dP of key tile kt, committed as one group.
     auto issue_s_dp = [&](int kt) {
       sm90::mbar_wait(full + 8 * (kt % STAGES), (kt / STAGES) & 1);
@@ -345,7 +358,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int kt = 1; kt < n_mine; ++kt) {
         issue_s_dp(kt);
         sm90::fence_regs(dq);
-        mma_ab<D>(dq, da, stage_of(kt - 1));
+        mma_ab<DP>(dq, da, stage_of(kt - 1));
         sm90::wgmma_commit();
         sm90::wgmma_wait<1>();
         form_ds(kt);
@@ -356,7 +369,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
       sm90::fence_regs(dq);
       sm90::wgmma_fence();
-      mma_ab<D>(dq, da, stage_of(n_mine - 1));
+      mma_ab<DP>(dq, da, stage_of(n_mine - 1));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dq);
@@ -395,6 +408,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int k0b = rank * DKV_KEYS;  // the first key tiles first
   const int b = bkv / p.Hkv, kvh = bkv % p.Hkv;
   const int group = p.H / p.Hkv;
+  constexpr int DP = T::DP;
   // The first query tile that sees key k0b (q + q_offset >= k0b).
   const int qt0 =
       p.causal ? max(0, k0b - p.q_offset) / DKV_ROWS : 0;
@@ -420,7 +434,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         sm90::prefetch_tmap(&tdo);
         sm90::mbar_arrive_expect_tx(full_kv, 2 * T::KV_BYTES);
 #pragma unroll
-        for (int h = 0; h < D / 64; ++h) {
+        for (int h = 0; h < DP / 64; ++h) {
           sm90::tma_load_3d(sk + h * DKV_KEYS * HALF_ROW, &tk, full_kv,
                             64 * h, k0b, bkv);
           sm90::tma_load_3d(sv + h * DKV_KEYS * HALF_ROW, &tv, full_kv,
@@ -447,7 +461,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           if (lane == 0) {
             sm90::mbar_arrive_expect_tx(full + 8 * s, 2 * T::Q_BYTES);
 #pragma unroll
-            for (int h = 0; h < D / 64; ++h) {
+            for (int h = 0; h < DP / 64; ++h) {
               sm90::tma_load_3d(qs + h * DKV_ROWS * HALF_ROW, &tq,
                                 full + 8 * s, 64 * h, q0, bh);
               sm90::tma_load_3d(qs + T::Q_BYTES + h * DKV_ROWS * HALF_ROW,
@@ -469,9 +483,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int kpos[2] = {k0w + 16 * warp + g, k0w + 16 * warp + g + 8};
     const uint32_t ka = sk + 64 * wg * HALF_ROW;
     const uint32_t va = sv + 64 * wg * HALF_ROW;
-    float dk[D / 2], dv[D / 2];
+    float dk[DP / 2], dv[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
     float st[32], dpt[32];       // S^T and dP^T: rows keys, columns queries
     uint32_t pa[4][4], sa[4][4];  // P^T and dS^T as A fragments
     const int nq = n_qt - qt0;
@@ -525,7 +539,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       acc_to_a(st, pa);
       sm90::fence_regs(dv);
       sm90::wgmma_fence();
-      mma_ab<D>(dv, pa, dos);
+      mma_ab<DP>(dv, pa, dos);
       sm90::wgmma_commit();
       sm90::wgmma_wait<1>();
       sm90::fence_regs(dpt);
@@ -542,7 +556,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       acc_to_a(dpt, sa);
       sm90::fence_regs(dk);
       sm90::wgmma_fence();
-      mma_ab<D>(dk, sa, qs);
+      mma_ab<DP>(dk, sa, qs);
       sm90::wgmma_commit();
       prev = s;
     }
@@ -939,6 +953,7 @@ int rt_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 1) {
     if (D == 128) return launch_dq_bf16<128>(p, B, st);
     if (D == 64) return launch_dq_bf16<64>(p, B, st);
+    if (D == 32) return launch_dq_bf16<32>(p, B, st);
   } else if (dtype == 0) {
     const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
     const size_t smem = smem_f32(D, 1);
@@ -946,6 +961,8 @@ int rt_flash_bwd_dq(const void* q, const void* k, const void* v,
       return launch(flash_bwd_dq_f32_kernel<128>, grid, THREADS, smem, st, p);
     if (D == 64)
       return launch(flash_bwd_dq_f32_kernel<64>, grid, THREADS, smem, st, p);
+    if (D == 32)
+      return launch(flash_bwd_dq_f32_kernel<32>, grid, THREADS, smem, st, p);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -963,6 +980,7 @@ int rt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 1) {
     if (D == 128) return launch_dkv_bf16<128>(p, B, st);
     if (D == 64) return launch_dkv_bf16<64>(p, B, st);
+    if (D == 32) return launch_dkv_bf16<32>(p, B, st);
   } else if (dtype == 0) {
     const dim3 grid(B * Hkv, (Sk + BK - 1) / BK);
     const size_t smem = smem_f32(D, 2);
@@ -971,6 +989,8 @@ int rt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                     p);
     if (D == 64)
       return launch(flash_bwd_dkv_f32_kernel<64>, grid, THREADS, smem, st, p);
+    if (D == 32)
+      return launch(flash_bwd_dkv_f32_kernel<32>, grid, THREADS, smem, st, p);
   }
   return (int)cudaErrorInvalidValue;
 }

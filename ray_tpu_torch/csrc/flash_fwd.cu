@@ -24,7 +24,7 @@
 //   query rows each.
 // - Q (two buffers, so the next tile's Q loads during this one), K and V
 //   arrive by TMA, K and V in tiles of 128 keys into rings of their own (2
-//   stages each at D=128, 3 at D=64).  Every buffer has a "full" mbarrier
+//   stages each at D=128, 3 at D=64 and D=32, whose tiles are D 64's).  Every buffer has a "full" mbarrier
 //   (armed with its bytes) and an "empty" one on which every consumer warp
 //   arrives once its wgmma on it has retired.  3-D tensor maps {D, S, heads}
 //   zero-fill a tile that runs past S inside its own head; tiles are
@@ -97,11 +97,19 @@ constexpr int THREADS = 3 * WG_THREADS;
 constexpr int HALF_ROW = 128;  // bytes of one 64-column half row
 static_assert(BQ == BK, "Q and K halves share one stride (mma_qk)");
 
+// A tile's width in shared memory: D, or 64 at D 32.  A row of D 32 is 64
+// bytes; its TMA box is still 64 columns, of which the 32 past the tensor's
+// last column are zero-filled by the copy engine (no bytes read for them),
+// so the 128-byte swizzle, the descriptors and the fragment layouts of D 64
+// serve D 32 as they are.  Q K^T then takes D / 16 K-steps (the zero half
+// is never multiplied) and P V an N of 64 whose upper 32 columns are zero
+// and never stored.
 template <int D>
 struct Tiles {
-  static constexpr int STAGES = D == 128 ? 2 : 3;
-  static constexpr uint32_t Q_BYTES = BQ * D * 2;
-  static constexpr uint32_t KV_BYTES = BK * D * 2;  // one K (or V) tile
+  static constexpr int DP = D < 64 ? 64 : D;
+  static constexpr int STAGES = DP == 128 ? 2 : 3;
+  static constexpr uint32_t Q_BYTES = BQ * DP * 2;
+  static constexpr uint32_t KV_BYTES = BK * DP * 2;  // one K (or V) tile
   // Two Q buffers, so the next tile's Q loads during this one.
   static constexpr uint32_t SMEM =
       1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES;
@@ -255,7 +263,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int kvh = (bh / p.H) * p.Hkv + (bh % p.H) / (p.H / p.Hkv);
         sm90::mbar_arrive_expect_tx(full_q + 8 * qb, T::Q_BYTES);
 #pragma unroll
-        for (int h = 0; h < D / 64; ++h)
+        for (int h = 0; h < T::DP / 64; ++h)
           sm90::tma_load_3d(sq + qb * T::Q_BYTES + h * BQ * HALF_ROW, &tq,
                             full_q + 8 * qb, 64 * h, q0, bh);
         const int n_tiles = tile_count(p, q0, BQ, BK);
@@ -267,14 +275,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             sm90::mbar_wait(empty_k + 8 * s, (it / STAGES - 1) & 1);
           sm90::mbar_arrive_expect_tx(full_k + 8 * s, T::KV_BYTES);
 #pragma unroll
-          for (int h = 0; h < D / 64; ++h)
+          for (int h = 0; h < T::DP / 64; ++h)
             sm90::tma_load_3d(sk + off + h * BK * HALF_ROW, &tk,
                               full_k + 8 * s, 64 * h, kt * BK, kvh);
           if (it >= STAGES)
             sm90::mbar_wait(empty_v + 8 * s, (it / STAGES - 1) & 1);
           sm90::mbar_arrive_expect_tx(full_v + 8 * s, T::KV_BYTES);
 #pragma unroll
-          for (int h = 0; h < D / 64; ++h)
+          for (int h = 0; h < T::DP / 64; ++h)
             sm90::tma_load_3d(sv + off + h * BK * HALF_ROW, &tv,
                               full_v + 8 * s, 64 * h, kt * BK, kvh);
         }
@@ -299,7 +307,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     auto your_turn = [&]() { sm90::bar_arrive(2 - wg, 256); };
     if (wg == 1) sm90::bar_arrive(1, 256);
 
-    constexpr int NO = D / 2;  // O accumulator floats per thread
+    constexpr int NO = T::DP / 2;  // O accumulator floats per thread
     float o[NO], sc[64], alpha[2];
     uint32_t pa[8][4];
     int it = 0;
@@ -351,7 +359,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           sm90::wgmma_fence();
           mma_qk<D>(sc, qa, sk + s * T::KV_BYTES);
           sm90::wgmma_commit();
-          mma_pv<D>(o, pa, sv + sp * T::KV_BYTES);
+          mma_pv<T::DP>(o, pa, sv + sp * T::KV_BYTES);
           sm90::wgmma_commit();
           your_turn();
           sm90::wgmma_wait<1>();
@@ -371,7 +379,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         my_turn();
         sm90::fence_regs(o);
         sm90::wgmma_fence();
-        mma_pv<D>(o, pa, sv + s * T::KV_BYTES);
+        mma_pv<T::DP>(o, pa, sv + s * T::KV_BYTES);
         sm90::wgmma_commit();
         your_turn();
         sm90::wgmma_wait<0>();
@@ -664,6 +672,7 @@ int rt_flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == 1) {
     if (D == 128) return launch_bf16<128>(p, B, st);
     if (D == 64) return launch_bf16<64>(p, B, st);
+    if (D == 32) return launch_bf16<32>(p, B, st);
   } else if (dtype == 0) {
     const dim3 grid(B * H, (Sq + BQ32 - 1) / BQ32);
     const size_t smem = ((size_t)(BQ32 + BK32) * (D + 1) +
@@ -672,6 +681,8 @@ int rt_flash_fwd(const void* q, const void* k, const void* v, void* o,
       return launch(flash_fwd_f32_kernel<128>, grid, THREADS32, smem, st, p);
     if (D == 64)
       return launch(flash_fwd_f32_kernel<64>, grid, THREADS32, smem, st, p);
+    if (D == 32)
+      return launch(flash_fwd_f32_kernel<32>, grid, THREADS32, smem, st, p);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -40,9 +40,10 @@
 //   warps never synchronise until the end.
 // - Arithmetic on CUDA cores (at G <= 8 the tensor cores bring nothing).
 //   Lanes lie over tokens and over D: 8 lanes a token (16 at G*D >= 1024,
-//   to keep q and the accumulators in registers), so a warp reads 4 (2)
-//   tokens at once, each lane 16-byte vectors laid so that a quarter warp
-//   reads 128 contiguous bytes, and the QK^T sum takes 3 (4) shuffles.  The
+//   to keep q and the accumulators in registers; 4 at D 32 bf16, whose row
+//   is four 16-byte vectors), so a warp reads 4 (2, 8) tokens at once,
+//   each lane 16-byte vectors laid so that a quarter warp reads 128
+//   contiguous bytes, and the QK^T sum takes 3 (4, 2) shuffles.  The
 //   online softmax (fp32 m, l, acc in the log2 domain) is rescaled once per
 //   chunk, not once per token (twice a chunk at 16 lanes a token, to bound
 //   the registers of the chunk's scores).
@@ -51,12 +52,12 @@
 //   partial (m, l, acc) to a workspace, and the last block of the (slot, KV
 //   head) to arrive (an arrival counter, __threadfence before atomicAdd)
 //   merges the partials in split order and resets the counter to 0 for the
-//   next call.  The wrapper allocates the workspace once per device with
-//   zeros, at the split rule's largest layout (ws_blocks = BLOCKS_PER_SM
-//   * SMs split blocks: ws_blocks / 2 counters, then ws_blocks partials),
-//   and never frees it, so a captured CUDA graph keeps a live address; one
-//   stream is assumed, as two calls in flight at once would share the
-//   counters.  Decode is host-bound, so a call does little on the host:
+//   next call.  The wrapper allocates one workspace per (device, stream)
+//   with zeros, at the split rule's largest layout (ws_blocks =
+//   BLOCKS_PER_SM * SMs split blocks: ws_blocks / 2 counters, then
+//   ws_blocks partials), and never frees it, so a captured CUDA graph
+//   keeps a live address; calls on one stream run in order, and calls in
+//   flight on two streams never share counters.  Decode is host-bound, so a call does little on the host:
 //   what depends on shapes alone (checks, split count, workspace, the
 //   shared-memory opt-in) is prepared once per (device, shape) into a
 //   struct Launch (rt_paged_decode_prepare), and a call passes its address
@@ -88,7 +89,11 @@ constexpr unsigned FULL = 0xffffffffu;
 
 template <typename T, int D, int G>
 struct Cfg {
-  static constexpr int LPT = G * D >= 1024 ? 16 : 8;  // lanes a token
+  // Lanes a token: 16 at G*D >= 1024, else 8, but never more than a
+  // token's row has 16-byte vectors (4 at D 32 bf16: 64 bytes a row).
+  static constexpr int LPT_WANT = G * D >= 1024 ? 16 : 8;
+  static constexpr int LPT_ROW = D * (int)sizeof(T) / 16;
+  static constexpr int LPT = LPT_WANT < LPT_ROW ? LPT_WANT : LPT_ROW;
   static constexpr int TPW = 32 / LPT;                 // tokens a warp step
   static constexpr int E = 16 / (int)sizeof(T);        // values a vector
   static constexpr int VPL = D / LPT;                  // values a lane
@@ -478,6 +483,7 @@ template <typename T>
 int launch_dim(Launch* a, const Call* c, cudaStream_t st) {
   if (a->D == 128) return launch_group<T, 128>(a, c, st);
   if (a->D == 64) return launch_group<T, 64>(a, c, st);
+  if (a->D == 32) return launch_group<T, 32>(a, c, st);
   return (int)cudaErrorInvalidValue;
 }
 

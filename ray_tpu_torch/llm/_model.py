@@ -28,7 +28,6 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ..models.llama import (LlamaConfig, attention_impl, layers,
                             logits_f32, mlp)
@@ -228,16 +227,20 @@ def decode_step(params: Dict[str, Any], kv_pages, tokens: torch.Tensor,
 def sample_tokens(logits: torch.Tensor, temperature: float, top_k: int,
                   generator: torch.Generator) -> torch.Tensor:
     """On-device sampling: argmax when ``temperature <= 0``, else top-k
-    filtered categorical draws from ``generator``.  Returns int32 [B]."""
+    filtered categorical draws from ``generator``.  Returns int32 [B].
+
+    The draw is Gumbel-max: argmax(logits / T - log E), E ~ Exp(1) from
+    ``generator``, which is the categorical distribution of
+    softmax(logits / T) over the kept tokens and needs no host sync
+    (``torch.multinomial`` checks its probabilities on the host)."""
     if temperature <= 0.0:
         return logits.argmax(dim=-1).to(torch.int32)
-    logits = logits / temperature
+    logits = logits.float() / temperature
     if top_k:
         kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
         logits = logits.masked_fill(logits < kth, NEG_INF)
-    probs = F.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    noise = torch.empty_like(logits).exponential_(generator=generator)
+    return (logits - noise.log()).argmax(dim=-1).to(torch.int32)
 
 
 def decode_chunk(params: Dict[str, Any], kv_pages, tokens: torch.Tensor,

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
-from ..models.llama import check_supported
+from ..models.llama import check_device_supported, check_supported
 from . import _model
 from ._cache import PagePool
 
@@ -103,6 +103,7 @@ class InferenceEngine:
                  record_token_times: bool = False):
         check_supported(cfg)
         self.device = resolve_device(device)
+        check_device_supported(cfg, self.device)
         self.params = _to_device(params, self.device)
         self.cfg = cfg
         self.page_size = page_size

@@ -17,6 +17,7 @@ Dense models only: ring/Ulysses attention, MoE and pipeline parallelism raise
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -25,9 +26,11 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .._device import DeviceLike, resolve_device
+from ..ops.attention import _HEAD_DIMS as KERNEL_HEAD_DIMS
 from ..ops.attention import attention as _attention
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_frequencies
@@ -50,12 +53,13 @@ class LlamaConfig:
     num_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
-    # "auto"/"flash" (the flash kernel on the card), "reference" (plain);
-    # "ring"/"ulysses" come with a later slice.
+    # "auto"/"flash"/"flash_interpret" (the flash kernels on the card, their
+    # plain versions on CPU tensors), "reference" (plain); "ring"/"ulysses"
+    # come with a later slice.
     attention_impl: str = "auto"
     seq_axis: str = "sp"
-    # False | True/"full" | "mlp_only" (see _forward_hidden); "dots" and
-    # "dots_nobatch" come with a later slice.
+    # False | True/"full" | "mlp_only" | "dots" | "dots_nobatch" (see
+    # _block_fn).
     remat: Any = True
     # Pipeline parallelism: number of microbatches (0 = off).
     pp_microbatches: int = 0
@@ -93,7 +97,8 @@ def check_supported(cfg: LlamaConfig) -> None:
             f"attention_impl={cfg.attention_impl!r} (sequence-parallel "
             "attention) comes with a later slice of the port: ROADMAP "
             "Queue 1 item 7")
-    if cfg.attention_impl not in ("auto", "flash", "reference"):
+    if cfg.attention_impl not in ("auto", "flash", "flash_interpret",
+                                  "reference"):
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
     if cfg.num_experts > 0:
         raise NotImplementedError(
@@ -105,10 +110,111 @@ def check_supported(cfg: LlamaConfig) -> None:
             "ROADMAP Queue 1 item 7 (parallel/pipeline.py)")
 
 
+def check_device_supported(cfg: LlamaConfig, device: torch.device) -> None:
+    """Raise, when an engine or a training step is built, for a config the
+    card's kernels do not take: on a CUDA device every attention_impl but
+    "reference" runs the flash and paged kernels, which take head_dim 32,
+    64 and 128 (the JAX package runs any head_dim, off the TPU through its
+    plain attention)."""
+    if device.type != "cuda" or cfg.attention_impl == "reference":
+        return
+    if cfg.head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"head_dim={cfg.head_dim}: the card's attention kernels take "
+            f"head_dim in {KERNEL_HEAD_DIMS}; use attention_impl="
+            f"\"reference\" (plain attention) for this config on the card")
+
+
 def attention_impl(cfg: LlamaConfig) -> Optional[str]:
     """The ``ops.attention`` impl for ``cfg``: None (kernel) or
-    "reference" (plain version)."""
+    "reference" (plain version).  "flash_interpret" is the kernel path, as
+    in JAX, where it runs the Pallas kernels' bodies on the CPU: here the
+    kernels' plain versions run on CPU tensors and the kernels on CUDA
+    ones."""
     return "reference" if cfg.attention_impl == "reference" else None
+
+
+def param_logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Tree (matching init_params) of logical axis tuples: the names
+    ``parallel.sharding``'s rules map onto mesh axes."""
+    block: Dict[str, Any] = {
+        "attn_norm": ("layers", None),
+        "wq": ("layers", "embed", "heads", "head_dim"),
+        "wk": ("layers", "embed", "kv_heads", "head_dim"),
+        "wv": ("layers", "embed", "kv_heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "embed"),
+        "mlp_norm": ("layers", None),
+        "w_gate": ("layers", "embed", "mlp"),
+        "w_up": ("layers", "embed", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+    }
+    return {
+        "embed": ("vocab", "embed"),
+        "blocks": block,
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
+#: The tensor-parallel process group the blocks run over, or None (see
+#: ``tensor_parallel``).
+_TP_GROUP = None
+
+
+@contextlib.contextmanager
+def tensor_parallel(group):
+    """Run the blocks Megatron-style over ``group`` (the mesh's tp axis)
+    inside this context: the caller passes each rank its heads' share of
+    wq/wk/wv/wo and its mlp columns' share of w_gate/w_up/w_down.  Each
+    branch's input then sums its gradient over the group in the backward,
+    and its output sums over the group in the forward.  Attention needs no
+    communication: the heads are the rank's own.  None: one rank, no
+    communication (the default)."""
+    global _TP_GROUP
+    old, _TP_GROUP = _TP_GROUP, group
+    try:
+        yield
+    finally:
+        _TP_GROUP = old
+
+
+class _SumGradOverTP(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _SumOverTP(torch.autograd.Function):
+    """Sum over the group in the forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _tp_in(h: torch.Tensor) -> torch.Tensor:
+    return h if _TP_GROUP is None else _SumGradOverTP.apply(h, _TP_GROUP)
+
+
+def _tp_out(y: torch.Tensor) -> torch.Tensor:
+    return y if _TP_GROUP is None else _SumOverTP.apply(y, _TP_GROUP)
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
@@ -215,7 +321,7 @@ def mlp(cfg: LlamaConfig, layer: Dict[str, Any],
 def _attn_half(cfg: LlamaConfig, cos, sin, positions, x, layer):
     """Attention residual branch. x: [B, S, E] -> [B, S, E]."""
     dt = cfg.dtype
-    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    h = _tp_in(rms_norm(x, layer["attn_norm"], cfg.norm_eps))
     q = torch.einsum("bse,ehd->bhsd", h, layer["wq"].to(dt))
     k = torch.einsum("bse,ehd->bhsd", h, layer["wk"].to(dt))
     v = torch.einsum("bse,ehd->bhsd", h, layer["wv"].to(dt))
@@ -224,12 +330,13 @@ def _attn_half(cfg: LlamaConfig, cos, sin, positions, x, layer):
     attn = _attention(q.contiguous(), k.contiguous(), v.contiguous(),
                       causal=True, impl=attention_impl(cfg))
     attn_out = torch.einsum("bhsd,hde->bse", attn, layer["wo"].to(dt))
-    return x + attn_out
+    return x + _tp_out(attn_out)
 
 
 def _mlp_half(cfg: LlamaConfig, x, layer):
     """MLP residual branch. x: [B, S, E] -> [B, S, E]."""
-    return x + mlp(cfg, layer, rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
+    h = _tp_in(rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
+    return x + _tp_out(mlp(cfg, layer, h))
 
 
 def _block(cfg: LlamaConfig, cos, sin, positions, x, layer):
@@ -245,12 +352,52 @@ def _remat(fn):
                    preserve_rng_state=False)
 
 
+_aten = torch.ops.aten
+_PLAIN_PRODUCTS = (_aten.mm.default, _aten.addmm.default)
+_BATCHED_PRODUCTS = (_aten.bmm.default, _aten.baddbmm.default)
+
+
+def remat_policy(mode: str):
+    """The selective-checkpoint policy of remat ``mode`` (JAX's
+    ``checkpoint_dots`` and ``checkpoint_dots_with_no_batch_dims``): save
+    the output of every matrix product, or of those without batch dims;
+    recompute everything else in the backward.
+
+    ``torch.einsum`` lowers a projection ("bse,ehd->bhsd") to a ``bmm``
+    whose batch is 1 after its reshape, so "dots_nobatch" counts a bmm of
+    batch 1 as a plain product; plain attention's products ("bhqd,bhkd")
+    have batch B * H.  The flash kernels are one C entry each, inside
+    ``_Flash``, and no aten product: neither policy saves them, and the
+    forward kernel runs again in the backward, as a ``pallas_call`` is no
+    ``dot_general`` to JAX's policies."""
+    batched_too = mode == "dots"
+
+    def policy(ctx, op, *args, **kwargs):
+        save = op in _PLAIN_PRODUCTS or (op in _BATCHED_PRODUCTS and (
+            batched_too
+            or args[op is _aten.baddbmm.default].shape[0] == 1))
+        return (CheckpointPolicy.MUST_SAVE if save
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return policy
+
+
+def _remat_saving_dots(fn, mode: str):
+    """``fn`` under ``torch.utils.checkpoint`` with ``remat_policy(mode)``:
+    the saved products are kept, the rest recomputed in the backward."""
+    return partial(checkpoint, fn, use_reentrant=False,
+                   preserve_rng_state=False,
+                   context_fn=partial(create_selective_checkpoint_contexts,
+                                      remat_policy(mode)))
+
+
 def _block_fn(cfg: LlamaConfig, cos, sin, positions):
     """The per-layer function for ``cfg.remat``: False keeps every
     activation; True/"full" recomputes the whole block in the backward;
     "mlp_only" keeps the attention half's residuals (the flash kernel's
     q/k/v/out/LSE: the quadratic part is never recomputed) and recomputes
-    only the MLP half."""
+    only the MLP half; "dots"/"dots_nobatch" recompute the block but keep
+    its matrix products' outputs (``remat_policy``)."""
     block = partial(_block, cfg, cos, sin, positions)
     if not torch.is_grad_enabled() or cfg.remat is False:
         return block
@@ -261,10 +408,7 @@ def _block_fn(cfg: LlamaConfig, cos, sin, positions):
         return lambda x, layer: mlp_half(
             _attn_half(cfg, cos, sin, positions, x, layer), layer)
     if cfg.remat in ("dots", "dots_nobatch"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} (save the matmul outputs, recompute the "
-            "rest) comes with a later slice of the port: ROADMAP Queue 1 "
-            "item 1 (remat policies)")
+        return _remat_saving_dots(block, cfg.remat)
     raise ValueError(f"unknown remat mode {cfg.remat!r}")
 
 

@@ -38,7 +38,7 @@ from . import _build
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)
 
 
 def _scores(q, k, causal: bool, scale: float, q_offset: int):
@@ -130,7 +130,7 @@ def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
 
     Returns (out [B, H, Sq, D] in q's dtype, fp32 LSE [B, H, Sq] or None).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16 or fp32, D in {64, 128}) or raise.  ``flash_fwd.launches``
+    (bf16 or fp32, D in {32, 64, 128}) or raise.  ``flash_fwd.launches``
     counts kernel launches."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -286,7 +286,7 @@ def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
 
     Returns (dq, dk, dv) in the inputs' dtypes, dk/dv summed over each KV
     head's query heads.  CPU tensors take the plain version; CUDA tensors
-    launch the dq and dk/dv kernels (bf16 or fp32, D in {64, 128}) or
+    launch the dq and dk/dv kernels (bf16 or fp32, D in {32, 64, 128}) or
     raise."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -334,11 +334,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 def attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
               impl: Optional[str] = None) -> torch.Tensor:
-    """Dispatching entry point: the flash kernel (``impl`` None, "auto" or
-    "flash"; the plain version on CPU tensors) or the plain version
-    (``impl="reference"``)."""
+    """Dispatching entry point: the flash kernel (``impl`` None, "auto",
+    "flash" or "flash_interpret"; the plain version on CPU tensors) or the
+    plain version (``impl="reference"``)."""
     if impl == "reference":
         return reference_attention(q, k, v, causal=causal, scale=scale)
-    if impl in (None, "auto", "flash"):
+    if impl in (None, "auto", "flash", "flash_interpret"):
         return flash_attention(q, k, v, causal=causal, scale=scale)
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -33,7 +33,7 @@ from . import _build
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)
 _GROUPS = (1, 2, 4, 8)
 #: Blocks the split rule aims at for each SM, at most: on an H100 the
 #: kernel's blocks (four warps, 64 KB of rings at D 128 bf16) ran fastest
@@ -208,10 +208,11 @@ def _check_paged(q, kv_pages, block_table, seq_lens, page_size) -> None:
 
 
 _SM_COUNT = {}
-#: device -> (the kernel's workspace, the split blocks it holds).
+#: (device, stream handle) -> (the kernel's workspace for launches on that
+#: stream, the split blocks it holds).
 _WORKSPACE = {}
-#: (device, dtype, B, H, Hkv, D, P, page_size) -> (its prepared _Launch,
-#: the _Launch's address, which every call passes).
+#: (device, stream handle, dtype, B, H, Hkv, D, P, page_size) -> (its
+#: prepared _Launch, the _Launch's address, which every call passes).
 _LAUNCH = {}
 _FN = []
 
@@ -230,22 +231,38 @@ def _splits(device, B: int, Hkv: int, P: int) -> int:
     return decode_splits(B, Hkv, P, _sm_count(device))
 
 
-def _workspace(device) -> tuple:
-    """(the kernel's workspace on ``device``, the split blocks it holds).
+def _workspace(device, stream: int) -> tuple:
+    """(the kernel's workspace for launches on ``stream`` of ``device``,
+    the split blocks it holds).
 
     The split rule keeps B * Hkv * splits within blocks = BLOCKS_PER_SM *
     SMs wherever splits > 1, so B * Hkv within blocks // 2: the workspace
     holds blocks // 2 int32 arrival counters, then blocks partials of the
-    largest G * (D + 2) floats (about 1.1 MB on an H100).  It is allocated
-    once per device with zeros, every launch leaves its counters 0 again,
-    and it is never freed or replaced, so a CUDA graph that captured its
-    address stays right.  One stream is assumed: two launches in flight
-    at once would share it."""
-    hit = _WORKSPACE.get(device)
+    largest G * (D + 2) floats (about 1.1 MB on an H100).  There is one per
+    stream: launches on one stream run in order, so they may share its
+    counters and partials, while two launches in flight on two streams
+    never do.  Each is allocated with zeros at the first launch on its
+    stream, every launch leaves its counters 0 again, and it is never freed
+    or replaced, so a CUDA graph that captured its address stays right.
+
+    It is never allocated while the stream is capturing a CUDA graph: the
+    zero-fill would be captured into the graph, and the memory would come
+    from the graph's private pool.  Such a capture raises; one call on the
+    capture stream before the capture (the warm-up PyTorch asks for
+    anyway) allocates it."""
+    key = (device, stream)
+    hit = _WORKSPACE.get(key)
     if hit is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged_decode: this stream has no workspace yet, and it is "
+                "not allocated during a CUDA graph capture; call "
+                "paged_decode once on the capture stream before capturing "
+                "(e.g. s = torch.cuda.Stream(); with torch.cuda.stream(s): "
+                "<warm-up call>; then torch.cuda.graph(g, stream=s))")
         blocks = BLOCKS_PER_SM * _sm_count(device)
         part = max(_GROUPS) * (max(_HEAD_DIMS) + 2)
-        hit = _WORKSPACE[device] = (
+        hit = _WORKSPACE[key] = (
             torch.zeros(blocks // 2 + blocks * part, dtype=torch.float32,
                         device=device), blocks)
     return hit
@@ -271,33 +288,35 @@ def _kernel_fn():
     return _FN[0]
 
 
-def _launch(device, dtype, B, H, Hkv, D, P, page_size) -> int:
-    """The address of the prepared _Launch of this shape on ``device`` (the
-    current device): the workspace and its split blocks (none and 0 at one
-    split), dtype, the shapes and the split count."""
+def _launch(device, stream, dtype, B, H, Hkv, D, P, page_size) -> int:
+    """The address of the prepared _Launch of this shape on ``stream`` of
+    ``device`` (the current device): the stream's workspace and its split
+    blocks (none and 0 at one split), dtype, the shapes and the split
+    count."""
     splits = _splits(device, B, Hkv, P)
-    ws, blocks = _workspace(device) if splits > 1 else (None, 0)
+    ws, blocks = _workspace(device, stream) if splits > 1 else (None, 0)
     launch = _Launch(None if ws is None else ws.data_ptr(), blocks,
                      _DTYPE_CODE[dtype], B, H, Hkv, D, P, page_size, splits)
     prepare = _build.function("paged_decode", "rt_paged_decode_prepare",
                               [ctypes.c_void_p])
     _build.check("paged_decode", prepare(ctypes.addressof(launch)),
                  "paged_decode prepare")
-    hit = _LAUNCH[(device, dtype, B, H, Hkv, D, P, page_size)] = (
+    hit = _LAUNCH[(device, stream, dtype, B, H, Hkv, D, P, page_size)] = (
         launch, ctypes.addressof(launch))
     return hit[1]
 
 
 def _kernel_args(q, kv_pages, block_table, seq_lens, page_size, out):
-    """rt_paged_decode's arguments for one call (on q's device, current)."""
+    """rt_paged_decode's arguments for one call (on q's device, current,
+    and its current stream)."""
     B, H, D = q.shape
-    key = (q.device, q.dtype, B, H, kv_pages.shape[2] // 2, D,
+    stream = torch.cuda.current_stream().cuda_stream
+    key = (q.device, stream, q.dtype, B, H, kv_pages.shape[2] // 2, D,
            block_table.shape[1], page_size)
     hit = _LAUNCH.get(key)
     return (q.data_ptr(), kv_pages.data_ptr(), block_table.data_ptr(),
             seq_lens.data_ptr(), out.data_ptr(),
-            hit[1] if hit is not None else _launch(*key),
-            torch.cuda.current_stream().cuda_stream)
+            hit[1] if hit is not None else _launch(*key), stream)
 
 
 def paged_decode_attention(q, kv_pages, block_table, seq_lens,

@@ -16,8 +16,7 @@ of ``donate_argnums``, so params, grads, mu and nu never exist twice.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -27,14 +26,37 @@ from ._tree import tree_leaves, tree_map
 _INT32_MAX = np.iinfo(np.int32).max
 
 
-@dataclass
-class AdamState:
-    """optax's ``ScaleByAdamState``: ``count`` is an int32 scalar kept on
-    the CPU (the bias correction needs it on the host every step); ``mu``
-    and ``nu`` mirror the params' tree."""
+class AdamState(NamedTuple):
+    """optax's ``ScaleByAdamState``, a named tuple of the same fields:
+    ``count`` is an int32 scalar kept on the CPU (the bias correction needs
+    it on the host every step); ``mu`` and ``nu`` mirror the params' tree
+    (DTensors with their params' placements on a mesh of several
+    ranks)."""
     count: torch.Tensor
     mu: Any
     nu: Any
+
+
+class EmptyState(NamedTuple):
+    """optax's ``EmptyState``: the state of a transformation that keeps
+    none (adamw's weight decay and learning-rate scaling)."""
+
+
+def optax_state(state: AdamState) -> tuple:
+    """The port's adamw state in the layout of optax's
+    ``adamw(...).init(params)``: (ScaleByAdamState, EmptyState(),
+    EmptyState()), for a checkpoint the JAX package reads as its own."""
+    return (state, EmptyState(), EmptyState())
+
+
+def from_optax_state(tree: Any) -> AdamState:
+    """The inverse of ``optax_state`` (any tuple holding one AdamState)."""
+    if isinstance(tree, AdamState):
+        return tree
+    for node in tree:
+        if isinstance(node, AdamState):
+            return node
+    raise ValueError("no adam state (count, mu, nu) in the given tree")
 
 
 def _correction(decay: float, count: int, dtype: torch.dtype) -> float:
@@ -63,9 +85,15 @@ class AdamW:
     def update(self, grads: Any, state: AdamState,
                params: Any) -> AdamState:
         """One adamw step on ``params`` in place; returns the new state
-        (``mu``/``nu`` updated in place).  ``grads`` are overwritten."""
-        g = tree_leaves(grads)
-        p, mu, nu = (tree_leaves(t) for t in (params, state.mu, state.nu))
+        (``mu``/``nu`` updated in place).  ``grads`` are overwritten.
+
+        DTensor trees (a mesh of several ranks) update through their local
+        blocks: every leaf's param, gradient, mu and nu must share one
+        layout, so the elementwise step on each rank's blocks is the step
+        of the whole arrays.  (DTensor's own ``_foreach_`` dispatch plans
+        every op over all six mesh dims, which takes minutes a step.)"""
+        g, p, mu, nu = _local_blocks(
+            [tree_leaves(t) for t in (grads, params, state.mu, state.nu)])
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, g, alpha=1 - b1)
@@ -87,6 +115,26 @@ class AdamW:
             torch._foreach_add_(pd, u, alpha=-self.learning_rate)
         return AdamState(count=torch.tensor(count, dtype=torch.int32),
                          mu=state.mu, nu=state.nu)
+
+
+def _local_blocks(lists):
+    """Parallel leaf lists -> the same lists of plain tensors: a DTensor's
+    local block (a view: updating it updates the DTensor), after checking
+    that the leaves at one position share a mesh and placements.  No list
+    ever mixes DTensors and plain tensors."""
+    from torch.distributed.tensor import DTensor
+    kinds = {isinstance(t, DTensor) for ts in lists for t in ts}
+    if kinds != {True}:
+        if True in kinds:
+            raise ValueError("adamw: a tree mixes DTensors and plain "
+                             "tensors")
+        return lists
+    for ts in zip(*lists):
+        layouts = {(t.device_mesh, tuple(t.placements)) for t in ts}
+        if len(layouts) != 1:
+            raise ValueError(f"adamw: a param, its gradient, mu and nu "
+                             f"have different layouts: {layouts}")
+    return [[t.to_local() for t in ts] for ts in lists]
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.95,

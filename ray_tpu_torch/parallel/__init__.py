@@ -1,7 +1,6 @@
 """Parallelism layer of the port (counterpart of ray_tpu/parallel): the mesh
-description and the function that makes the training step.  One device so
-far: a mesh with any axis larger than 1 raises until the multi-device
-slice."""
+over a torch.distributed world, the logical-axis sharding rules, and the
+training step on one device or sharded over a mesh."""
 
 from .mesh import MeshSpec, build_mesh
 from .spmd import make_lm_eval_step, make_lm_train_step

@@ -1,5 +1,4 @@
-"""The training step (counterpart of ray_tpu/parallel/spmd.py), on the one
-device of a ``build_mesh`` mesh.
+"""The training step (counterpart of ray_tpu/parallel/spmd.py).
 
 ``make_lm_train_step`` returns ``(init_fn, step_fn, place_batch)`` with the
 JAX signatures' meaning.  The step is eager PyTorch: ``loss_fn`` forward,
@@ -7,6 +6,32 @@ JAX signatures' meaning.  The step is eager PyTorch: ``loss_fn`` forward,
 flash kernels' ``autograd.Function`` has no vmap rule, and no ``.grad``
 attributes are kept), then the optimizer's in-place update, which is the
 port's form of ``donate_argnums``.
+
+On the one-device mesh everything is a plain tensor on the mesh's device.
+
+On a mesh of several ranks, params and the adam moments are DTensors laid
+out by the logical-axis rules (``param_logical_axes`` through
+``parallel.sharding``), mu and nu each with exactly its param's placements
+and ``count`` a plain scalar every rank holds.  A step, where JAX leaves the
+collectives to GSPMD, does them explicitly:
+
+- each param is gathered over every mesh axis but tp (FSDP's all-gather);
+  with the default rules' tp layout (heads, kv_heads and mlp over tp) the
+  blocks run Megatron-style on the rank's heads and mlp columns
+  (``models.llama.tensor_parallel``), and the flash kernels see plain
+  local tensors of the rank's batch rows and heads, with no communication;
+  the vocab-sharded embed and lm_head are gathered whole;
+- the batch is sharded over (dp, fsdp); every rank's loss is normalised by
+  the whole batch's token count, so the gradients of the gathered copies
+  are partial sums over (dp, fsdp), reduced onto each param's own
+  placements (FSDP's reduce-scatter; an all-reduce over dp);
+- adamw takes the DTensor trees and updates each leaf's local block
+  (param, gradient, mu and nu share one layout);
+- ``loss`` and ``grad_norm`` come back as plain scalars with the same
+  value on every rank (reduced on the device, no host sync).
+
+An init is the same on every mesh shape: the full params are drawn from the
+generator as on one device, then each rank keeps its own blocks.
 """
 
 from __future__ import annotations
@@ -19,7 +44,12 @@ import torch
 from .._tree import tree_leaves, tree_map
 from ..models import llama as L
 from ..optim import AdamState, adamw, global_norm
-from .mesh import Mesh
+from .mesh import (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, CANONICAL_ORDER, Mesh,
+                   set_global_mesh)
+from .sharding import (NamedSharding, ShardingRules, default_rules,
+                       distribute, is_primary, logical_to_placements)
+
+_BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
 
 
 def _clone(tree: Any) -> Any:
@@ -40,16 +70,58 @@ def _grads(params: Any, batch: Dict[str, torch.Tensor], cfg):
     return loss.detach(), list(grads)
 
 
-def make_lm_train_step(cfg, mesh: Mesh, *, optimizer=None,
-                       learning_rate: float = 3e-4, donate: bool = True,
+def _loss_denom(batch) -> torch.Tensor:
+    """The whole batch's unmasked token count (fp32 scalar)."""
+    if "loss_mask" in batch:
+        return batch["loss_mask"].float().sum().clamp_min(1.0)
+    t = batch["tokens"]
+    return torch.tensor(float(t.shape[0] * (t.shape[1] - 1)),
+                        device=t.device)
+
+
+def _accumulated_grads(params, batch, cfg, grad_accum: int, denom):
+    """Loss and gradients over ``grad_accum`` microbatches of ``batch``'s
+    leading dim, each normalised by ``denom`` (the full batch's token
+    count), summed in the params' dtype."""
+    b = batch["tokens"].shape[0]
+    if b % grad_accum:
+        raise ValueError(f"batch {b} not divisible by grad_accum="
+                         f"{grad_accum}")
+    micro = {k: v.chunk(grad_accum) for k, v in batch.items()}
+    gsum, lsum = None, torch.zeros((), device=denom.device)
+    for i in range(grad_accum):
+        mb = {k: v[i] for k, v in micro.items()}
+        mb["loss_denom"] = denom
+        loss, grads = _grads(params, mb, cfg)
+        if gsum is None:
+            # The accumulator is in the params' dtype, as in JAX.
+            gsum = [torch.zeros_like(p, requires_grad=False)
+                    for p in tree_leaves(params)]
+        torch._foreach_add_(gsum, grads)
+        lsum = lsum + loss
+    return lsum, gsum
+
+
+def batch_pspec(mesh: Mesh, rules: Optional[ShardingRules] = None) -> list:
+    """Token batches: [B, S] -> placements with B over (dp, fsdp)."""
+    return logical_to_placements(("batch", None), ShardingRules(
+        {"batch": _BATCH_AXES}), mesh)
+
+
+def make_lm_train_step(cfg, mesh: Mesh, *,
+                       rules: Optional[ShardingRules] = None,
+                       optimizer=None, learning_rate: float = 3e-4,
+                       donate: bool = True,
                        param_dtype: Optional[torch.dtype] = None,
                        grad_accum: int = 1):
     """Build (init_fn, step_fn, place_batch) for a models.llama LM on
-    ``mesh``'s device.
+    ``mesh``.
 
-    init_fn(generator) -> (params, opt_state); ``generator`` lives on the
-    mesh's device.  step_fn(params, opt_state, batch) -> (params, opt_state,
-    {"loss", "grad_norm"}), the metrics as device scalars (no host sync).
+    init_fn(generator) -> (params, opt_state), laid out on the mesh;
+    ``generator`` lives on the mesh's device.  step_fn(params, opt_state,
+    batch) -> (params, opt_state, {"loss", "grad_norm"}), the metrics as
+    device scalars (no host sync).  place_batch(batch) puts a whole batch
+    (every rank passes the same one) on the mesh.
 
     ``param_dtype`` overrides parameter (and hence optimizer-state)
     storage.  ``donate`` (the default) updates params and opt_state in
@@ -57,11 +129,38 @@ def make_lm_train_step(cfg, mesh: Mesh, *, optimizer=None,
     trees stay as they were.  ``grad_accum`` > 1 splits the batch's leading
     dim into that many microbatches, each normalised by the full batch's
     token count, and sums their gradients in the params' dtype before one
-    update."""
+    update.  ``rules``: the logical-axis table (default_rules)."""
     optimizer = optimizer or adamw(learning_rate, b1=0.9, b2=0.95,
                                    weight_decay=0.1)
-    device = mesh.device
     L.check_supported(cfg)
+    L.check_device_supported(cfg, mesh.device)
+    set_global_mesh(mesh)
+    if mesh.device_mesh is None:
+        return _one_device_step(cfg, mesh, optimizer, donate, param_dtype,
+                                grad_accum)
+    plan = _ShardedPlan(cfg, mesh, rules or default_rules())
+
+    def init_fn(generator: torch.Generator):
+        full = L.init_params(cfg, generator,
+                             param_dtype=param_dtype or torch.float32,
+                             device=generator.device)
+        params = plan.place_params(full)
+        return params, optimizer.init(params)
+
+    def step_fn(params, opt_state: AdamState, batch):
+        if not donate:
+            params, opt_state = _clone(params), _clone(opt_state)
+        loss, grads = plan.loss_and_grads(params, batch, grad_accum)
+        gnorm = plan.global_norm(grads)
+        opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return init_fn, step_fn, plan.place_batch
+
+
+def _one_device_step(cfg, mesh: Mesh, optimizer, donate, param_dtype,
+                     grad_accum):
+    device = mesh.device
 
     def init_fn(generator: torch.Generator):
         params = L.init_params(cfg, generator,
@@ -75,55 +174,182 @@ def make_lm_train_step(cfg, mesh: Mesh, *, optimizer=None,
         if not donate:
             params, opt_state = _clone(params), _clone(opt_state)
         if grad_accum > 1:
-            loss, grads = _accumulate(params, batch)
+            loss, grads = _accumulated_grads(params, batch, cfg, grad_accum,
+                                             _loss_denom(batch))
         else:
             loss, grads = _grads(params, batch, cfg)
         gnorm = global_norm(grads)
         opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
-    def _accumulate(params, batch):
-        b = batch["tokens"].shape[0]
-        if b % grad_accum:
-            raise ValueError(f"batch {b} not divisible by grad_accum="
-                             f"{grad_accum}")
-        # Every microbatch normalises by the FULL batch's unmasked token
-        # count, so the summed losses and gradients equal the unaccumulated
-        # step even when masking is uneven across microbatches.
-        if "loss_mask" in batch:
-            denom = batch["loss_mask"].float().sum().clamp_min(1.0)
-        else:
-            t = batch["tokens"]
-            denom = torch.tensor(float(t.shape[0] * (t.shape[1] - 1)),
-                                 device=t.device)
-        micro = {k: v.chunk(grad_accum) for k, v in batch.items()}
-        gsum, lsum = None, torch.zeros((), device=device)
-        for i in range(grad_accum):
-            mb = {k: v[i] for k, v in micro.items()}
-            mb["loss_denom"] = denom
-            loss, grads = _grads(params, mb, cfg)
-            if gsum is None:
-                # The accumulator is in the params' dtype, as in JAX.
-                gsum = [torch.zeros_like(p, requires_grad=False)
-                        for p in tree_leaves(params)]
-            torch._foreach_add_(gsum, grads)
-            lsum = lsum + loss
-        return lsum, gsum
-
     def place_batch(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        return {k: (v if isinstance(v, torch.Tensor)
-                    else torch.as_tensor(np.asarray(v))).to(device)
-                for k, v in batch.items()}
+        return {k: _as_tensor(v).to(device) for k, v in batch.items()}
 
     return init_fn, step_fn, place_batch
 
 
-def make_lm_eval_step(cfg, mesh: Mesh):
-    """eval_step(params, batch) -> loss, without a graph."""
+def _as_tensor(v) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(
+        np.asarray(v))
+
+
+class _ShardedPlan:
+    """The layouts of one sharded step: each param's placements at rest
+    and for compute, the batch's, and the collectives between them."""
+
+    def __init__(self, cfg, mesh: Mesh, rules: ShardingRules):
+        for axis in ("sp", "ep", "pp"):
+            if mesh.shape[axis] > 1:
+                raise NotImplementedError(
+                    f"mesh axis {axis}={mesh.shape[axis]}: sequence, "
+                    "expert and pipeline parallelism come with a later "
+                    "slice of the port (ROADMAP Queue 1 item 7)")
+        self.cfg, self.mesh = cfg, mesh
+        self.dm = mesh.device_mesh
+        #: leaf name -> its NamedSharding at rest.
+        self.shardings = {
+            name: NamedSharding(mesh, tuple(logical_to_placements(
+                ax, rules, mesh)))
+            for name, ax in _named_leaves(L.param_logical_axes(cfg))}
+        tp = mesh.shape[AXIS_TENSOR]
+        # Megatron blocks where the rules put heads, kv_heads and mlp on
+        # tp, and tp divides them; else tp ranks gather everything and
+        # repeat the same work.
+        self.megatron = tp > 1 and all(
+            rules.axes_for(n) in (AXIS_TENSOR, (AXIS_TENSOR,))
+            for n in ("heads", "kv_heads", "mlp")) and not (
+            cfg.heads % tp or cfg.kv_heads % tp or cfg.mlp_dim % tp)
+        keep_tp = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
+        self.compute = {}
+        for name, sh in self.shardings.items():
+            self.compute[name] = tuple(
+                p if (a == AXIS_TENSOR and self.megatron
+                      and name in keep_tp) else _replicate()
+                for a, p in zip(CANONICAL_ORDER, sh.placements))
+        self.batch = NamedSharding(mesh, tuple(batch_pspec(mesh)))
+
+    def place_params(self, full):
+        return _rebuild(full, {name: distribute(x, self.shardings[name])
+                               for name, x in _named_leaves(full)})
+
+    def place_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The whole batch (the same on every rank) as DTensors whose rows
+        are split over (dp, fsdp)."""
+        out = {}
+        for k, v in batch.items():
+            t = _as_tensor(v)
+            placements = (self.batch.placements if t.dim() else
+                          (_replicate(),) * len(CANONICAL_ORDER))
+            out[k] = distribute(t, NamedSharding(self.mesh, placements))
+        return out
+
+    def _gathered(self, params):
+        """Each param's compute copy: a plain local tensor, gathered over
+        every axis but (Megatron) tp; a leaf of the local graph."""
+        out = {}
+        with torch.no_grad():
+            for name, p in _named_leaves(params):
+                local = p.redistribute(self.dm, self.compute[name]).to_local()
+                # A collective still in flight: wait before a kernel reads
+                # its memory by address.
+                wait = getattr(local, "wait", None)
+                local = wait() if wait is not None else local
+                out[name] = local.detach().requires_grad_(True)
+        return out
+
+    def loss_and_grads(self, params, batch, grad_accum: int):
+        from torch.distributed.tensor import DTensor, Partial
+        local_batch = {k: v.to_local() for k, v in batch.items()}
+        denom = self.loss_denom(batch, local_batch)
+        gathered = self._gathered(params)
+        tree = _rebuild(params, gathered)
+        group = (self.mesh.group(AXIS_TENSOR) if self.megatron else None)
+        with L.tensor_parallel(group):
+            loss, grads = _accumulated_grads(tree, local_batch, self.cfg,
+                                             grad_accum, denom)
+        # Partial sums over the batch axes, reduced onto each param's own
+        # placements (reduce-scatter over fsdp, all-reduce over dp).
+        out = []
+        for (name, p), g in zip(_named_leaves(params), grads):
+            partial = tuple(
+                Partial() if a in _BATCH_AXES else c
+                for a, c in zip(CANONICAL_ORDER, self.compute[name]))
+            g = DTensor.from_local(g, self.dm, partial,
+                                   run_check=False, shape=p.shape,
+                                   stride=p.stride())
+            out.append(g.redistribute(self.dm, p.placements))
+        return self._batch_sum(loss), out
+
+    def _batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of a per-rank partial over the batch axes, the same
+        value on every rank."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        placements = tuple(Partial() if a in _BATCH_AXES else Replicate()
+                           for a in CANONICAL_ORDER)
+        return DTensor.from_local(x, self.dm, placements,
+                                  run_check=False).full_tensor()
+
+    def loss_denom(self, batch, local_batch) -> torch.Tensor:
+        """The whole batch's unmasked token count, from the rows each rank
+        holds."""
+        if "loss_mask" not in batch:
+            return _loss_denom(batch)
+        return self._batch_sum(
+            local_batch["loss_mask"].float().sum()).clamp_min(1.0)
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """sqrt of the sum of squares of every gradient leaf: each block
+        counted once (by its primary replica), summed over every rank."""
+        import torch.distributed as dist
+        total = torch.zeros((), dtype=torch.float32, device=self.mesh.device)
+        for g in grads:
+            if is_primary(g):
+                total = total + torch.linalg.vector_norm(
+                    g.to_local(), dtype=torch.float32) ** 2
+        dist.all_reduce(total)
+        return total.sqrt()
+
+
+def _replicate():
+    from torch.distributed.tensor import Replicate
+    return Replicate()
+
+
+def _named_leaves(tree):
+    """(leaf name, leaf) of a params-shaped tree, in tree_leaves order; a
+    leaf's name is its key in the dict that holds it."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += _named_leaves(v) if isinstance(v, dict) else [(k, v)]
+    return out
+
+
+def _rebuild(tree, by_name: Dict[str, Any]):
+    return {k: (_rebuild(v, by_name) if isinstance(v, dict) else by_name[k])
+            for k, v in tree.items()}
+
+
+def make_lm_eval_step(cfg, mesh: Mesh, *,
+                      rules: Optional[ShardingRules] = None):
+    """eval_step(params, batch) -> loss, without a graph; on a mesh of
+    several ranks the same value on every rank."""
     L.check_supported(cfg)
+    L.check_device_supported(cfg, mesh.device)
+    if mesh.device_mesh is None:
+        @torch.no_grad()
+        def eval_step(params, batch):
+            return L.loss_fn(params, batch, cfg)
+        return eval_step
+    plan = _ShardedPlan(cfg, mesh, rules or default_rules())
 
     @torch.no_grad()
-    def eval_step(params, batch):
-        return L.loss_fn(params, batch, cfg)
+    def sharded_eval_step(params, batch):
+        local = {k: v.to_local() for k, v in batch.items()}
+        local["loss_denom"] = plan.loss_denom(batch, local)
+        tree = _rebuild(params, plan._gathered(params))
+        group = plan.mesh.group(AXIS_TENSOR) if plan.megatron else None
+        with L.tensor_parallel(group):
+            return plan._batch_sum(L.loss_fn(tree, local, cfg))
 
-    return eval_step
+    return sharded_eval_step

@@ -49,7 +49,7 @@ def _randn(gen, *shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,causal,q_offset", [
     (1, 16, 8, 256, 256, True, 0),
     (2, 4, 4, 1000, 1000, True, 0),
@@ -163,7 +163,8 @@ EDGE_LENS = [1, 16, 17, 31, 32, 33, 63, 64, 65, 128, 200, 0]
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("H,Hkv,D", [
     (16, 8, 128), (8, 8, 64), (8, 2, 64), (16, 2, 128), (32, 4, 128),
-    (8, 1, 64), (4, 4, 128), (16, 4, 64)])
+    (8, 1, 64), (4, 4, 128), (16, 4, 64), (4, 2, 32), (8, 8, 32),
+    (8, 1, 32)])
 @pytest.mark.parametrize("splits", [1, 3, None])
 def test_paged_decode_matches_plain(cuda, monkeypatch, dtype, H, Hkv, D,
                                     splits):
@@ -259,7 +260,8 @@ def test_paged_decode_after_a_call_of_another_shape(cuda):
         err, rel, zeros = _paged_errs(out, ref, sl)
         assert err <= TOL[torch.bfloat16] and rel <= ROW_REL_TOL[
             torch.bfloat16] and zeros, (i, err, rel)
-        ws, blocks = paged._WORKSPACE[q.device]
+        ws, blocks = paged._WORKSPACE[
+            (q.device, torch.cuda.current_stream().cuda_stream)]
         first = first or (ws, ws.data_ptr())
         assert ws is first[0] and ws.data_ptr() == first[1]
         counters = ws[:blocks // 2].view(torch.int32)
@@ -280,8 +282,8 @@ def test_paged_decode_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="one dtype"):
         paged.paged_decode(q, kv.float(), bt, sl, 16)
     with pytest.raises(ValueError, match="head_dim"):
-        paged.paged_decode(q[..., :32].contiguous(),
-                           kv[..., :32].contiguous(), bt, sl, 16)
+        paged.paged_decode(q[..., :16].contiguous(),
+                           kv[..., :16].contiguous(), bt, sl, 16)
     with pytest.raises(ValueError, match="contiguous"):
         paged.paged_decode(q.transpose(0, 1).contiguous().transpose(0, 1),
                            kv, bt, sl, 16)
@@ -293,7 +295,8 @@ def test_paged_decode_refuses_what_the_kernel_does_not_take(cuda):
         paged.paged_decode(q, kv, bt[:, :0], sl, 16)
     # The C entry refuses a split layout the workspace cannot hold, and
     # splits > 1 without a workspace.
-    ws, blocks = paged._workspace(q.device)
+    ws, blocks = paged._workspace(q.device,
+                                  torch.cuda.current_stream().cuda_stream)
     prepare = _build.function("paged_decode", "rt_paged_decode_prepare",
                               [ctypes.c_void_p])
     for ptr, B in ((ws.data_ptr(), blocks // 4 + 1), (None, 1)):
@@ -305,7 +308,7 @@ def test_paged_decode_refuses_what_the_kernel_does_not_take(cuda):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    q = torch.randn(1, 4, 64, 32, device="cuda")
+    q = torch.randn(1, 4, 64, 16, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         attn.flash_fwd(q, q, q)
     q = torch.randn(1, 4, 64, 64, device="cuda", dtype=torch.float16)
@@ -354,7 +357,7 @@ def _row_rel_err(got, ref):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,causal,q_offset", [
     (1, 16, 16, 256, 256, True, 0),
     (1, 16, 8, 1000, 1000, True, 0),
@@ -401,7 +404,7 @@ def test_flash_bwd_matches_plain(cuda, dtype, D, B, H, Hkv, Sq, Sk, causal,
             name, _row_rel_err(g, r))
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 def test_flash_bwd_is_deterministic(cuda, D):
     """No atomics: two calls on the same inputs give bit-equal dq, dk and
     dv (GQA, so the dk/dv kernel sums over a group)."""
@@ -533,3 +536,152 @@ def test_engine_greedy_through_kernels_equals_plain_path(cuda):
                               prefill_buckets=(64,))
         outs.append(eng.generate(prompts, SamplingParams(max_tokens=10)))
     assert outs[0] == outs[1]
+
+
+def _paged_pair(seed):
+    """Two different paged inputs the split rule splits (the workspace is
+    used), at llama_1b's heads."""
+    rng = np.random.default_rng(seed)
+    return [_paged_case(4, 16, 8, 128, 16,
+                        rng.integers(1000, 2049, size=4).tolist(), 128,
+                        torch.bfloat16, seed=seed + i) for i in range(2)]
+
+
+def test_paged_decode_on_two_streams_never_shares_a_workspace(cuda):
+    """Launches in flight on two streams at once: each stream has its own
+    workspace, and both outputs equal the plain version every time."""
+    a, b = _paged_pair(300)
+    assert paged._splits(a[0].device, 4, 8, 128) > 1
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    refs = [paged._exact_path(*x, 16) for x in (a, b)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(20):
+        for s, x in zip(streams, (a, b)):
+            with torch.cuda.stream(s):
+                outs.append(paged.paged_decode(*x, 16))
+    torch.cuda.synchronize()
+    ws = [paged._WORKSPACE[(a[0].device, s.cuda_stream)][0]
+          for s in streams]
+    assert ws[0].data_ptr() != ws[1].data_ptr()
+    for i, out in enumerate(outs):
+        err, rel, _ = _paged_errs(out, refs[i % 2], (a, b)[i % 2][3])
+        assert err <= TOL[torch.bfloat16] and rel <= ROW_REL_TOL[
+            torch.bfloat16], (i, err, rel)
+
+
+def test_a_captured_paged_graph_beside_an_eager_call(cuda):
+    """A CUDA graph of paged_decode replayed on one stream while an eager
+    call runs on another: both right."""
+    a, b = _paged_pair(400)
+    side, other = torch.cuda.Stream(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up on the capture stream
+        paged.paged_decode(*a, 16)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out_a = paged.paged_decode(*a, 16)
+    other.wait_stream(torch.cuda.current_stream())
+    outs_b = []
+    for _ in range(10):
+        graph.replay()
+        with torch.cuda.stream(other):
+            outs_b.append(paged.paged_decode(*b, 16))
+    torch.cuda.synchronize()
+    for out, x in [(out_a, a)] + [(o, b) for o in outs_b]:
+        err, rel, _ = _paged_errs(out, paged._exact_path(*x, 16), x[3])
+        assert err <= TOL[torch.bfloat16] and rel <= ROW_REL_TOL[
+            torch.bfloat16], (err, rel)
+
+
+def test_a_capture_never_allocates_the_workspace(cuda):
+    """A capture on a stream that has no workspace yet raises and says how
+    to warm up; it allocates nothing."""
+    a, _b = _paged_pair(500)
+    fresh = torch.cuda.Stream(priority=-1)
+    key = (a[0].device, fresh.cuda_stream)
+    paged._WORKSPACE.pop(key, None)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture stream before"):
+        with torch.cuda.graph(graph, stream=fresh):
+            paged.paged_decode(*a, 16)
+    assert key not in paged._WORKSPACE
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("temperature,top_k", [(0.0, 0), (0.8, 40)])
+def test_decode_chunk_has_no_host_sync(cuda, temperature, top_k):
+    """Eight decode steps with on-device sampling: torch's sync debug mode
+    reports no synchronizing call inside the chunk."""
+    import warnings
+
+    from ray_tpu_torch.llm import _model
+    from ray_tpu_torch.models.llama import llama_tiny, init_params
+    cfg = llama_tiny().replace(dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         param_dtype=torch.bfloat16, device="cuda")
+    P = 4
+    kv = tuple(torch.zeros((P + 1, 16, 2 * cfg.kv_heads, cfg.head_dim),
+                           dtype=cfg.dtype, device="cuda")
+               for _ in range(cfg.layers))
+    bt = torch.arange(1, P + 1, dtype=torch.int32, device="cuda")[None]
+    tok = torch.tensor([5], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([20], dtype=torch.int32, device="cuda")
+    active = torch.ones(1, dtype=torch.bool, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    _model.decode_chunk(params, kv, tok, pos, bt, active, gen, cfg, 16, 8,
+                        temperature, top_k)            # warm-up
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out, _p, _kv = _model.decode_chunk(
+                params, kv, tok, pos, bt, active, gen, cfg, 16, 8,
+                temperature, top_k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert not syncs, syncs
+    assert out.shape == (8, 1)
+
+
+def test_llama_tiny_serves_and_trains_through_the_d32_kernels(cuda):
+    """The JAX preset llama_tiny (head_dim 32) through the engine and one
+    training step on the card, kernels against the plain path."""
+    from ray_tpu_torch.llm import InferenceEngine, SamplingParams
+    from ray_tpu_torch.models.llama import init_params, llama_tiny
+    from ray_tpu_torch.parallel import build_mesh, make_lm_train_step
+    cfg = llama_tiny().replace(dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    prompts = [[3, 17, 92, 5, 41], list(range(1, 40))]
+    before = (attn.flash_fwd.launches, paged.paged_decode.launches)
+    outs = []
+    for c in (cfg, cfg.replace(attention_impl="reference")):
+        eng = InferenceEngine(params, c, device="cuda", max_slots=2,
+                              page_size=16, num_pages=32,
+                              prefill_buckets=(64,))
+        outs.append(eng.generate(prompts, SamplingParams(max_tokens=10)))
+    assert outs[0] == outs[1]
+    assert attn.flash_fwd.launches > before[0]
+    assert paged.paged_decode.launches > before[1]
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32)}
+    losses = []
+    for c in (cfg.replace(remat=False),
+              cfg.replace(remat=False, attention_impl="reference")):
+        init_fn, step_fn, place = make_lm_train_step(c, build_mesh())
+        p, o = init_fn(torch.Generator(device="cuda").manual_seed(1))
+        losses.append(step_fn(p, o, place(batch))[2])
+    for k in ("loss", "grad_norm"):
+        a, b = losses[0][k].item(), losses[1][k].item()
+        assert abs(a - b) <= 1e-5 * abs(b), (k, a, b)
+    odd = cfg.replace(head_dim=16)
+    with pytest.raises(ValueError, match='attention_impl="reference"'):
+        InferenceEngine(params, odd, device="cuda")
+    with pytest.raises(ValueError, match='attention_impl="reference"'):
+        make_lm_train_step(odd, build_mesh())

@@ -53,7 +53,8 @@ def _tokens(seed, B, S):
 
 
 class TestForward:
-    @pytest.mark.parametrize("attention_impl", ["auto", "reference"])
+    @pytest.mark.parametrize("attention_impl", ["auto", "reference",
+                                                "flash_interpret"])
     def test_logits_match_jax_fp32(self, jax_params, port_params,
                                    attention_impl):
         toks = _tokens(0, 2, 24)
@@ -117,6 +118,31 @@ class TestConfig:
         with pytest.raises(NotImplementedError, match="later slice"):
             t_llama.init_params(cfg, torch.Generator().manual_seed(0),
                                 device="cpu")
+
+
+    @pytest.mark.parametrize("head_dim,impl,device,ok", [
+        (32, "auto", "cuda", True), (64, "flash", "cuda", True),
+        (128, "flash_interpret", "cuda", True),
+        (16, "auto", "cuda", False), (80, "flash", "cuda", False),
+        (16, "reference", "cuda", True), (16, "auto", "cpu", True)])
+    def test_card_refuses_head_dims_its_kernels_do_not_take(
+            self, head_dim, impl, device, ok):
+        """Refused when an engine or a step is built, never at the first
+        kernel call, with the way out named."""
+        cfg = T_CFG.replace(head_dim=head_dim, attention_impl=impl)
+        if ok:
+            t_llama.check_device_supported(cfg, torch.device(device))
+            return
+        with pytest.raises(ValueError, match='attention_impl="reference"'):
+            t_llama.check_device_supported(cfg, torch.device(device))
+
+    def test_logical_axes_tree_matches_params_and_jax(self, port_params):
+        logical = t_llama.param_logical_axes(T_CFG)
+        assert logical == j_llama.param_logical_axes(J_CFG)
+        for name, t in port_params["blocks"].items():
+            assert t.dim() == len(logical["blocks"][name]), name
+        for name in ("embed", "final_norm", "lm_head"):
+            assert port_params[name].dim() == len(logical[name]), name
 
 
 class TestInitParams:

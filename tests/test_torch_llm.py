@@ -304,6 +304,24 @@ class TestSampling:
             assert tok.dtype == torch.int32
             assert (top3 == tok[:, None].long()).any(dim=-1).all()
 
+    def test_gumbel_max_draws_follow_the_top_k_softmax(self):
+        """A chi-square test over a vocab of 8 at temperature 0.8 and top-k
+        5, fixed seed: 40,000 draws against softmax(logits / T) over the
+        kept tokens.  The limit is the 1e-4 tail of chi-square with 4
+        degrees of freedom, and no draw falls outside the top 5."""
+        logits = torch.tensor([[1.0, 0.2, -0.5, 2.0, 0.0, -3.0, 1.5, 0.7]])
+        n, temp, k = 40_000, 0.8, 5
+        gen = torch.Generator().manual_seed(11)
+        toks = t_model.sample_tokens(logits.expand(n, 8), temp, k, gen)
+        counts = torch.bincount(toks.long(), minlength=8).double()
+        keep = torch.topk(logits[0], k).indices
+        probs = torch.zeros(8, dtype=torch.float64)
+        probs[keep] = torch.softmax(logits[0, keep].double() / temp, dim=0)
+        assert counts[probs == 0].sum() == 0
+        expected = probs[keep] * n
+        chi2 = float(((counts[keep] - expected) ** 2 / expected).sum())
+        assert chi2 < 23.51, chi2
+
     def test_top_k_one_is_greedy(self, params):
         prompt = [3, 17, 92, 5, 41]
         eng = InferenceEngine(params, CFG, **ENGINE, prefill_buckets=(16,))

@@ -323,14 +323,16 @@ class TestPaged:
 
     @pytest.mark.parametrize("sms", [132, 114, 16])
     def test_workspace_holds_every_split_layout(self, monkeypatch, sms):
-        """The workspace is allocated once per device, and every layout
-        the split rule makes fits in it: its (slot, KV head) counters,
-        then its partials of G * (D + 2) floats a block."""
+        """The workspace is allocated once per (device, stream), and
+        every layout the split rule makes fits in it: its (slot, KV head)
+        counters, then its partials of G * (D + 2) floats a block.  Two
+        streams never share one."""
         dev = torch.device("cpu")
         monkeypatch.setattr(t_paged, "_SM_COUNT", {dev: sms})
         monkeypatch.setattr(t_paged, "_WORKSPACE", {})
-        ws, blocks = t_paged._workspace(dev)
-        assert t_paged._workspace(dev)[0] is ws
+        ws, blocks = t_paged._workspace(dev, 1)
+        assert t_paged._workspace(dev, 1)[0] is ws
+        assert t_paged._workspace(dev, 2)[0] is not ws
         assert blocks == t_paged.BLOCKS_PER_SM * sms
         assert ws.dtype == torch.float32 and not ws.any()
         for B in range(1, 300):
@@ -442,11 +444,13 @@ def _imported_roots(path: pathlib.Path):
 def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "flash_fwd_ab.py",
-              REPO / "flash_bwd_ab.py", REPO / "paged_decode_ab.py"]
+              REPO / "flash_bwd_ab.py", REPO / "paged_decode_ab.py",
+              REPO / "sharded_smoke.py"]
     assert len(files) > 10
     for f in files:
         # Whole-word roots: ray_tpu_torch is the port itself.  optax, chex
-        # and flax each import JAX.
+        # and flax each import JAX; the port reads bf16 without ml_dtypes.
         bad = {r for r in _imported_roots(f)
-               if r in ("jax", "jaxlib", "ray_tpu", "optax", "chex", "flax")}
+               if r in ("jax", "jaxlib", "ray_tpu", "optax", "chex", "flax",
+                        "ml_dtypes")}
         assert not bad, f"{f.relative_to(REPO)} imports {bad}"

@@ -139,12 +139,93 @@ class TestLoss:
             for a, w in zip(out[remat], out[False]):
                 torch.testing.assert_close(a, w, atol=1e-6, rtol=1e-6)
 
+    @pytest.mark.parametrize("impl", ["reference", "flash"])
     @pytest.mark.parametrize("remat", ["dots", "dots_nobatch"])
-    def test_queued_remat_modes_raise(self, jax_params, remat):
-        params = _port(jax_params)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            t_llama.loss_fn(params, _t_batch(_batch(3)),
-                            T_CFG.replace(remat=remat))
+    def test_dots_remat_matches_no_remat_and_jax(self, jax_params, remat,
+                                                 impl):
+        """Loss and every gradient under a selective remat policy equal remat
+        False (fp32, 1e-6: the same products, saved or recomputed) and JAX's
+        same policy (1e-5), with plain attention and the kernel path."""
+        b = _batch(3, masked=True)
+        out = {}
+        for mode in (remat, False):
+            params = _port(jax_params)
+            loss = t_llama.loss_fn(params, _t_batch(b), T_CFG.replace(
+                remat=mode, attention_impl=impl))
+            out[mode] = [loss] + list(torch.autograd.grad(
+                loss, tree_leaves(params)))
+        for a, w in zip(out[remat], out[False]):
+            torch.testing.assert_close(a, w, atol=1e-6, rtol=1e-6)
+        j_loss, j_grads = jax.value_and_grad(
+            lambda p: j_llama.loss_fn(p, _j_batch(b), J_CFG.replace(
+                remat=remat)))(jax_params)
+        _close(_np(out[remat][0]), _np(j_loss), F32, "loss")
+        for path, g, jg in zip(_paths(j_grads), out[remat][1:],
+                               jax.tree.leaves(j_grads)):
+            _close(_np(g), _np(jg), F32, path)
+
+    @pytest.mark.parametrize("impl", ["reference", "flash"])
+    def test_dots_policies_save_the_products_jax_would(self, jax_params,
+                                                       monkeypatch, impl):
+        """What each policy saves, per layer.  Both save the seven
+        projections (wq, wk, wv, wo, w_gate, w_up, w_down: einsum's
+        batch-1 bmm).  "dots" also saves plain attention's two batched
+        products (B * H batches); "dots_nobatch" does not.  On the card
+        the kernel path's attention is one C entry that neither policy
+        sees, so there both save the same set; on the CPU the kernels'
+        plain stand-ins run inside ``_Flash`` and show as batched products
+        here, which only "dots" saves."""
+        saved = {}
+        real = t_llama.remat_policy
+
+        def recording(mode):
+            inner = real(mode)
+
+            def policy(ctx, op, *args, **kw):
+                decision = inner(ctx, op, *args, **kw)
+                if decision == t_llama.CheckpointPolicy.MUST_SAVE \
+                        and not ctx.is_recompute:
+                    batch = args[op is torch.ops.aten.baddbmm.default]
+                    batch = batch.shape[0] if batch.dim() == 3 else 1
+                    key = "plain" if batch == 1 else "batched"
+                    saved[mode][key] = saved[mode].get(key, 0) + 1
+                return decision
+            return policy
+
+        monkeypatch.setattr(t_llama, "remat_policy", recording)
+        b = _t_batch(_batch(3))
+        for mode in ("dots", "dots_nobatch"):
+            saved[mode] = {}
+            params = _port(jax_params)
+            loss = t_llama.loss_fn(params, b, T_CFG.replace(
+                remat=mode, attention_impl=impl))
+            torch.autograd.grad(loss, tree_leaves(params))
+        layers_ = TINY["layers"]
+        for mode in ("dots", "dots_nobatch"):
+            assert saved[mode]["plain"] == 7 * layers_, saved
+        assert "batched" not in saved["dots_nobatch"], saved
+        # reference: scores and probs @ v; the CPU stand-in of the flash
+        # forward: those two and the LSE's scores.
+        assert saved["dots"]["batched"] == (
+            2 if impl == "reference" else 3) * layers_, saved
+
+    def test_flash_interpret_equals_flash_and_jax(self, jax_params):
+        """attention_impl="flash_interpret" (JAX: the Pallas kernels'
+        bodies on the CPU) is the port's kernel path: equal to "flash", and
+        to JAX's flash_interpret loss (fp32, 1e-5)."""
+        b = _batch(4, masked=True)
+        got = {}
+        for impl in ("flash_interpret", "flash"):
+            params = _port(jax_params)
+            loss = t_llama.loss_fn(params, _t_batch(b),
+                                   T_CFG.replace(attention_impl=impl))
+            got[impl] = [loss] + list(torch.autograd.grad(
+                loss, tree_leaves(params)))
+        for a, w in zip(got["flash_interpret"], got["flash"]):
+            assert torch.equal(a, w)
+        want = j_llama.loss_fn(jax_params, _j_batch(b), J_CFG.replace(
+            attention_impl="flash_interpret"))
+        _close(_np(got["flash_interpret"][0]), _np(want), F32, "loss")
 
     def test_loss_chunks_must_divide_the_sequence(self, jax_params):
         with pytest.raises(ValueError, match="loss_chunks"):
@@ -306,12 +387,13 @@ class TestOptim:
 
 
 def test_multi_device_mesh_raises():
-    for spec in (MeshSpec(dp=2), MeshSpec(fsdp=8), MeshSpec(tp=2, sp=2),
-                 MeshSpec(num_slices=2)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            build_mesh(spec, device="cpu")
+    """Without a torch.distributed world there is one rank: a spec that
+    needs more devices, or does not resolve, raises ValueError."""
     mesh = build_mesh(MeshSpec(dp=-1), device="cpu")
     assert mesh.spec == MeshSpec() and mesh.device == torch.device("cpu")
-    for spec in (MeshSpec(dp=-1, tp=-1), MeshSpec(sp=0)):
+    assert mesh.device_mesh is None
+    for spec in (MeshSpec(dp=-1, tp=-1), MeshSpec(sp=0), MeshSpec(dp=2),
+                 MeshSpec(fsdp=8), MeshSpec(tp=2, sp=2),
+                 MeshSpec(num_slices=2)):
         with pytest.raises(ValueError):
             build_mesh(spec, device="cpu")
