@@ -2019,6 +2019,345 @@ def phase_checkpoint(smi):
                                      "flash_bwd_dkv")}
 
 
+# ring_local: ring attention's per-step code over RING_BLOCKS blocks of one
+# sequence in one process, at the long-context shape below (bf16, causal).
+RING_SHAPE = dict(B=2, H=16, Hkv=16, S=8192, D=128)
+RING_BLOCKS = 4
+
+
+def _plain_attention_grads(q, k, v, out, lse, dout, heads=4):
+    """The plain version's output and (dq, dk, dv) from the same inputs,
+    a few heads at a time (the [S, S] fp32 matrices of all heads would
+    not fit beside the rest)."""
+    import torch
+    from ray_tpu_torch.ops.attention import (_flash_bwd_plain,
+                                             reference_attention)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    outs, grads = [], []
+    for h in range(0, q.shape[1], heads):
+        sl = slice(h, h + heads)
+        outs.append(reference_attention(q[:, sl], k[:, sl], v[:, sl]))
+        grads.append(_flash_bwd_plain(q[:, sl], k[:, sl], v[:, sl],
+                                      out[:, sl], lse[:, sl], dout[:, sl],
+                                      True, scale, 0))
+        torch.cuda.synchronize()
+    return torch.cat(outs, 1), [torch.cat(g, 1) for g in zip(*grads)]
+
+
+def phase_ring_local(smi):
+    """Ring attention over RING_BLOCKS blocks of one sequence in one
+    process (ops.ring_attention.ring_attention_local: the ring's per-step
+    flash calls and LSE merges, no transport), forward and backward,
+    against one flash call over the whole sequence (flash_fwd + flash_bwd)
+    and against the plain version; times of both, the per-step calls at
+    the block shape (causal and full, with their bounds), and the kernel
+    launches of the ring's run."""
+    import torch
+    from ray_tpu_torch.ops.attention import (flash_bwd, flash_bwd_dkv,
+                                             flash_bwd_dq, flash_fwd)
+    from ray_tpu_torch.ops.ring_attention import ring_attention_local
+    B, H, Hkv, S, D = (RING_SHAPE[k] for k in ("B", "H", "Hkv", "S", "D"))
+    n = RING_BLOCKS
+    q, k, v, out1, lse1, dout = _bwd_inputs(B, H, Hkv, S, S, D,
+                                            torch.bfloat16, True, 0, 21)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def ring():
+        o = ring_attention_local(*leaves, n, causal=True)
+        return (o,) + torch.autograd.grad(o, leaves, dout)
+
+    def single():
+        o, lse = flash_fwd(q, k, v, causal=True, need_lse=True)
+        return (o,) + flash_bwd(q, k, v, o, lse, dout, causal=True)
+
+    ring()                                   # warm-up
+    torch.cuda.synchronize()
+    # -- the main path: launch counts read from this window only.
+    _reset_launches()
+    got = ring()
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    # -- end of the main path.
+    one = single()
+    plain_out, plain_grads = _plain_attention_grads(q, k, v, out1, lse1,
+                                                    dout)
+    errs = {"vs_one_flash_call": {}, "vs_plain": {}}
+    for name, a, b, c in zip(("out", "dq", "dk", "dv"), got, one,
+                             (plain_out,) + tuple(plain_grads)):
+        for key, ref in (("vs_one_flash_call", b), ("vs_plain", c)):
+            if name == "out":
+                errs[key][name] = {"max_abs": (a.float() - ref.float())
+                                   .abs().max().item(),
+                                   "row_rel": row_rel_err(a, ref)}
+            else:
+                errs[key][name] = {"max_rel": _grad_errs(a, ref)[1],
+                                   "row_rel": row_rel_err(a, ref,
+                                                          BWD_ROW_FLOOR)}
+    del plain_out, plain_grads, one
+    torch.cuda.empty_cache()
+    ring_ms, single_ms = time_ms(ring, 5), time_ms(single, 5)
+    # The per-step calls at the block shape: the diagonal block (causal)
+    # and an earlier one (every key visible), forward and backward.
+    Sl = S // n
+    scale = 1.0 / math.sqrt(D)
+    steps = {}
+    for tag, causal in (("causal", True), ("full", False)):
+        qb, kb, vb, ob, lb, db = _bwd_inputs(B, H, Hkv, Sl, Sl, D,
+                                             torch.bfloat16, causal, 0, 22)
+        pairs = Sl * (Sl + 1) // 2 if causal else Sl * Sl
+        io = 2 * (2 * B * H * Sl * D + 2 * B * Hkv * Sl * D)
+        fwd_ms = graph_ms(lambda: flash_fwd(qb, kb, vb, causal=causal,
+                                            need_lse=True), 10)
+        bwd_ms = graph_ms(lambda: flash_bwd(qb, kb, vb, ob, lb, db,
+                                            causal=causal, scale=scale), 10)
+        steps[tag] = {
+            "fwd": dict(_timing_row(
+                "flash_fwd", {"B": B, "H": H, "Hkv": Hkv, "S": Sl, "D": D,
+                              "causal": causal}, fwd_ms, None, None,
+                4 * B * H * D * pairs, io + 4 * B * H * Sl, None),
+                timed_by="graph"),
+            "bwd": dict(_timing_row(
+                "flash_bwd (dq + dk/dv)", {"B": B, "H": H, "Hkv": Hkv,
+                                           "S": Sl, "D": D,
+                                           "causal": causal},
+                bwd_ms, None, None, 14 * B * H * D * pairs,
+                io + 2 * B * H * Sl * D + 4 * B * H * Sl
+                + 2 * 2 * B * Hkv * Sl * D, None), timed_by="graph")}
+        del qb, kb, vb, ob, lb, db
+    visible = n * (n + 1) // 2
+    res = {"phase": "ring_local", "card": smi, "shape": RING_SHAPE,
+           "blocks": n, "dtype": "bfloat16", "causal": True,
+           "ms_fwd_bwd": ring_ms, "one_flash_call_ms_fwd_bwd": single_ms,
+           "slowdown": ring_ms / single_ms, "errors": errs,
+           "tol": {"out": TOL["bfloat16"], "out_row_rel":
+                   TOL_ROW_REL["bfloat16"], "grad_max_rel":
+                   TOL_BWD["bfloat16"], "grad_row_rel":
+                   TOL_BWD_ROW_REL["bfloat16"]},
+           "launches": launches, "per_step_calls": steps}
+    emit(res)
+    check(launches == {"flash_fwd": visible, "paged_decode": 0,
+                       "flash_bwd_dq": visible, "flash_bwd_dkv": visible},
+          f"ring_local launches {launches}")
+    for key in errs:
+        e = errs[key]
+        check(e["out"]["max_abs"] <= TOL["bfloat16"]
+              and e["out"]["row_rel"] <= TOL_ROW_REL["bfloat16"]
+              and all(e[g]["max_rel"] <= TOL_BWD["bfloat16"]
+                      and e[g]["row_rel"] <= TOL_BWD_ROW_REL["bfloat16"]
+                      for g in ("dq", "dk", "dv")),
+              f"ring_local {key}: {e}")
+    return {k: launches[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv")}
+
+
+# train_moe: llama_1b's widths and depth (bench.py has no MoE config) with
+# 8 experts (Mixtral's count), top-2 and capacity factor 1.25 (the JAX
+# package's defaults), bf16 params and adam state, full remat, batch 4 x
+# 2048, adamw at lr 1e-4.
+MOE_CFG = dict(vocab_size=32000, hidden=2048, layers=16, heads=16,
+               kv_heads=8, head_dim=128, mlp_dim=5504, max_seq_len=2048,
+               num_experts=8, moe_top_k=2, moe_capacity_factor=1.25)
+MOE_BATCH = 4
+
+
+def active_params(cfg) -> int:
+    """Parameters a token passes through: num_params with the experts'
+    MLPs counted moe_top_k times instead of num_experts times (a dense
+    config: num_params)."""
+    from ray_tpu_torch.models.llama import num_params
+    per_expert = 3 * cfg.hidden * cfg.mlp_dim
+    return num_params(cfg) - cfg.layers * per_expert * max(
+        cfg.num_experts - cfg.moe_top_k, 0)
+
+
+def _moe_dispatch_check():
+    """fp32 on the card, small: sorted dispatch with room for every
+    assignment equals dense dispatch."""
+    import torch
+    from ray_tpu_torch.ops.moe import moe_layer
+    g = torch.Generator(device="cuda").manual_seed(31)
+    B, S, E, X, M = 2, 64, 128, 8, 256
+    ts = [torch.randn(*sh, generator=g, device="cuda") * sc
+          for sh, sc in (((B, S, E), 1.0), ((E, X), 0.3), ((X, E, M), 0.1),
+                         ((X, E, M), 0.1), ((X, M, E), 0.1))]
+    sparse = moe_layer(*ts, k=2, capacity_factor=X / 2)[0]
+    dense = moe_layer(*ts, k=2, capacity_factor=0.0)[0]
+    return (sparse - dense).abs().max().item()
+
+
+class SameRouting:
+    """Record the expert choices (top-k indices) of every routing call of
+    one forward and backward (full remat calls each layer's routing again
+    in the backward), then replay them, in order, in later runs: each
+    takes its own router probabilities but the recorded choices.  Two
+    paths that differ only in their attention rounding then make the same
+    discrete top-k choices and drops, and what differs is the attention
+    kernels' alone; free, one token whose top two experts are nearly tied
+    can flip and move its gradient by its whole MLP output.
+
+    ``choices``: a record made elsewhere (another process's, on the CPU);
+    ``local``: what of a recorded whole-batch choice this process's tokens
+    are (a rank of a sharded step replaying one card's record)."""
+
+    def __init__(self, choices=None, local=None):
+        import importlib
+        self.moe = importlib.import_module("ray_tpu_torch.ops.moe")
+        self.real = self.moe._routing
+        self.choices = [] if choices is None else choices
+        self.local = local or (lambda idx: idx)
+
+    def _record(self, *args):
+        info, topv = self.real(*args)
+        self.choices.append(info.expert_index)
+        return info, topv
+
+    def _replay(self, x, router_w, k, noise, gen):
+        info, _ = self.real(x, router_w, k, noise, gen)
+        idx = self.local(self.choices[self.at]).to(x.device)
+        self.at += 1
+        topv = info.router_probs.gather(-1, idx)
+        topv = topv / topv.sum(-1, keepdim=True)
+        combine = info.router_probs.new_zeros(
+            info.router_probs.shape).scatter(-1, idx, topv)
+        return self.moe.RoutingInfo(combine, info.router_probs, idx), topv
+
+    def run(self, fn, record: bool):
+        """fn() with the routing recorded (record) or replayed."""
+        self.at = 0
+        self.moe._routing = self._record if record else self._replay
+        try:
+            out = fn()
+        finally:
+            self.moe._routing = self.real
+        check(record or self.at == len(self.choices),
+              f"routing replayed {self.at} of {len(self.choices)} calls")
+        return out
+
+
+def _moe_compare(cfg, params, small):
+    """train_moe's B=2 comparison: loss, grad norm and every layer's
+    attention gradients, the flash kernels against the plain attention
+    with the same expert choices (SameRouting), then each of
+    PLANTED_FAULTS in flash_bwd's output the same way; and, reported
+    beside them, the plain path with its own choices."""
+    import importlib
+    attn_mod = importlib.import_module("ray_tpu_torch.ops.attention")
+    plain_cfg = cfg.replace(attention_impl="reference")
+    routing = SameRouting()
+    got = routing.run(lambda: _loss_and_grads(cfg, params, small), True)
+    want = routing.run(lambda: _loss_and_grads(plain_cfg, params, small),
+                       False)
+    free = _loss_and_grads(plain_cfg, params, small)
+    planted = {}
+    real = attn_mod.flash_bwd
+    for fault, scales in PLANTED_FAULTS.items():
+        def faulty(*args, _scales=scales, **kw):
+            return tuple(g * s for g, s in zip(real(*args, **kw), _scales))
+        attn_mod.flash_bwd = faulty
+        try:
+            planted[fault] = _worst_layer_err(routing.run(
+                lambda: _loss_and_grads(cfg, params, small), False)[2],
+                want[2])
+        finally:
+            attn_mod.flash_bwd = real
+    worst, where = _worst_layer_err(got[2], want[2])
+    return {"rel_err": {"loss": abs(got[0] - want[0]) / abs(want[0]),
+                        "grad_norm": abs(got[1] - want[1]) / abs(want[1]),
+                        "attn_grad": worst},
+            "attn_grad_worst_at": where,
+            "planted_faults_attn_grad": planted,
+            "free_routing": {
+                "loss": abs(got[0] - free[0]) / abs(free[0]),
+                "grad_norm": abs(got[1] - free[1]) / abs(free[1]),
+                "attn_grad": _worst_layer_err(got[2], free[2])},
+            "tol": TOL_TRAIN_BF16}
+
+
+def phase_train_moe(smi):
+    """MOE_CFG through make_lm_train_step on one card: 2 warm-up steps,
+    then 3 timed steps (the main path), one profiled step, then loss,
+    grad norm and every layer's attention gradients at B 2 against the
+    plain attention path with the same expert choices (TOL_TRAIN_BF16,
+    _moe_compare), and the fp32 dispatch check."""
+    import torch
+    from ray_tpu_torch.models.llama import LlamaConfig, num_params
+    from ray_tpu_torch.ops.moe import capacity
+    from ray_tpu_torch.parallel import build_mesh, make_lm_train_step
+    cfg = LlamaConfig(**MOE_CFG, dtype=torch.bfloat16, remat=True,
+                      attention_impl="flash")
+    init_fn, step_fn, place = make_lm_train_step(
+        cfg, build_mesh(), learning_rate=TRAIN_LR,
+        param_dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(14)
+    batch = place({"tokens": rng.integers(
+        0, cfg.vocab_size, (MOE_BATCH, TRAIN_SEQ), dtype=np.int32)})
+    losses = []
+    for _ in range(2):
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    # -- the main path: launch counts read from this window only.
+    _reset_launches()
+    steps = 3
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    # -- end of the main path.
+    losses = [x.item() for x in losses]
+    step_s = wall / steps
+    tok_s = MOE_BATCH * TRAIN_SEQ / step_s
+    busy_ms, top, kinds = _device_time(lambda: step_fn(params, opt, batch),
+                                       top=12)
+    compare = _moe_compare(cfg, params, {"tokens": batch["tokens"][:2]})
+    errs = compare["rel_err"]
+    dispatch_err = _moe_dispatch_check()
+    n_active = active_params(cfg)
+    res = {"phase": "train_moe", "card": smi,
+           "config": "llama_1b widths and depth, 8 experts, top-2, "
+                     "capacity factor 1.25",
+           "num_params": num_params(cfg), "active_params": n_active,
+           "capacity_slots_per_expert": capacity(
+               MOE_BATCH * TRAIN_SEQ, cfg.moe_top_k,
+               cfg.moe_capacity_factor, cfg.num_experts),
+           "batch": [MOE_BATCH, TRAIN_SEQ], "remat": True,
+           "param_dtype": "bfloat16", "lr": TRAIN_LR, "steps_timed": steps,
+           "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
+           "mfu_active": 6.0 * n_active * tok_s / PEAK_BF16_FLOPS,
+           "mfu_formula": "6 * active_params * tokens_per_s / 989e12",
+           "peak_mem_gb": peak / 2**30, "losses": losses,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "profile_one_step": {
+               "device_busy_ms": busy_ms,
+               "device_idle_share": 1 - busy_ms / (step_s * 1e3),
+               "device_ms_by_kind": kinds,
+               "top_kernels_ms": [[name[:48], round(us / 1e3, 3), n]
+                                  for name, (us, n) in top]},
+           "kernel_vs_plain_B2": compare,
+           "sorted_no_drops_vs_dense_fp32_max_abs": dispatch_err}
+    emit(res)
+    want_l = {"flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
+              "flash_bwd_dkv": cfg.layers}
+    check({k: res["launches_per_step"][k] for k in want_l} == want_l,
+          f"train_moe launches {launches}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"train_moe losses {losses}")
+    check(all(errs[k] <= TOL_TRAIN_BF16[k] for k in errs),
+          f"train_moe B=2 kernel vs plain {errs}")
+    check(all(e > TOL_TRAIN_BF16["attn_grad"] for e, _ in
+              compare["planted_faults_attn_grad"].values()),
+          f"a planted backward fault passes train_moe's check: {compare}")
+    check(dispatch_err <= TOL["float32"],
+          f"sorted dispatch vs dense {dispatch_err}")
+    return {k: launches[k] for k in want_l}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2055,6 +2394,10 @@ def main() -> int:
     del params, opt
     torch.cuda.empty_cache()
     paths["checkpoint"] = phase_checkpoint(smi)
+    torch.cuda.empty_cache()
+    paths["ring_local"] = phase_ring_local(smi)
+    torch.cuda.empty_cache()
+    paths["train_moe"] = phase_train_moe(smi)
     kernels = []
     for name, row, src, rep in (
             ("flash_fwd", rows["flash_fwd_S256"], FLASH_SOURCE,

@@ -102,6 +102,12 @@ class InferenceEngine:
                  prefill_chunk: Optional[int] = None,
                  record_token_times: bool = False):
         check_supported(cfg)
+        if cfg.num_experts:
+            # The JAX engine's model (ray_tpu/llm/_model.py) has the dense
+            # SwiGLU MLP only.
+            raise ValueError(
+                f"InferenceEngine serves dense blocks only: num_experts="
+                f"{cfg.num_experts} (an MoE model) is not served")
         self.device = resolve_device(device)
         check_device_supported(cfg, self.device)
         self.params = _to_device(params, self.device)

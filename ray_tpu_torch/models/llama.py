@@ -9,10 +9,16 @@ as the JAX code does; logits are fp32.
 
 Attention dispatches to ``ops.attention``: the CUDA flash kernels on the card
 (``attention_impl`` "auto" or "flash"; forward and, under autograd, the flash
-backward), the plain version for "reference".  ``loss_fn`` is the training
-objective, with the JAX package's remat modes as ``torch.utils.checkpoint``.
-Dense models only: ring/Ulysses attention, MoE and pipeline parallelism raise
-``NotImplementedError`` naming the slice they come with.
+backward), the plain version for "reference"; "ring" and "ulysses" run
+``ops.ring_attention``/``ops.ulysses`` over a sharded step's sp group (on
+one rank: the flash kernels).  Blocks with ``num_experts`` > 0 run
+``ops.moe.moe_layer`` and add its load-balancing loss.  ``loss_fn`` is the
+training objective, with the JAX package's remat modes as
+``torch.utils.checkpoint``; ``pp_microbatches`` runs the blocks through
+``parallel.pipeline`` over a sharded step's pp group.
+
+A sharded step (``parallel.spmd``) hands the model its process groups
+through ``parallel_groups``; without one, everything runs on one device.
 """
 
 from __future__ import annotations
@@ -32,8 +38,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import _HEAD_DIMS as KERNEL_HEAD_DIMS
 from ..ops.attention import attention as _attention
+from ..ops.attention import flash_attention, reference_attention
+from ..ops.moe import MoEParallel, moe_layer
 from ..ops.norms import rms_norm
+from ..ops.ring_attention import ring_attention
 from ..ops.rope import apply_rope, rope_frequencies
+from ..ops.ulysses import ulysses_attention
 
 
 @dataclass(frozen=True)
@@ -49,13 +59,16 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # MoE: 0 experts = dense model (the only kind this slice runs).
+    # MoE: 0 experts = dense model.
     num_experts: int = 0
     moe_top_k: int = 2
+    # 0 = dense (masked) dispatch; > 0 = capacity-based sorted dispatch
+    # with this capacity factor (see ops/moe.py).
     moe_capacity_factor: float = 1.25
     # "auto"/"flash"/"flash_interpret" (the flash kernels on the card, their
-    # plain versions on CPU tensors), "reference" (plain); "ring"/"ulysses"
-    # come with a later slice.
+    # plain versions on CPU tensors), "reference" (plain), "ring"/"ulysses"
+    # (sequence-parallel attention over the sp group, the flash kernels on
+    # each block).
     attention_impl: str = "auto"
     seq_axis: str = "sp"
     # False | True/"full" | "mlp_only" | "dots" | "dots_nobatch" (see
@@ -91,23 +104,13 @@ def llama_7b() -> LlamaConfig:
 
 
 def check_supported(cfg: LlamaConfig) -> None:
-    """Raise for the parts of the JAX model this slice does not port."""
-    if cfg.attention_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} (sequence-parallel "
-            "attention) comes with a later slice of the port: ROADMAP "
-            "Queue 1 item 7")
-    if cfg.attention_impl not in ("auto", "flash", "flash_interpret",
-                                  "reference"):
+    """Raise for a config the JAX model refuses before it runs."""
+    if cfg.attention_impl not in _ATTENTION_IMPLS:
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "mixture-of-experts layers come with a later slice of the port: "
-            "ROADMAP Queue 1 item 7 (ops/moe.py)")
-    if cfg.pp_microbatches > 0:
-        raise NotImplementedError(
-            "pipeline parallelism comes with a later slice of the port: "
-            "ROADMAP Queue 1 item 7 (parallel/pipeline.py)")
+
+
+_ATTENTION_IMPLS = ("auto", "flash", "flash_interpret", "reference", "ring",
+                    "ulysses")
 
 
 def check_device_supported(cfg: LlamaConfig, device: torch.device) -> None:
@@ -126,8 +129,9 @@ def check_device_supported(cfg: LlamaConfig, device: torch.device) -> None:
 
 
 def attention_impl(cfg: LlamaConfig) -> Optional[str]:
-    """The ``ops.attention`` impl for ``cfg``: None (kernel) or
-    "reference" (plain version).  "flash_interpret" is the kernel path, as
+    """The ``ops.attention`` impl for ``cfg``: None (kernel; also for
+    "ring"/"ulysses", whose blocks run the kernels) or "reference" (plain
+    version).  "flash_interpret" is the kernel path, as
     in JAX, where it runs the Pallas kernels' bodies on the CPU: here the
     kernels' plain versions run on CPU tensors and the kernels on CUDA
     ones."""
@@ -144,10 +148,20 @@ def param_logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
         "wv": ("layers", "embed", "kv_heads", "head_dim"),
         "wo": ("layers", "heads", "head_dim", "embed"),
         "mlp_norm": ("layers", None),
-        "w_gate": ("layers", "embed", "mlp"),
-        "w_up": ("layers", "embed", "mlp"),
-        "w_down": ("layers", "mlp", "embed"),
     }
+    if cfg.num_experts:
+        block.update({
+            "router": ("layers", "embed", None),
+            "w_gate": ("layers", "expert", "embed", "mlp"),
+            "w_up": ("layers", "expert", "embed", "mlp"),
+            "w_down": ("layers", "expert", "mlp", "embed"),
+        })
+    else:
+        block.update({
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        })
     return {
         "embed": ("vocab", "embed"),
         "blocks": block,
@@ -156,52 +170,68 @@ def param_logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
     }
 
 
-#: The tensor-parallel process group the blocks run over, or None (see
-#: ``tensor_parallel``).
-_TP_GROUP = None
+@dataclass(frozen=True)
+class ParallelGroups:
+    """The process groups a sharded step runs the model over (None: that
+    axis has one rank).
+
+    ``tp``: Megatron blocks, each rank holding its heads' share of
+    wq/wk/wv/wo and its mlp columns' share of w_gate/w_up/w_down (of every
+    expert's); each branch's input sums its gradient over the group in the
+    backward, its output sums over the group in the forward.  ``ep``: each
+    rank holds its share of the experts; their outputs sum over the group
+    as tp's do.  ``sp``: the sequence is split over the group (ring,
+    Ulysses, or K/V gathered for the other attention impls).  ``pp``: the
+    blocks are split over the group on the layer axis
+    (``parallel.pipeline``).  ``moe``: ``ops.moe.MoEParallel`` for routing
+    over the whole batch."""
+    tp: Any = None
+    ep: Any = None
+    sp: Any = None
+    pp: Any = None
+    moe: Optional[MoEParallel] = None
+
+
+_GROUPS = ParallelGroups()
 
 
 @contextlib.contextmanager
-def tensor_parallel(group):
-    """Run the blocks Megatron-style over ``group`` (the mesh's tp axis)
-    inside this context: the caller passes each rank its heads' share of
-    wq/wk/wv/wo and its mlp columns' share of w_gate/w_up/w_down.  Each
-    branch's input then sums its gradient over the group in the backward,
-    and its output sums over the group in the forward.  Attention needs no
-    communication: the heads are the rank's own.  None: one rank, no
-    communication (the default)."""
-    global _TP_GROUP
-    old, _TP_GROUP = _TP_GROUP, group
+def parallel_groups(groups: ParallelGroups):
+    """Run the model over ``groups`` inside this context."""
+    global _GROUPS
+    old, _GROUPS = _GROUPS, groups
     try:
         yield
     finally:
-        _TP_GROUP = old
+        _GROUPS = old
 
 
-class _SumGradOverTP(torch.autograd.Function):
-    """Identity forward; the backward sums the gradient over the group."""
+class _SumGrad(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the groups."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, groups):
+        ctx.groups = groups
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         import torch.distributed as dist
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        for group in ctx.groups:
+            dist.all_reduce(g, group=group)
         return g, None
 
 
-class _SumOverTP(torch.autograd.Function):
-    """Sum over the group in the forward; identity backward."""
+class _Sum(torch.autograd.Function):
+    """Sum over the groups in the forward; identity backward."""
 
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, groups):
         import torch.distributed as dist
         y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
+        for group in groups:
+            dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
@@ -209,12 +239,14 @@ class _SumOverTP(torch.autograd.Function):
         return g, None
 
 
-def _tp_in(h: torch.Tensor) -> torch.Tensor:
-    return h if _TP_GROUP is None else _SumGradOverTP.apply(h, _TP_GROUP)
+def _sum_grad(h: torch.Tensor, *groups) -> torch.Tensor:
+    groups = tuple(g for g in groups if g is not None)
+    return _SumGrad.apply(h, groups) if groups else h
 
 
-def _tp_out(y: torch.Tensor) -> torch.Tensor:
-    return y if _TP_GROUP is None else _SumOverTP.apply(y, _TP_GROUP)
+def _sum(y: torch.Tensor, *groups) -> torch.Tensor:
+    groups = tuple(g for g in groups if g is not None)
+    return _Sum.apply(y, groups) if groups else y
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
@@ -245,10 +277,21 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         "wv": trunc((L, E, Hkv, D), E),
         "wo": trunc((L, H, D, E), H * D),
         "mlp_norm": ones((L, E)),
-        "w_gate": trunc((L, E, M), E),
-        "w_up": trunc((L, E, M), E),
-        "w_down": trunc((L, M, E), M),
     }
+    if cfg.num_experts:
+        X = cfg.num_experts
+        blocks.update({
+            "router": trunc((L, E, X), E),
+            "w_gate": trunc((L, X, E, M), E),
+            "w_up": trunc((L, X, E, M), E),
+            "w_down": trunc((L, X, M, E), M),
+        })
+    else:
+        blocks.update({
+            "w_gate": trunc((L, E, M), E),
+            "w_up": trunc((L, E, M), E),
+            "w_down": trunc((L, M, E), M),
+        })
     return {
         "embed": trunc((cfg.vocab_size, E), E),
         "blocks": blocks,
@@ -318,29 +361,96 @@ def mlp(cfg: LlamaConfig, layer: Dict[str, Any],
                         layer["w_down"].to(dt))
 
 
+class _GatherSeq(torch.autograd.Function):
+    """[B, h, S_l, D] split over the sp group -> the whole [B, h, S, D];
+    backward: the gradients summed over the group, this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        n = dist.get_world_size(group)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        ctx.args = (group, dist.get_rank(group), x.shape[2])
+        return torch.cat(parts, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        group, rank, sl = ctx.args
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=group)
+        return g[:, :, rank * sl:(rank + 1) * sl].contiguous(), None
+
+
+def _attend(cfg: LlamaConfig, q, k, v):
+    """q: [B, H, S, D], k/v: [B, Hkv, S, D] (this rank's heads and, under
+    a sharded step's sp group, its block of the sequence) -> [B, H, S, D].
+
+    "ring"/"ulysses" run over the sp group; the other impls, where the
+    sequence is split, attend to the whole sequence's K/V gathered over
+    the group from the block's own position on (as GSPMD computes JAX's
+    plain attention of a sequence-sharded batch)."""
+    sp = _GROUPS.sp
+    impl = cfg.attention_impl
+    if impl == "ring":
+        return ring_attention(q, k, v, group=sp, causal=True)
+    if impl == "ulysses":
+        return ulysses_attention(q, k, v, group=sp, causal=True)
+    if sp is None:
+        return _attention(q, k, v, causal=True, impl=attention_impl(cfg))
+    import torch.distributed as dist
+    offset = dist.get_rank(sp) * q.shape[2]
+    k, v = _GatherSeq.apply(k, sp), _GatherSeq.apply(v, sp)
+    if impl == "reference":
+        return reference_attention(q, k, v, causal=True, q_offset=offset)
+    return flash_attention(q, k, v, causal=True, q_offset=offset)
+
+
 def _attn_half(cfg: LlamaConfig, cos, sin, positions, x, layer):
     """Attention residual branch. x: [B, S, E] -> [B, S, E]."""
     dt = cfg.dtype
-    h = _tp_in(rms_norm(x, layer["attn_norm"], cfg.norm_eps))
+    tp = _GROUPS.tp
+    h = _sum_grad(rms_norm(x, layer["attn_norm"], cfg.norm_eps), tp)
     q = torch.einsum("bse,ehd->bhsd", h, layer["wq"].to(dt))
     k = torch.einsum("bse,ehd->bhsd", h, layer["wk"].to(dt))
     v = torch.einsum("bse,ehd->bhsd", h, layer["wv"].to(dt))
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
-    attn = _attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                      causal=True, impl=attention_impl(cfg))
+    attn = _attend(cfg, q.contiguous(), k.contiguous(), v.contiguous())
     attn_out = torch.einsum("bhsd,hde->bse", attn, layer["wo"].to(dt))
-    return x + _tp_out(attn_out)
+    return x + _sum(attn_out, tp)
 
 
 def _mlp_half(cfg: LlamaConfig, x, layer):
-    """MLP residual branch. x: [B, S, E] -> [B, S, E]."""
-    h = _tp_in(rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
-    return x + _tp_out(mlp(cfg, layer, h))
+    """MLP/MoE residual branch. x: [B, S, E] -> ([B, S, E], fp32 aux loss:
+    the MoE load-balancing loss, 0 for a dense block).
+
+    MoE under tp and ep: the routing runs on every rank from the whole
+    normed input (its gradient is whole), the experts on the rank's share
+    (their input's gradient and the combine weights' sum over tp and ep),
+    and the output sums over tp and ep."""
+    G = _GROUPS
+    h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    if not cfg.num_experts:
+        out = _sum(mlp(cfg, layer, _sum_grad(h, G.tp)), G.tp)
+        return x + out, torch.zeros((), dtype=torch.float32,
+                                    device=x.device)
+    dt = cfg.dtype
+    par = G.moe or MoEParallel()
+    if G.tp is not None or G.ep is not None:
+        par = dataclasses.replace(
+            par, partial_grad=lambda t: _sum_grad(t, G.tp, G.ep))
+    out, aux = moe_layer(h, layer["router"].to(dt), layer["w_gate"].to(dt),
+                         layer["w_up"].to(dt), layer["w_down"].to(dt),
+                         k=cfg.moe_top_k,
+                         capacity_factor=cfg.moe_capacity_factor,
+                         parallel=par)
+    return x + _sum(out, G.tp, G.ep), aux
 
 
 def _block(cfg: LlamaConfig, cos, sin, positions, x, layer):
-    """One transformer block. x: [B, S, E]."""
+    """One transformer block. x: [B, S, E] -> (x, aux loss)."""
     return _mlp_half(cfg, _attn_half(cfg, cos, sin, positions, x, layer),
                      layer)
 
@@ -415,8 +525,12 @@ def _block_fn(cfg: LlamaConfig, cos, sin, positions):
 def _forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                     cfg: LlamaConfig,
                     positions: Optional[torch.Tensor] = None):
-    """tokens: [B, S] int -> (final hidden [B, S, E], aux loss 0);
-    forward_with_aux applies the lm_head on top."""
+    """tokens: [B, S] int -> (final hidden [B, S, E], the MoE aux loss
+    summed over layers, fp32); forward_with_aux applies the lm_head on
+    top.
+
+    ``positions``: absolute positions [S] (defaults to arange; a rank
+    holding a block of the sequence passes its block's positions)."""
     check_supported(cfg)
     dt = cfg.dtype
     # Cast, then gather (as JAX does): under autograd the embedding's
@@ -425,16 +539,49 @@ def _forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
                                 cfg.rope_theta, device=x.device)
     block = _block_fn(cfg, cos, sin, positions)
-    for layer in layers(params):
-        x = block(x, layer)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.pp_microbatches:
+        x = _pipeline(cfg, params["blocks"], x, block)
+    else:
+        for layer in layers(params):
+            x, a = block(x, layer)
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+def _pipeline(cfg: LlamaConfig, blocks: Dict[str, torch.Tensor], x, block):
+    """The blocks as a GPipe pipeline over the pp group, with the JAX
+    model's refusals."""
+    from ..parallel.pipeline import pipeline_blocks
+    pp = _GROUPS.pp
+    if pp is None:
+        raise ValueError(
+            "cfg.pp_microbatches > 0 needs a global mesh with pp > 1")
+    if cfg.num_experts:
+        raise NotImplementedError("MoE + pipeline parallelism")
+    if cfg.attention_impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            "sequence-parallel attention inside a pipeline stage")
+    import torch.distributed as dist
+    stages = dist.get_world_size(pp)
+    if cfg.layers % stages:
+        raise ValueError(f"layers ({cfg.layers}) must divide evenly over pp "
+                         f"stages ({stages})")
+
+    def stage_body(stage_blocks, h):
+        for layer in layers({"blocks": stage_blocks}):
+            h = block(h, layer)[0]
+        return h
+
+    return pipeline_blocks(blocks, x, stage_body,
+                           num_microbatches=cfg.pp_microbatches, group=pp)
 
 
 def forward_with_aux(params: Dict[str, Any], tokens: torch.Tensor,
                      cfg: LlamaConfig,
                      positions: Optional[torch.Tensor] = None):
-    """tokens: [B, S] int -> (fp32 logits [B, S, vocab], aux loss 0).
+    """tokens: [B, S] int -> (fp32 logits [B, S, vocab], MoE aux loss).
 
     ``positions``: absolute positions [S] (defaults to arange)."""
     x, aux = _forward_hidden(params, tokens, cfg, positions)
@@ -480,12 +627,18 @@ def _chunked_nll_sum(x, lm_head, targets, mask, num_chunks: int, dt):
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
             cfg: LlamaConfig,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Next-token cross-entropy (fp32 scalar).  batch: tokens [B, S] int,
-    optional loss_mask [B, S] and loss_denom (gradient accumulation passes
-    the full batch's token count)."""
+    """Next-token cross-entropy (fp32 scalar), plus ``0.01 * aux / layers``
+    for an MoE model (JAX's weight of the load-balancing loss).  batch:
+    tokens [B, S] int, optional loss_mask [B, S] and loss_denom (gradient
+    accumulation passes the full batch's token count), and optional
+    targets [B, S]: the next tokens, where the caller split the rows'
+    positions (a sequence-parallel step builds targets and the default
+    mask on the whole row first); default: the row shifted by one."""
     tokens = batch["tokens"]
-    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
-                        dim=1)
+    targets = batch.get("targets")
+    if targets is None:
+        targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                            dim=1)
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.cat([torch.ones_like(tokens[:, 1:]),
@@ -495,13 +648,16 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     if denom is None:
         denom = mask.sum().clamp_min(1.0)
     if cfg.loss_chunks:
-        x, _aux = _forward_hidden(params, tokens, cfg, positions)
+        x, aux = _forward_hidden(params, tokens, cfg, positions)
         nll_sum = _chunked_nll_sum(x, params["lm_head"], targets, mask,
                                    cfg.loss_chunks, cfg.dtype)
     else:
-        logits, _aux = forward_with_aux(params, tokens, cfg, positions)
+        logits, aux = forward_with_aux(params, tokens, cfg, positions)
         nll_sum = (_nll(logits, targets) * mask).sum()
-    return nll_sum / denom
+    loss = nll_sum / denom
+    if cfg.num_experts:
+        loss = loss + 0.01 * aux / cfg.layers
+    return loss
 
 
 def num_params(cfg: LlamaConfig) -> int:

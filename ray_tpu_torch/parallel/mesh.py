@@ -19,9 +19,10 @@ exactly what the flat mesh of the same axes computes.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
@@ -105,6 +106,8 @@ class Mesh:
     spec: MeshSpec
     device: torch.device
     device_mesh: Optional[object] = None
+    #: axes -> this rank's process group over them (``group``).
+    _groups: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -117,9 +120,27 @@ class Mesh:
             return 0
         return self.device_mesh.get_local_rank(axis)
 
-    def group(self, axis: str):
-        """The process group of ``axis`` through this rank."""
-        return self.device_mesh.get_group(axis)
+    def group(self, axis: Union[str, Tuple[str, ...]]):
+        """The process group of ``axis`` through this rank; for a tuple of
+        axes, of the ranks that differ only along them, ranked row-major
+        over them in ``CANONICAL_ORDER`` (created on first use: every rank
+        must ask for the same axes in the same order)."""
+        if isinstance(axis, str):
+            return self.device_mesh.get_group(axis)
+        axes = tuple(a for a in CANONICAL_ORDER if a in axis)
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        if axes not in self._groups:
+            import torch.distributed as dist
+            sizes = [s for _, s in self.spec.shape()]
+            dims = [CANONICAL_ORDER.index(a) for a in axes]
+            rest = [d for d in range(len(sizes)) if d not in dims]
+            layout = torch.arange(dist.get_world_size()).reshape(sizes)
+            rows = layout.permute(rest + dims).reshape(
+                -1, int(np.prod([sizes[d] for d in dims])))
+            self._groups[axes] = dist.new_subgroups_by_enumeration(
+                rows.tolist())[0]
+        return self._groups[axes]
 
     @property
     def slice_index(self) -> int:

@@ -15,16 +15,30 @@ out by the logical-axis rules (``param_logical_axes`` through
 and ``count`` a plain scalar every rank holds.  A step, where JAX leaves the
 collectives to GSPMD, does them explicitly:
 
-- each param is gathered over every mesh axis but tp (FSDP's all-gather);
-  with the default rules' tp layout (heads, kv_heads and mlp over tp) the
-  blocks run Megatron-style on the rank's heads and mlp columns
-  (``models.llama.tensor_parallel``), and the flash kernels see plain
-  local tensors of the rank's batch rows and heads, with no communication;
-  the vocab-sharded embed and lm_head are gathered whole;
-- the batch is sharded over (dp, fsdp); every rank's loss is normalised by
-  the whole batch's token count, so the gradients of the gathered copies
-  are partial sums over (dp, fsdp), reduced onto each param's own
-  placements (FSDP's reduce-scatter; an all-reduce over dp);
+- each param is gathered over every mesh axis but tp, ep and pp (FSDP's
+  all-gather); with the default rules' tp layout (heads, kv_heads and mlp
+  over tp) the blocks run Megatron-style on the rank's heads and mlp
+  columns, and the flash kernels see plain local tensors of the rank's
+  batch rows and heads, with no communication; the vocab-sharded embed and
+  lm_head are gathered whole;
+- ep (MoE models): each rank keeps its share of every layer's experts and
+  computes them on the tokens of its (dp, fsdp, sp) block, which every ep
+  rank of a group holds; the experts' outputs are summed over ep.  The
+  routing sees the whole batch's expert indices (an int32 all-gather over
+  the token-holding ranks), so capacity and drops are JAX's;
+- sp: each rank holds positions ``[i * S / sp, (i + 1) * S / sp)`` of its
+  rows (targets and the default mask built on the whole row first, RoPE at
+  the block's global positions), and attention runs over the sp group
+  (ring, Ulysses, or K/V gathered for the other impls);
+- pp with ``pp_microbatches``: each rank keeps its stage's layers and the
+  blocks run on ``parallel.pipeline``'s GPipe schedule;
+- the model gets its process groups through
+  ``models.llama.parallel_groups``;
+- the batch is sharded over (dp, fsdp) rows and sp positions; every rank's
+  loss is normalised by the whole batch's token count, so the gradients of
+  the gathered copies are partial sums over (dp, fsdp, sp), reduced onto
+  each param's own placements (FSDP's reduce-scatter; an all-reduce over
+  dp and sp);
 - adamw takes the DTensor trees and updates each leaf's local block
   (param, gradient, mu and nu share one layout);
 - ``loss`` and ``grad_norm`` come back as plain scalars with the same
@@ -44,12 +58,15 @@ import torch
 from .._tree import tree_leaves, tree_map
 from ..models import llama as L
 from ..optim import AdamState, adamw, global_norm
-from .mesh import (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, CANONICAL_ORDER, Mesh,
+from .mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_FSDP, AXIS_PIPELINE,
+                   AXIS_SEQ, AXIS_TENSOR, CANONICAL_ORDER, Mesh,
                    set_global_mesh)
 from .sharding import (NamedSharding, ShardingRules, default_rules,
                        distribute, is_primary, logical_to_placements)
 
-_BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
+#: The axes whose ranks hold different tokens: the loss, its denominator
+#: and the gradients are sums over them.
+_BATCH_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_SEQ)
 
 
 def _clone(tree: Any) -> Any:
@@ -60,12 +77,13 @@ def _clone(tree: Any) -> Any:
         lambda t: t.detach().clone().requires_grad_(t.requires_grad), tree)
 
 
-def _grads(params: Any, batch: Dict[str, torch.Tensor], cfg):
+def _grads(params: Any, batch: Dict[str, torch.Tensor], cfg,
+           positions: Optional[torch.Tensor] = None):
     leaves = tree_leaves(params)
     for t in leaves:
         if not t.requires_grad:
             t.requires_grad_(True)
-    loss = L.loss_fn(params, batch, cfg)
+    loss = L.loss_fn(params, batch, cfg, positions)
     grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     return loss.detach(), list(grads)
 
@@ -79,7 +97,8 @@ def _loss_denom(batch) -> torch.Tensor:
                         device=t.device)
 
 
-def _accumulated_grads(params, batch, cfg, grad_accum: int, denom):
+def _accumulated_grads(params, batch, cfg, grad_accum: int, denom,
+                       positions: Optional[torch.Tensor] = None):
     """Loss and gradients over ``grad_accum`` microbatches of ``batch``'s
     leading dim, each normalised by ``denom`` (the full batch's token
     count), summed in the params' dtype."""
@@ -92,7 +111,7 @@ def _accumulated_grads(params, batch, cfg, grad_accum: int, denom):
     for i in range(grad_accum):
         mb = {k: v[i] for k, v in micro.items()}
         mb["loss_denom"] = denom
-        loss, grads = _grads(params, mb, cfg)
+        loss, grads = _grads(params, mb, cfg, positions)
         if gsum is None:
             # The accumulator is in the params' dtype, as in JAX.
             gsum = [torch.zeros_like(p, requires_grad=False)
@@ -103,9 +122,10 @@ def _accumulated_grads(params, batch, cfg, grad_accum: int, denom):
 
 
 def batch_pspec(mesh: Mesh, rules: Optional[ShardingRules] = None) -> list:
-    """Token batches: [B, S] -> placements with B over (dp, fsdp)."""
-    return logical_to_placements(("batch", None), ShardingRules(
-        {"batch": _BATCH_AXES}), mesh)
+    """Token batches: [B, S] -> placements with B over (dp, fsdp) and S
+    over sp."""
+    return logical_to_placements(("batch", "seq"), ShardingRules(
+        {"batch": (AXIS_DATA, AXIS_FSDP), "seq": AXIS_SEQ}), mesh)
 
 
 def make_lm_train_step(cfg, mesh: Mesh, *,
@@ -195,23 +215,28 @@ def _as_tensor(v) -> torch.Tensor:
 
 class _ShardedPlan:
     """The layouts of one sharded step: each param's placements at rest
-    and for compute, the batch's, and the collectives between them."""
+    and for compute, the batch's, the collectives between them, and the
+    process groups the model runs over."""
 
     def __init__(self, cfg, mesh: Mesh, rules: ShardingRules):
-        for axis in ("sp", "ep", "pp"):
-            if mesh.shape[axis] > 1:
-                raise NotImplementedError(
-                    f"mesh axis {axis}={mesh.shape[axis]}: sequence, "
-                    "expert and pipeline parallelism come with a later "
-                    "slice of the port (ROADMAP Queue 1 item 7)")
         self.cfg, self.mesh = cfg, mesh
         self.dm = mesh.device_mesh
+        shape = mesh.shape
+        pipeline = bool(cfg.pp_microbatches) and shape[AXIS_PIPELINE] > 1
+        if pipeline:
+            # Each stage holds its layers (JAX: rules.replace(layers="pp")).
+            rules = rules.replace(layers=AXIS_PIPELINE)
+        ep = shape[AXIS_EXPERT] if cfg.num_experts else 1
+        if cfg.num_experts % ep:
+            raise ValueError(f"num_experts={cfg.num_experts} does not "
+                             f"divide over ep={ep}")
+        logical = dict(_named_leaves(L.param_logical_axes(cfg)))
         #: leaf name -> its NamedSharding at rest.
         self.shardings = {
             name: NamedSharding(mesh, tuple(logical_to_placements(
                 ax, rules, mesh)))
-            for name, ax in _named_leaves(L.param_logical_axes(cfg))}
-        tp = mesh.shape[AXIS_TENSOR]
+            for name, ax in logical.items()}
+        tp = shape[AXIS_TENSOR]
         # Megatron blocks where the rules put heads, kv_heads and mlp on
         # tp, and tp divides them; else tp ranks gather everything and
         # repeat the same work.
@@ -220,13 +245,62 @@ class _ShardedPlan:
             for n in ("heads", "kv_heads", "mlp")) and not (
             cfg.heads % tp or cfg.kv_heads % tp or cfg.mlp_dim % tp)
         keep_tp = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
-        self.compute = {}
-        for name, sh in self.shardings.items():
-            self.compute[name] = tuple(
-                p if (a == AXIS_TENSOR and self.megatron
-                      and name in keep_tp) else _replicate()
-                for a, p in zip(CANONICAL_ORDER, sh.placements))
+
+        def kept(name, axis):
+            """Whether compute keeps the leaf's split over ``axis``."""
+            if axis == AXIS_TENSOR:
+                return self.megatron and name in keep_tp
+            if axis == AXIS_EXPERT:
+                return ep > 1 and "expert" in logical[name]
+            return axis == AXIS_PIPELINE and pipeline
+
+        self.compute = {
+            name: tuple(p if kept(name, a) else _replicate()
+                        for a, p in zip(CANONICAL_ORDER, sh.placements))
+            for name, sh in self.shardings.items()}
         self.batch = NamedSharding(mesh, tuple(batch_pspec(mesh)))
+        self.sp = shape[AXIS_SEQ]
+        self.groups = L.ParallelGroups(
+            tp=mesh.group(AXIS_TENSOR) if self.megatron else None,
+            ep=mesh.group(AXIS_EXPERT) if ep > 1 else None,
+            sp=mesh.group(AXIS_SEQ) if self.sp > 1 else None,
+            pp=mesh.group(AXIS_PIPELINE) if pipeline else None,
+            moe=self._moe(ep) if cfg.num_experts else None)
+
+    def _moe(self, ep: int):
+        """Routing over the whole batch: the expert indices gathered from
+        the (dp, fsdp, sp) ranks, and this rank's experts."""
+        from ..ops.moe import MoEParallel
+        mesh, shape = self.mesh, self.mesh.shape
+        per_ep = self.cfg.num_experts // ep
+        experts = (mesh.coordinate(AXIS_EXPERT) * per_ep, per_ep)
+        rows = shape[AXIS_DATA] * shape[AXIS_FSDP]
+        n = rows * self.sp
+        if n == 1:
+            return MoEParallel(experts=experts)
+        group = mesh.group(_BATCH_AXES)
+        row = (mesh.coordinate(AXIS_DATA) * shape[AXIS_FSDP]
+               + mesh.coordinate(AXIS_FSDP))
+        col = mesh.coordinate(AXIS_SEQ)
+
+        def gather_index(idx):
+            import torch.distributed as dist
+            b, s, k = idx.shape
+            parts = [torch.empty((b, s, k), dtype=torch.int32,
+                                 device=idx.device) for _ in range(n)]
+            dist.all_gather(parts, idx.to(torch.int32).contiguous(),
+                            group=group)
+            whole = torch.stack(parts).reshape(rows, self.sp, b, s, k)
+            return whole.transpose(1, 2).reshape(rows * b, self.sp * s,
+                                                 k).long()
+
+        def local_slots(whole):
+            b, s = whole.shape[0] // rows, whole.shape[1] // self.sp
+            return whole[row * b:(row + 1) * b, col * s:(col + 1) * s]
+
+        return MoEParallel(token_group=group, token_ranks=n,
+                           gather_index=gather_index,
+                           local_slots=local_slots, experts=experts)
 
     def place_params(self, full):
         return _rebuild(full, {name: distribute(x, self.shardings[name])
@@ -234,18 +308,40 @@ class _ShardedPlan:
 
     def place_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The whole batch (the same on every rank) as DTensors whose rows
-        are split over (dp, fsdp)."""
+        are split over (dp, fsdp) and, where sp > 1, whose positions are
+        split over sp.  A split row's targets and default loss mask are
+        built on the whole row first (JAX's loss shifts the whole row): a
+        block's last position takes the next block's first token, and only
+        the row's last position is masked."""
+        batch = {k: _as_tensor(v) for k, v in batch.items()}
+        if self.sp > 1:
+            tokens = batch["tokens"]
+            batch["targets"] = torch.cat(
+                [tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+            if "loss_mask" not in batch:
+                mask = torch.ones(tokens.shape, dtype=torch.float32)
+                mask[:, -1] = 0.0
+                batch["loss_mask"] = mask
         out = {}
-        for k, v in batch.items():
-            t = _as_tensor(v)
+        for k, t in batch.items():
             placements = (self.batch.placements if t.dim() else
                           (_replicate(),) * len(CANONICAL_ORDER))
             out[k] = distribute(t, NamedSharding(self.mesh, placements))
         return out
 
+    def positions(self, local_batch) -> Optional[torch.Tensor]:
+        """This rank's block of positions where sp splits them (RoPE takes
+        the block's global positions)."""
+        if self.sp == 1:
+            return None
+        s = local_batch["tokens"].shape[1]
+        return (torch.arange(s, device=self.mesh.device)
+                + self.mesh.coordinate(AXIS_SEQ) * s)
+
     def _gathered(self, params):
         """Each param's compute copy: a plain local tensor, gathered over
-        every axis but (Megatron) tp; a leaf of the local graph."""
+        every axis its compute placements replicate; a leaf of the local
+        graph."""
         out = {}
         with torch.no_grad():
             for name, p in _named_leaves(params):
@@ -263,12 +359,12 @@ class _ShardedPlan:
         denom = self.loss_denom(batch, local_batch)
         gathered = self._gathered(params)
         tree = _rebuild(params, gathered)
-        group = (self.mesh.group(AXIS_TENSOR) if self.megatron else None)
-        with L.tensor_parallel(group):
+        with L.parallel_groups(self.groups):
             loss, grads = _accumulated_grads(tree, local_batch, self.cfg,
-                                             grad_accum, denom)
+                                             grad_accum, denom,
+                                             self.positions(local_batch))
         # Partial sums over the batch axes, reduced onto each param's own
-        # placements (reduce-scatter over fsdp, all-reduce over dp).
+        # placements (reduce-scatter over fsdp, all-reduce over dp and sp).
         out = []
         for (name, p), g in zip(_named_leaves(params), grads):
             partial = tuple(
@@ -280,14 +376,21 @@ class _ShardedPlan:
             out.append(g.redistribute(self.dm, p.placements))
         return self._batch_sum(loss), out
 
+    def eval_loss(self, params, batch) -> torch.Tensor:
+        local = {k: v.to_local() for k, v in batch.items()}
+        local["loss_denom"] = self.loss_denom(batch, local)
+        tree = _rebuild(params, self._gathered(params))
+        with L.parallel_groups(self.groups):
+            return self._batch_sum(L.loss_fn(tree, local, self.cfg,
+                                             self.positions(local)))
+
     def _batch_sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of a per-rank partial over the batch axes, the same
-        value on every rank."""
-        from torch.distributed.tensor import DTensor, Partial, Replicate
-        placements = tuple(Partial() if a in _BATCH_AXES else Replicate()
-                           for a in CANONICAL_ORDER)
-        return DTensor.from_local(x, self.dm, placements,
-                                  run_check=False).full_tensor()
+        value on every rank (one all-reduce over their ranks)."""
+        import torch.distributed as dist
+        x = x.detach().clone()
+        dist.all_reduce(x, group=self.mesh.group(_BATCH_AXES))
+        return x
 
     def loss_denom(self, batch, local_batch) -> torch.Tensor:
         """The whole batch's unmasked token count, from the rows each rank
@@ -345,11 +448,6 @@ def make_lm_eval_step(cfg, mesh: Mesh, *,
 
     @torch.no_grad()
     def sharded_eval_step(params, batch):
-        local = {k: v.to_local() for k, v in batch.items()}
-        local["loss_denom"] = plan.loss_denom(batch, local)
-        tree = _rebuild(params, plan._gathered(params))
-        group = plan.mesh.group(AXIS_TENSOR) if plan.megatron else None
-        with L.tensor_parallel(group):
-            return plan._batch_sum(L.loss_fn(tree, local, cfg))
+        return plan.eval_loss(params, batch)
 
     return sharded_eval_step

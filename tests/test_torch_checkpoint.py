@@ -266,3 +266,100 @@ def test_reshape_bit_exact(tmp_path, desc_a, desc_b, world):
         assert step == 7 and metrics == {"mesh": desc_a} and shards == world
         # fsdp shards w's embed dim; b is replicated.
         assert local["w"] == (8 // 2, 8) and local["b"] == (8,)
+
+
+# -- MoE and pipeline layouts -------------------------------------------------
+
+# (mesh, config): experts split over ep; layers split over pp (JAX's
+# rules.replace(layers="pp")).
+_LAYOUTS = {"moe_dp2xep4": (dict(dp=2, ep=4), dict(num_experts=4)),
+            "pp2xfsdp4": (dict(pp=2, fsdp=4), dict(layers=4))}
+
+
+def _layout_rules(name, module):
+    rules = module.default_rules()
+    return rules.replace(layers="pp") if name.startswith("pp") else rules
+
+
+def _layout_state(name):
+    """JAX params and adamw state of the layout's config, one update in,
+    laid out on its 8-device mesh."""
+    from ray_tpu.parallel import sharding as j_sharding
+    spec, kw = _LAYOUTS[name]
+    cfg = j_llama.LlamaConfig(**dict(TINY, **kw), dtype=jnp.float32)
+    params = j_llama.init_params(cfg, jax.random.key(0))
+    opt = optax.adamw(1e-3, b1=0.9, b2=0.95, weight_decay=0.1)
+    state = opt.init(params)
+    grads = jax.tree.map(lambda p: jnp.full_like(p, 0.01), params)
+    updates, state = opt.update(grads, state, params)
+    params = optax.apply_updates(params, updates)
+    mesh = j_build_mesh(JMeshSpec(**spec), devices=jax.devices()[:8])
+    rules = _layout_rules(name, j_sharding)
+    logical = j_llama.param_logical_axes(cfg)
+    params = j_runtime.shard_tree(jax.tree.map(np.asarray, params), logical,
+                                  mesh, rules)
+    return cfg, params, state
+
+
+def _layout_worker(rank, world, name, jax_dir, port_dir):
+    """Restore JAX's checkpoint onto the port's mesh of the same layout
+    (this rank's blocks), then save the port's own sharded copy."""
+    from ray_tpu_torch.checkpoint import format as F
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel import sharding as t_sharding
+    from ray_tpu_torch.train.mesh import reshape as R
+    spec, kw = _LAYOUTS[name]
+    mesh = build_mesh(MeshSpec(**spec))
+    cfg = t_llama.LlamaConfig(**dict(TINY, **kw))
+    logical = {"params": t_llama.param_logical_axes(cfg)}
+    shardings = R.sharding_tree(logical, mesh,
+                                _layout_rules(name, t_sharding))
+    out = R.restore_to_mesh(jax_dir, dict(
+        shardings, opt_state=None, step=None))
+    split = {k: [str(p) for p in v.placements]
+             for k, v in out["params"]["blocks"].items()}
+    blocks = {k: (v.to_local().numpy(), t_sharding.dtensor_index(v))
+              for k, v in out["params"]["blocks"].items()}
+    F.save(port_dir, {"params": out["params"]}, step=3)
+    return split, blocks
+
+
+@pytest.mark.parametrize("name", list(_LAYOUTS))
+def test_moe_and_pipeline_checkpoints_cross_bit_exact(tmp_path, name):
+    """A JAX checkpoint of an MoE model laid out over ep, and of a model
+    whose layers are split over pp, restores into the port bit-exact (whole,
+    and onto the port's mesh of the same layout, each rank its blocks); the
+    port's sharded save of it restores into JAX bit-exact."""
+    cfg, params, state = _layout_state(name)
+    jax_dir, port_dir = str(tmp_path / "jax"), str(tmp_path / "port")
+    os.makedirs(jax_dir)
+    os.makedirs(port_dir)
+    tree = {"params": params, "opt_state": state, "step": 3}
+    _jax_save(tree, jax_dir)
+    got = dict(tree_flatten_with_keys(TF.restore_tree(jax_dir)))
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        key = JF._key_str(path)
+        if key != "step":
+            np.testing.assert_array_equal(_bits(got[key]).reshape(-1),
+                                          _bits(leaf).reshape(-1),
+                                          err_msg=key)
+    ranks = run_local(_layout_worker, 8, str(tmp_path), name, jax_dir,
+                      port_dir, timeout=120)
+    from ray_tpu_torch.parallel.mesh import CANONICAL_ORDER
+    axis = "ep" if name.startswith("moe") else "pp"
+    for split, blocks in ranks:
+        assert split["w_gate"][CANONICAL_ORDER.index(axis)] == (
+            "S(1)" if axis == "ep" else "S(0)")
+        for k, (block, box) in blocks.items():
+            whole = np.asarray(params["blocks"][k])
+            np.testing.assert_array_equal(
+                block, whole[tuple(slice(lo, hi) for lo, hi in box)],
+                err_msg=k)
+    back = dict((JF._key_str(p), v) for p, v in
+                jax.tree_util.tree_flatten_with_path(
+                    JF.restore_tree(port_dir))[0])
+    for path, leaf in jax.tree_util.tree_flatten_with_path(
+            {"params": params})[0]:
+        key = JF._key_str(path)
+        np.testing.assert_array_equal(_bits(back[key]), _bits(leaf),
+                                      err_msg=key)

@@ -421,6 +421,135 @@ def test_flash_bwd_is_deterministic(cuda, D):
         assert torch.equal(a, b), name
 
 
+RING_BLOCKS = 4
+
+
+class _Ctx:
+    """Stands in for autograd's context to call a Function's forward and
+    backward directly."""
+
+    def save_for_backward(self, *tensors):
+        self.saved_tensors = tensors
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_ring_steps_match_plain(cuda, dtype, D, causal):
+    """Ring attention over 4 blocks of one sequence
+    (ops.ring_attention.ring_attention_local: the diagonal block causal,
+    earlier blocks full, the partials merged by LSE; the backward through
+    flash_bwd with the merged output and LSE).
+
+    Each backward step's kernel calls against their plain version on the
+    same inputs (the block's q, k, v and dO, the merged O and LSE), as
+    test_flash_bwd_matches_plain holds one call.  The merged output, and
+    the gradients summed over the steps, against the same steps on CPU
+    copies (each call's plain version); the sums to the largest gradient
+    (BWD_TOL) and not row by row: a causal row that sees few keys has dq
+    near 0 as a sum of steps' terms that cancel, and keeps each term's
+    rounding.  Through autograd: one kernel launch a visible block and
+    direction, and the same gradients."""
+    from ray_tpu_torch.ops.ring_attention import ring_attention_local
+    ring = importlib.import_module("ray_tpu_torch.ops.ring_attention")
+    gen = torch.Generator(device="cuda").manual_seed(D + causal)
+    B, H, Hkv, S, n = 2, 8, 4, 1024, RING_BLOCKS
+    q = _randn(gen, B, H, S, D, dtype=dtype)
+    k = _randn(gen, B, Hkv, S, D, dtype=dtype)
+    v = _randn(gen, B, Hkv, S, D, dtype=dtype)
+    dout = _randn(gen, B, H, S, D, dtype=dtype)
+    scale = 1 / math.sqrt(D)
+    card, plain = _Ctx(), _Ctx()
+    out = ring._RingLocal.forward(card, q, k, v, n, causal, scale)
+    ref = ring._RingLocal.forward(plain, q.cpu(), k.cpu(), v.cpu(), n,
+                                  causal, scale).cuda()
+    card.args = plain.args = (n, causal, scale)
+    plain.saved_tensors = tuple(t.cpu() for t in card.saved_tensors)
+    got = ring._RingLocal.backward(card, dout)[:3]
+    want = [g.cuda() for g in
+            ring._RingLocal.backward(plain, dout.cpu())[:3]]
+    _q, _k, _v, o_merged, lse_merged = card.saved_tensors
+    blocks = [ring._blocks(t, n) for t in (q, k, v, o_merged, dout)]
+    lses = [t.contiguous() for t in lse_merged.chunk(n, 2)]
+    for my in range(n):
+        for src in range(n):
+            if not ring._visible(my, src, causal):
+                continue
+            args = (blocks[0][my], blocks[1][src], blocks[2][src],
+                    blocks[3][my], lses[my], blocks[4][my])
+            step = attn.flash_bwd(*args, causal=causal and src == my,
+                                  scale=scale)
+            step_ref = attn._flash_bwd_plain(*args, causal and src == my,
+                                             scale, 0)
+            for name, g, r in zip(("dq", "dk", "dv"), step, step_ref):
+                assert _grad_err(g, r) <= BWD_TOL[dtype], (my, src, name)
+                assert _row_rel_err(g, r) <= BWD_ROW_REL_TOL[dtype], (
+                    my, src, name, _row_rel_err(g, r))
+    before = (attn.flash_fwd.launches, attn.flash_bwd_dq.launches,
+              attn.flash_bwd_dkv.launches)
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = ring_attention_local(*ts, n, causal=causal)
+    through = torch.autograd.grad(o, ts, dout)
+    visible = n * (n + 1) // 2 if causal else n * n
+    assert (attn.flash_fwd.launches - before[0],
+            attn.flash_bwd_dq.launches - before[1],
+            attn.flash_bwd_dkv.launches - before[2]) == (visible,) * 3
+    torch.cuda.synchronize()
+    assert torch.equal(o, out)
+    assert all(torch.equal(a, b) for a, b in zip(through, got))
+    assert out.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert _row_rel_err(out, ref) <= ROW_REL_TOL[dtype]
+    for name, g, r in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype, name
+        assert _grad_err(g, r) <= BWD_TOL[dtype], (name, _grad_err(g, r))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_ring_earlier_block_by_q_offset_equals_full(cuda, dtype, D):
+    """An earlier ring block is every key visible: causal with q_offset =
+    (my - src) * S_l (here 2 blocks back, at the ring's block length)
+    gives what causal=False gives, forward and backward."""
+    gen = torch.Generator(device="cuda").manual_seed(3 * D)
+    B, H, Hkv, Sl = 2, 8, 4, 512
+    q = _randn(gen, B, H, Sl, D, dtype=dtype)
+    k = _randn(gen, B, Hkv, Sl, D, dtype=dtype)
+    v = _randn(gen, B, Hkv, Sl, D, dtype=dtype)
+    dout = _randn(gen, B, H, Sl, D, dtype=dtype)
+    full = attn.flash_fwd(q, k, v, causal=False, need_lse=True)
+    shifted = attn.flash_fwd(q, k, v, causal=True, q_offset=2 * Sl,
+                             need_lse=True)
+    g_full = attn.flash_bwd(q, k, v, *full, dout, causal=False)
+    g_shifted = attn.flash_bwd(q, k, v, *full, dout, causal=True,
+                               q_offset=2 * Sl)
+    torch.cuda.synchronize()
+    assert (shifted[0].float() - full[0].float()).abs().max().item() \
+        <= TOL[dtype]
+    assert (shifted[1] - full[1]).abs().max().item() <= TOL[torch.float32]
+    for name, a, b in zip(("dq", "dk", "dv"), g_shifted, g_full):
+        assert _grad_err(a, b) <= BWD_TOL[dtype], (name, _grad_err(a, b))
+
+
+def test_moe_layer_is_deterministic(cuda):
+    """The MoE layer's dispatch and combine are gathers both ways (no
+    atomics): two forward and backward passes give equal bits."""
+    from ray_tpu_torch.ops.moe import moe_layer
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, S, E, X, M = 2, 512, 256, 8, 512
+    shapes = ((B, S, E), (E, X), (X, E, M), (X, E, M), (X, M, E))
+    arrays = [_randn(gen, *sh, dtype=torch.bfloat16) * 0.1 for sh in shapes]
+    runs = []
+    for _ in range(2):
+        ts = [a.clone().requires_grad_(True) for a in arrays]
+        out, aux = moe_layer(*ts, k=2, capacity_factor=1.25)
+        grads = torch.autograd.grad((out.float() ** 2).sum() + aux, ts)
+        runs.append((out, aux) + grads)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert torch.equal(a, b), i
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_grad_goes_through_the_kernels(cuda, dtype):
     """autograd through flash_attention launches the forward once and each

@@ -108,17 +108,39 @@ class TestConfig:
         assert t_llama.num_params(t_cfg) == j_llama.num_params(j_cfg)
 
     @pytest.mark.parametrize("change", [
-        dict(attention_impl="ring"), dict(attention_impl="ulysses"),
-        dict(num_experts=4), dict(pp_microbatches=2)])
-    def test_unsupported_configs_raise(self, port_params, change):
-        cfg = T_CFG.replace(**change)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            t_llama.forward(port_params, torch.zeros(1, 4, dtype=torch.long),
-                            cfg)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            t_llama.init_params(cfg, torch.Generator().manual_seed(0),
-                                device="cpu")
-
+        dict(pp_microbatches=2),
+        dict(pp_microbatches=2, num_experts=4),
+        dict(pp_microbatches=2, attention_impl="ring"),
+        dict(pp_microbatches=2, attention_impl="ulysses")])
+    def test_unsupported_configs_raise(self, jax_params, port_params, change):
+        """The JAX model's own refusals, with the same conditions: a
+        pipeline without a pp > 1 mesh, and MoE or sequence-parallel
+        attention inside a pipeline (given a pp mesh)."""
+        from ray_tpu.parallel import MeshSpec, build_mesh
+        from ray_tpu.parallel.mesh import set_global_mesh
+        no_mesh = change == dict(pp_microbatches=2)
+        j_cfg = J_CFG.replace(**change)
+        j_params = (j_llama.init_params(j_cfg, jax.random.key(0))
+                    if j_cfg.num_experts else jax_params)
+        set_global_mesh(None if no_mesh else build_mesh(
+            MeshSpec(pp=2), devices=jax.devices()[:2]))
+        try:
+            with pytest.raises((ValueError, NotImplementedError)) as want:
+                j_llama.forward(j_params, jnp.zeros((2, 4), jnp.int32),
+                                j_cfg)
+        finally:
+            set_global_mesh(None)
+        t_cfg = T_CFG.replace(**change)
+        t_params = (convert.params_from_numpy(
+            jax.tree.map(np.asarray, j_params), device="cpu")
+            if t_cfg.num_experts else port_params)
+        # The refusals come before the pp group is used.
+        groups = t_llama.ParallelGroups(pp=None if no_mesh else object())
+        with t_llama.parallel_groups(groups), \
+                pytest.raises(want.type) as got:
+            t_llama.forward(t_params, torch.zeros(2, 4, dtype=torch.long),
+                            t_cfg)
+        assert str(got.value) == str(want.value)
 
     @pytest.mark.parametrize("head_dim,impl,device,ok", [
         (32, "auto", "cuda", True), (64, "flash", "cuda", True),

@@ -256,9 +256,23 @@ class TestEngine:
             InferenceEngine(params, CFG)
 
     def test_unsupported_config_raises(self, params):
-        with pytest.raises(NotImplementedError):
-            InferenceEngine(params, CFG.replace(attention_impl="ring"),
+        """The engine serves dense blocks only, as the JAX engine's model
+        does (ray_tpu/llm/_model.py's _mlp)."""
+        with pytest.raises(ValueError, match="dense blocks only"):
+            InferenceEngine(params, CFG.replace(num_experts=4),
                             device="cpu")
+
+    def test_sequence_parallel_config_serves_as_dense(self, params):
+        """A ring or Ulysses training config serves on one device through
+        the same attention as the dense one."""
+        prompt = [3, 17, 92, 5, 41]
+        want = InferenceEngine(params, CFG, **ENGINE).generate(
+            [prompt], SamplingParams(max_tokens=6))[0]
+        for impl in ("ring", "ulysses"):
+            eng = InferenceEngine(params, CFG.replace(attention_impl=impl),
+                                  **ENGINE)
+            assert eng.generate([prompt],
+                                SamplingParams(max_tokens=6))[0] == want
 
 
 PROMPTS = [[3, 17, 92, 5, 41], [7, 9, 23, 6], [11, 4], [8, 8, 2],

@@ -447,6 +447,8 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
               REPO / "flash_bwd_ab.py", REPO / "paged_decode_ab.py",
               REPO / "sharded_smoke.py"]
     assert len(files) > 10
+    assert {"moe.py", "ring_attention.py", "ulysses.py", "pipeline.py"} \
+        <= {f.name for f in files}
     for f in files:
         # Whole-word roots: ray_tpu_torch is the port itself.  optax, chex
         # and flax each import JAX; the port reads bf16 without ml_dtypes.
