@@ -14,8 +14,10 @@ replayed CUDA graph.  It then checks exact fp32 training on a narrow model
 and one step of ``llama_tiny``, trains the JAX bench's 1.36B-parameter
 config (``bench.py:3384-3390``) at full width and depth through
 ``make_lm_train_step`` under full remat and under ``"dots"`` and
-``"dots_nobatch"``, and resumes a 4-layer model of its width from a
-checkpoint.  The kernels' launch counts, set to 0 just before each path and
+``"dots_nobatch"``, resumes a 4-layer model of its width from a
+checkpoint, and trains that model through ``TorchTrainer.fit`` in a
+spawned worker, through a planted failure and its restart (``trainer``).
+The kernels' launch counts, set to 0 just before each path and
 read just after, show that every path ran through them.  Each phase prints one JSON line; any failed
 check raises and the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -2019,6 +2021,197 @@ def phase_checkpoint(smi):
                                      "flash_bwd_dkv")}
 
 
+# trainer: TorchTrainer.fit with one worker on the card, the checkpoint
+# phase's config (bench.py:3384-3390 width at 4 layers: a 24-layer save is
+# ~8.2 GB, ~30-38 s a save at the checkpoint phase's rate).  Async saves
+# after the steps in TRAINER_SAVE_AT; after step TRAINER_DIE_AT, once that
+# save is committed, the worker dies (os._exit(1)) and the restarted group
+# resumes from the checkpoint.  Batches come from
+# default_rng(TRAINER_SEED + step), so a resumed run replays the same ones.
+TRAINER_STEPS = 6
+TRAINER_SAVE_AT = (1, 4)
+TRAINER_DIE_AT = 3
+TRAINER_SEED = 17
+
+
+def _trainer_batches(vocab: int, start: int):
+    for step in range(start, TRAINER_STEPS):
+        rng = np.random.default_rng(TRAINER_SEED + step)
+        yield {"tokens": rng.integers(0, vocab, (CKPT_BATCH, TRAIN_SEQ),
+                                      dtype=np.int32)}
+
+
+def _trainer_state(init_fn, state):
+    """(params, adamw state, first step): fresh from the seeded init, or
+    the restored checkpoint moved to the card."""
+    import torch
+    from ray_tpu_torch import optim
+    from ray_tpu_torch._tree import tree_map
+    if state is None:
+        params, opt = init_fn(torch.Generator(device="cuda").manual_seed(0))
+        return params, opt, 0
+    on_card = lambda t: t.to("cuda")                         # noqa: E731
+    params = tree_map(lambda t: on_card(t).requires_grad_(True),
+                      state["params"])
+    opt = optim.from_optax_state(state["opt_state"])
+    opt = optim.AdamState(opt.count, tree_map(on_card, opt.mu),
+                          tree_map(on_card, opt.nu))
+    return params, opt, int(state["step"])
+
+
+def trainer_train_fn(config):
+    """The trainer phase's train fn, run by the spawned worker (module
+    level: the worker imports it from this file)."""
+    import torch
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch import optim
+    from ray_tpu_torch.checkpoint.format import is_committed
+    from ray_tpu_torch.data import device_put_iterator
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.parallel import make_lm_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = train.get_context()
+    cfg = LlamaConfig(**CKPT_CFG, dtype=torch.bfloat16, remat=True,
+                      attention_impl="flash")
+    init_fn, step_fn, _place = make_lm_train_step(
+        cfg, train.get_mesh(), learning_rate=TRAIN_LR,
+        param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    state = train.load_checkpoint()
+    params, opt, start = _trainer_state(init_fn, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0 if state is not None else None
+    del state
+    batches = device_put_iterator(_trainer_batches(cfg.vocab_size, start))
+    for step in range(start, TRAINER_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        loss = m["loss"].item()
+        metrics = {"step": step, "loss": loss,
+                   "step_ms": (time.perf_counter() - t0) * 1e3,
+                   "wall": time.time(), "resumed_from": start,
+                   "restore_s": restore_s if step == start else None,
+                   "launches": _read_launches()}
+        if step in TRAINER_SAVE_AT:
+            t0 = time.perf_counter()
+            path = train.save_checkpoint(
+                {"params": params, "opt_state": optim.optax_state(opt),
+                 "step": step + 1})
+            metrics["ckpt_block_s"] = time.perf_counter() - t0
+        train.report(metrics)
+        if step == TRAINER_DIE_AT and not os.path.exists(config["marker"]):
+            # The planted failure, once the save before it is committed.
+            ctx.checkpoint_client().flush()
+            while not is_committed(path):
+                time.sleep(0.01)
+            open(config["marker"], "w").close()
+            train.report({"planted_death": time.time()})
+            os._exit(1)
+
+
+def phase_trainer(smi):
+    """TorchTrainer.fit (one worker on the card) through a planted failure
+    and its restart, held to the same steps run bare in this process:
+    bit-exact losses, or the differing steps named and held within 1e-6
+    relative.  The worker reports its flash launch counts (the counts of
+    this process see nothing of a spawned one)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.parallel import build_mesh, make_lm_train_step
+    from ray_tpu_torch.train import (FailureConfig, RunConfig,
+                                     ScalingConfig, TorchTrainer)
+    from ray_tpu_torch.util import telemetry
+    # The bare run: the same steps, init and batches in this process.
+    cfg = LlamaConfig(**CKPT_CFG, dtype=torch.bfloat16, remat=True,
+                      attention_impl="flash")
+    init_fn, step_fn, place = make_lm_train_step(
+        cfg, build_mesh(), learning_rate=TRAIN_LR,
+        param_dtype=torch.bfloat16)
+    params, opt, _ = _trainer_state(init_fn, None)
+    bare_loss, bare_ms = [], []
+    for b in _trainer_batches(cfg.vocab_size, 0):
+        b = place(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, b)
+        bare_loss.append(m["loss"].item())
+        bare_ms.append((time.perf_counter() - t0) * 1e3)
+    del params, opt, m, b
+    torch.cuda.empty_cache()
+    where = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_chip")
+    os.makedirs(where, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="trainer-", dir=where)
+    telemetry._reset_for_tests()
+    try:
+        t0 = time.perf_counter()
+        result = TorchTrainer(
+            trainer_train_fn,
+            train_loop_config={"marker": os.path.join(tmp, "died")},
+            scaling_config=ScalingConfig(num_workers=1),
+            run_config=RunConfig(name="trainer", storage_path=tmp,
+                                 failure_config=FailureConfig(
+                                     max_failures=1))).fit()
+        fit_s = time.perf_counter() - t0
+        problems = (result.checkpoint.validate(deep=True)
+                    if result.checkpoint is not None else ["no checkpoint"])
+        committed = (result.checkpoint is not None
+                     and result.checkpoint.manifest() is not None)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(result.error is None, f"trainer fit failed: {result.error}")
+    steps = [r["metrics"] for r in result.all_reports
+             if "step" in r["metrics"]]
+    death = [r["metrics"]["planted_death"] for r in result.all_reports
+             if "planted_death" in r["metrics"]]
+    resumed = [m for m in steps if m["resumed_from"] > 0]
+    first = [m for m in steps if m["resumed_from"] == 0]
+    differ = {m["step"]: abs(m["loss"] - bare_loss[m["step"]])
+              / abs(bare_loss[m["step"]]) for m in steps
+              if m["loss"] != bare_loss[m["step"]]}
+    # Launches: each incarnation's last report holds its process's counts.
+    launches = {}
+    for group in (first, resumed):
+        for k, n in (group[-1]["launches"] if group else {}).items():
+            launches[k] = launches.get(k, 0) + n
+    writes = telemetry.samples("ray_tpu_ckpt_write_seconds")
+    write = next(iter(writes.values()), None)
+    res = {"phase": "trainer", "card": smi,
+           "config": "bench.py:3384-3390 width, 4 layers",
+           "batch": [CKPT_BATCH, TRAIN_SEQ], "steps": TRAINER_STEPS,
+           "saves_after": TRAINER_SAVE_AT, "planted_death_after":
+           TRAINER_DIE_AT, "fit_s": fit_s,
+           "num_failures": result.num_failures,
+           "formation_s": result.formation_seconds,
+           "step_ms_fit": [m["step_ms"] for m in steps],
+           "step_ms_bare": bare_ms,
+           "ckpt_block_s": [m["ckpt_block_s"] for m in steps
+                            if "ckpt_block_s" in m],
+           "write_s_after_resume": (write[2] / write[1]) if write else None,
+           "restore_s": [m["restore_s"] for m in resumed[:1]],
+           "time_to_recover_s": (resumed[0]["wall"] - death[0])
+           if resumed and death else None,
+           "loss_fit": [[m["step"], m["loss"]] for m in steps],
+           "loss_bare": bare_loss, "steps_differing": differ,
+           "goodput": result.goodput, "step_phases": result.step_phases,
+           "checkpoint_problems": problems, "launches": launches}
+    emit(res)
+    check(result.num_failures == 1, f"trainer num_failures {res}")
+    check(bool(death) and [m["step"] for m in resumed]
+          == list(range(TRAINER_SAVE_AT[0] + 1, TRAINER_STEPS)),
+          f"trainer did not resume after the first save: {res}")
+    check(committed and not problems, f"trainer checkpoint {problems}")
+    check(all(v <= 1e-6 for v in differ.values()),
+          f"trainer losses differ from the bare run: {differ}")
+    return {k: launches.get(k, 0) for k in ("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv")}
+
+
 # ring_local: ring attention's per-step code over RING_BLOCKS blocks of one
 # sequence in one process, at the long-context shape below (bf16, causal).
 RING_SHAPE = dict(B=2, H=16, Hkv=16, S=8192, D=128)
@@ -2042,6 +2235,27 @@ def _plain_attention_grads(q, k, v, out, lse, dout, heads=4):
                                       True, scale, 0))
         torch.cuda.synchronize()
     return torch.cat(outs, 1), [torch.cat(g, 1) for g in zip(*grads)]
+
+
+SDPA_FLASH = "aten._scaled_dot_product_flash_attention"
+
+
+def _sdpa_flash_ms(q, k, v, dout, causal: bool, scale: float):
+    """Graph-replay ms of the library's flash attention at a ring step's
+    shape: the forward with its logsumexp (``return_debug_mask=False``),
+    and its backward given that out and logsumexp, as a ring step's
+    backward is given the merged ones."""
+    import torch
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention
+    bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    res = fwd(q, k, v, 0.0, causal, False, scale=scale)
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset = res[:8]
+    fwd_ms = graph_ms(lambda: fwd(q, k, v, 0.0, causal, False,
+                                  scale=scale), 10)
+    bwd_ms = graph_ms(lambda: bwd(dout, q, k, v, out, lse, cum_q, cum_k,
+                                  max_q, max_k, 0.0, causal, seed, offset,
+                                  scale=scale), 10)
+    return fwd_ms, bwd_ms
 
 
 def phase_ring_local(smi):
@@ -2110,19 +2324,22 @@ def phase_ring_local(smi):
                                             need_lse=True), 10)
         bwd_ms = graph_ms(lambda: flash_bwd(qb, kb, vb, ob, lb, db,
                                             causal=causal, scale=scale), 10)
+        lib_fwd_ms, lib_bwd_ms = _sdpa_flash_ms(qb, kb, vb, db, causal,
+                                                scale)
         steps[tag] = {
             "fwd": dict(_timing_row(
                 "flash_fwd", {"B": B, "H": H, "Hkv": Hkv, "S": Sl, "D": D,
-                              "causal": causal}, fwd_ms, None, None,
+                              "causal": causal}, fwd_ms, None, lib_fwd_ms,
                 4 * B * H * D * pairs, io + 4 * B * H * Sl, None),
-                timed_by="graph"),
+                timed_by="graph", library=SDPA_FLASH),
             "bwd": dict(_timing_row(
                 "flash_bwd (dq + dk/dv)", {"B": B, "H": H, "Hkv": Hkv,
                                            "S": Sl, "D": D,
                                            "causal": causal},
-                bwd_ms, None, None, 14 * B * H * D * pairs,
+                bwd_ms, None, lib_bwd_ms, 14 * B * H * D * pairs,
                 io + 2 * B * H * Sl * D + 4 * B * H * Sl
-                + 2 * 2 * B * Hkv * Sl * D, None), timed_by="graph")}
+                + 2 * 2 * B * Hkv * Sl * D, None), timed_by="graph",
+                library=SDPA_FLASH + "_backward, given its out and LSE")}
         del qb, kb, vb, ob, lb, db
     visible = n * (n + 1) // 2
     res = {"phase": "ring_local", "card": smi, "shape": RING_SHAPE,
@@ -2394,6 +2611,8 @@ def main() -> int:
     del params, opt
     torch.cuda.empty_cache()
     paths["checkpoint"] = phase_checkpoint(smi)
+    torch.cuda.empty_cache()
+    paths["trainer"] = phase_trainer(smi)
     torch.cuda.empty_cache()
     paths["ring_local"] = phase_ring_local(smi)
     torch.cuda.empty_cache()

@@ -17,5 +17,7 @@ training on one card (``parallel.spmd.make_lm_train_step`` over
 ``models.llama.loss_fn`` with remat, ``optim.adamw``, the flash backward),
 and sharded training (``parallel``: mesh, sharding rules, the sharded step
 over ``torch.distributed``; ``checkpoint``: the JAX package's wire format;
-``train.mesh``: placement helpers and the mesh-reshape restore).
+``train.mesh``: placement helpers and the mesh-reshape restore), and the
+trainer (``train.TorchTrainer``: spawned workers over the ``_control``
+plane, async sharded checkpoints with commit, failure restarts).
 """

@@ -30,6 +30,11 @@ and ``EmptyState``: the port writes those names without importing either
 package, and reads them with an unpickler that maps them to its own classes
 (``_LeafMarker``, ``optim.AdamState``, ``optim.EmptyState``) and refuses any
 other class that is not a plain builtin.
+
+The legacy single-file layout (``save_pytree``/``load_pytree``: one
+``pytree.pkl`` of numpy arrays, JAX's ``train.Checkpoint.from_pytree``) is
+written and read for the dtypes numpy has; bf16 (JAX pickles it through
+``ml_dtypes``) and orbax raise, naming ``save_checkpoint``.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import io
 import json
 import os
 import pickle
+import sys
 import tempfile
 import time
 import zlib
@@ -49,7 +55,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from .._tree import tree_flatten_with_keys, tree_map_with_keys
+from .._tree import tree_flatten_with_keys, tree_map, tree_map_with_keys
 from ..optim import AdamState, EmptyState
 from . import sharding
 
@@ -165,9 +171,8 @@ def snapshot_tree(tree: Any,
     from the replica at index 0 of every mesh dim it is replicated over, so
     each block is written once.  Plain tensors are written whole by every
     rank (restore keeps the lowest rank's copy)."""
-    from torch.distributed.tensor import DTensor
-
     from ..parallel.sharding import dtensor_index, is_primary
+    DTensor = _dtensor_class()
     skeleton = tree_map_with_keys(lambda _k, _x: _LeafMarker(), tree)
     leaves: Dict[str, LeafSnapshot] = {}
     nbytes = 0
@@ -203,8 +208,24 @@ def snapshot_tree(tree: Any,
                     nbytes=nbytes)
 
 
+def _dtensor_class():
+    """``DTensor``, or ``()`` (no instance of anything) where no module has
+    imported it yet: then no leaf can be one, and a save does not pay the
+    import (about a second)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod.DTensor if mod is not None else ()
+
+
 def _host(t: torch.Tensor) -> torch.Tensor:
-    return t.detach().to("cpu").contiguous()
+    """A CPU copy of ``t`` that owns its bytes.  A CPU tensor is cloned:
+    ``.to("cpu")`` would return the same storage, and the optimizer
+    updates params, mu and nu in place, so an asynchronous write of an
+    uncloned snapshot would write the next step's values.  A card tensor
+    is copied to the host synchronously."""
+    t = t.detach()
+    if t.device.type == "cpu":
+        return t.clone(memory_format=torch.contiguous_format)
+    return t.to("cpu").contiguous()
 
 
 def _raw(t: torch.Tensor) -> bytes:
@@ -533,3 +554,98 @@ def restore_tree(dirpath: str, placement: Optional[Callable] = None) -> Any:
         with open(os.path.join(dirpath, sh["index_file"]), "rb") as f:
             sources.append(_FileShardSource(dirpath, json.loads(f.read())))
     return _assemble(sources, placement, skeleton)
+
+
+# -- legacy single-file pickle layout ---------------------------------------
+
+PYTREE_PKL = "pytree.pkl"
+_NO_ORBAX = ("orbax checkpoints are not read or written by the port (orbax "
+             "imports JAX); save with train.save_checkpoint, the sharded "
+             "format both packages read")
+#: The numpy names a numpy pickle refers to (numpy 1 and 2 spellings).
+_NUMPY_GLOBALS = frozenset(
+    (mod, name)
+    for core in ("numpy.core", "numpy._core")
+    for mod, name in ((f"{core}.multiarray", "_reconstruct"),
+                      (f"{core}.multiarray", "scalar"),
+                      (f"{core}.numeric", "_frombuffer"))
+) | {("numpy", "ndarray"), ("numpy", "dtype")}
+
+
+class _NumpyUnpickler(pickle.Unpickler):
+    """Reads a ``pytree.pkl``: numpy arrays in builtin containers, nothing
+    else."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] == "ml_dtypes":
+            raise CheckpointError(
+                f"pytree.pkl holds an ml_dtypes array ({name}): JAX pickles "
+                "bfloat16 through ml_dtypes, which the port does not use; "
+                "save bf16 trees with train.save_checkpoint (the sharded "
+                "format keeps bf16 as raw bytes)")
+        if (module, name) in _NUMPY_GLOBALS:
+            import importlib
+            return getattr(importlib.import_module(module), name)
+        if module == "builtins" and name in _BUILTINS:
+            return getattr(builtins, name)
+        if (module, name) == ("collections", "OrderedDict"):
+            return collections.OrderedDict
+        raise CheckpointError(f"pytree.pkl names {module}.{name}, which the "
+                              "port does not read")
+
+
+def _numpy_leaf(x):
+    import numpy as np
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            raise CheckpointError(
+                "a bfloat16 leaf cannot go into pytree.pkl: numpy has no "
+                "bfloat16 (JAX pickles it through ml_dtypes); save it with "
+                "train.save_checkpoint")
+        return x.detach().to("cpu").numpy().copy()
+    return np.asarray(x)
+
+
+def _tensor_leaf(x):
+    import numpy as np
+    if isinstance(x, (np.ndarray, np.generic)):
+        return torch.from_numpy(np.array(x, copy=True))
+    return x
+
+
+def save_pytree(tree: Any, path: str, use_orbax: bool = False) -> None:
+    """Legacy synchronous save: every leaf to host numpy, one pickle at
+    ``path/pytree.pkl`` that the JAX package's ``load_pytree`` reads (numpy
+    arrays; bf16 and orbax raise ``CheckpointError``)."""
+    if use_orbax:
+        raise CheckpointError(_NO_ORBAX)
+    t0 = time.perf_counter()
+    host = tree_map(_numpy_leaf, tree)
+    write_bytes_atomic(os.path.join(path, PYTREE_PKL),
+                       pickle.dumps(host, protocol=5))
+    _note_legacy("save", time.perf_counter() - t0)
+
+
+def load_pytree(path: str, use_orbax: bool = False) -> Any:
+    """A committed sharded checkpoint through ``restore_tree``, else the
+    legacy ``pytree.pkl`` with its numpy arrays as CPU tensors."""
+    if use_orbax:
+        raise CheckpointError(_NO_ORBAX)
+    t0 = time.perf_counter()
+    if is_committed(path):
+        out = restore_tree(path)
+    else:
+        with open(os.path.join(path, PYTREE_PKL), "rb") as f:
+            out = tree_map(_tensor_leaf, _NumpyUnpickler(f).load())
+    _note_legacy("restore", time.perf_counter() - t0)
+    return out
+
+
+def _note_legacy(op: str, seconds: float) -> None:
+    from ..util import telemetry
+    telemetry.observe("ray_tpu_train_checkpoint_seconds", seconds,
+                      tags={"op": op})
+    telemetry.note_checkpoint_seconds(seconds)
+    if op == "restore":
+        telemetry.observe("ray_tpu_ckpt_restore_seconds", seconds,
+                          tags={"source": "disk"})

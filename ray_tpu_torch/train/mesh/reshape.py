@@ -1,6 +1,5 @@
 """Mesh-reshape checkpoint restore (counterpart of
-ray_tpu/train/mesh/reshape.py, without its reshape counter, which is
-telemetry).
+ray_tpu/train/mesh/reshape.py).
 
 A sharded save needs no special casing: ``checkpoint.format.snapshot_tree``
 writes every DTensor block with its GLOBAL index.  On restore, given the
@@ -22,6 +21,7 @@ from ...parallel.mesh import Mesh
 from ...parallel.sharding import (NamedSharding, ShardingRules,
                                   default_rules, map_logical,
                                   named_sharding)
+from ...util import telemetry
 
 #: Axis print order for descriptors ("dp2xfsdp4"), outer to inner.
 _DESC_ORDER = ("pp", "dp", "fsdp", "ep", "sp", "tp")
@@ -91,14 +91,17 @@ def save_metrics(mesh: Mesh, metrics: Optional[Dict[str, Any]] = None
 
 
 def restore_to_mesh(path: str, sharding_tree_, *,
-                    loader: Optional[Callable] = None):
+                    loader: Optional[Callable] = None,
+                    count_reshape: bool = True):
     """Restore a committed checkpoint onto a (possibly different) mesh.
 
     ``sharding_tree_``: tree of NamedShardings (None leaves restore as
     they were saved, on the CPU) matching the saved tree's structure.
-    ``loader(path, placement)`` overrides the raw restore.  Returns the
-    tree with every sharded leaf a DTensor on the target mesh (on the
-    one-device mesh, a tensor on its device)."""
+    ``loader(path, placement)`` overrides the raw restore.
+    ``count_reshape=False`` leaves ``ray_tpu_train_mesh_reshapes_total``
+    alone (the trainer counts once a group, on rank 0).  Returns the tree
+    with every sharded leaf a DTensor on the target mesh (on the one-device
+    mesh, a tensor on its device)."""
     from torch.distributed.tensor import DTensor
     manifest = ckpt_format.read_manifest(path)
     by_key = _key_shardings(sharding_tree_)
@@ -106,6 +109,12 @@ def restore_to_mesh(path: str, sharding_tree_, *,
     host = (loader or (lambda p, pl: ckpt_format.restore_tree(
         p, placement=pl)))(path, placement)
     shapes = manifest.get("leaves") or {}
+    saved_desc = (manifest.get("metrics") or {}).get("mesh")
+    target = next((sh.mesh for sh in by_key.values() if sh is not None),
+                  None)
+    if count_reshape and isinstance(saved_desc, str) and \
+            target is not None and saved_desc != mesh_descriptor(target):
+        telemetry.inc("ray_tpu_train_mesh_reshapes_total")
 
     def place(key, block):
         sh = by_key.get(key)
@@ -123,4 +132,7 @@ def restore_to_mesh(path: str, sharding_tree_, *,
                                   run_check=False, shape=gshape,
                                   stride=tuple(stride))
 
-    return tree_map_with_keys(place, host)
+    out = tree_map_with_keys(place, host)
+    from .runtime import note_param_shard_bytes
+    note_param_shard_bytes(out)
+    return out

@@ -1,15 +1,23 @@
-"""Worker mesh runtime: build the mesh and place trees onto it (counterpart
-of ray_tpu/train/mesh/runtime.py: its placement helpers; the mesh-status
-publishing and telemetry gauges come with the port of the core runtime and
-``util/telemetry``).
+"""Worker and controller mesh runtime (counterpart of
+ray_tpu/train/mesh/runtime.py).
 
-A rank of the port holds one device, so this process's bytes and its
-device's bytes are the same number.
+Worker side: ``build_worker_mesh`` builds the global mesh of the worker's
+``torch.distributed`` world and installs it as the ambient mesh;
+``shard_tree``/``shard_batch_tree`` place trees onto it.  Controller side:
+``publish_mesh_status`` records the live mesh shape on the control plane
+under ``MESH_KV_KEY`` (``read_mesh_status`` reads it back).
+
+Telemetry: ``ray_tpu_train_mesh_axis_size{axis}``,
+``ray_tpu_train_param_shard_bytes`` (and, in ``reshape``,
+``ray_tpu_train_mesh_reshapes_total``).  A rank of the port holds one
+device, so this process's bytes and its device's bytes are the same number.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import json
+import time
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -17,14 +25,26 @@ import torch
 from ..._tree import tree_leaves, tree_map
 from ...parallel.mesh import Mesh, MeshSpec, build_mesh, set_global_mesh
 from ...parallel.sharding import ShardingRules, shard_pytree
+from ...util import telemetry
+
+#: Control-plane key of the live mesh shape (JAX's: outside ``train/``,
+#: which a run consumes and deletes, so it outlives the run).
+MESH_KV_KEY = "diagnostics/mesh/last"
 
 
 def build_worker_mesh(spec: MeshSpec, device=None) -> Mesh:
     """The global mesh of this worker's world, installed as the ambient
-    mesh."""
+    mesh; refreshes the axis-size gauges."""
     mesh = build_mesh(spec, device)
     set_global_mesh(mesh)
+    note_mesh_axes(mesh.shape)
     return mesh
+
+
+def note_mesh_axes(axes: Dict[str, int]) -> None:
+    for axis, size in axes.items():
+        telemetry.set_gauge("ray_tpu_train_mesh_axis_size", float(size),
+                            tags={"axis": axis})
 
 
 def _local_bytes(leaf) -> int:
@@ -53,6 +73,42 @@ def per_device_param_bytes(tree) -> Dict[str, int]:
     return {f"rank{rank}:{leaves[0].device}": addressable_param_bytes(tree)}
 
 
+def note_param_shard_bytes(tree) -> int:
+    n = addressable_param_bytes(tree)
+    telemetry.set_gauge("ray_tpu_train_param_shard_bytes", float(n))
+    return n
+
+
+def publish_mesh_status(run_id: str, axes: Dict[str, int], world: int,
+                        devices_per_worker: int) -> None:
+    """Controller side: record the live mesh shape on the control plane
+    (best effort: status display never fails a run)."""
+    from .reshape import mesh_descriptor
+    try:
+        from ..._control import _control
+        _control("kv_put", MESH_KV_KEY, json.dumps({
+            "run_id": run_id,
+            "descriptor": mesh_descriptor(axes),
+            "axes": {a: int(s) for a, s in axes.items()},
+            "world": int(world),
+            "devices_per_worker": int(devices_per_worker),
+            "time": time.time(),
+        }).encode())
+    except Exception as e:  # noqa: BLE001 - observability is best-effort
+        telemetry.note_swallowed("train.mesh.publish_status", e)
+
+
+def read_mesh_status() -> Optional[Dict[str, Any]]:
+    """The last published mesh shape, or None."""
+    try:
+        from ..._control import _control
+        raw = _control("kv_get", MESH_KV_KEY)
+        return json.loads(raw) if raw else None
+    except Exception as e:  # noqa: BLE001
+        telemetry.note_swallowed("train.mesh.read_status", e)
+        return None
+
+
 def _as_tensor(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.as_tensor(
         np.array(x, copy=True))
@@ -63,9 +119,11 @@ def shard_tree(tree, logical_tree, mesh: Mesh,
     """Place a tree of full host arrays onto ``mesh`` by logical axes:
     every rank passes the same full values and keeps its own blocks (a
     copy, never a view of the caller's array).  A None logical entry
-    replicates its leaf."""
-    return shard_pytree(tree_map(lambda x: _as_tensor(x).clone(), tree),
-                        logical_tree, mesh, rules)
+    replicates its leaf.  Refreshes ``ray_tpu_train_param_shard_bytes``."""
+    out = shard_pytree(tree_map(lambda x: _as_tensor(x).clone(), tree),
+                       logical_tree, mesh, rules)
+    note_param_shard_bytes(out)
+    return out
 
 
 def shard_batch_tree(batch, mesh: Mesh,
@@ -87,5 +145,7 @@ def shard_batch_tree(batch, mesh: Mesh,
     return out
 
 
-__all__ = ["build_worker_mesh", "addressable_param_bytes",
-           "per_device_param_bytes", "shard_tree", "shard_batch_tree"]
+__all__ = ["MESH_KV_KEY", "build_worker_mesh", "note_mesh_axes",
+           "addressable_param_bytes", "per_device_param_bytes",
+           "note_param_shard_bytes", "publish_mesh_status",
+           "read_mesh_status", "shard_tree", "shard_batch_tree"]

@@ -3,6 +3,7 @@
 
     python3 sharded_smoke.py           # every visible card, 2 or more
     python3 sharded_smoke.py --cpu     # rehearsal: 4 gloo ranks on the CPU
+    python3 sharded_smoke.py --fit     # only the trainer run (4 cards)
 
 Run from the root of a checkout on a machine with two or more CUDA cards
 and nvcc.  It builds the kernels, then for each run of ``RUNS`` trains 4
@@ -24,11 +25,22 @@ Each run's losses and grad norms are held to its config's one-card run
 (``TOL_TRAIN_BF16``: bf16 sums in another order and another split).  It
 reports each run's step ms (the median of steps 2-4, host clock around a
 synchronize), tokens/s, every rank's param bytes and peak memory, and the
-flash kernels' launches on each rank.  One JSON line a run; the last line
-is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
-with fewer than two cards (two cards: the dense fsdp2 and tp2 runs only).
-``--cpu`` runs the same code on 4 CPU processes over gloo at llama_tiny's
-size, fp32, to rehearse it where there is no card; it measures nothing.
+flash kernels' launches on each rank.
+
+Then, on four cards, the trainer (``fit``): ``TorchTrainer`` with four
+workers on ``MeshConfig(fsdp=4)`` trains ``chip_smoke.py``'s
+``checkpoint`` config (the dense config's width at 4 layers, batch 4 x
+2048) with async sharded saves; rank 2 dies after a committed save, the
+group restarts and resumes from it; a second ``fit`` resumes the last save
+onto dp2 x fsdp2 (a mesh reshape, each rank reading only its blocks).
+Every step's loss is held to ``TOL`` of the same steps run on one card in
+this process.
+
+One JSON line a run; the last line is ``{"ok": true, "device": {...}}``.
+Exits non-zero, printing no result, with fewer than two cards (two cards:
+the dense fsdp2 and tp2 runs only).  ``--cpu`` runs the same code on 4 CPU
+processes over gloo at llama_tiny's size, fp32, to rehearse it where there
+is no card; it measures nothing.
 """
 
 from __future__ import annotations
@@ -59,6 +71,12 @@ STEPS, LR = 4, 1e-4
 # Relative, against the one-card run (chip_smoke.py's TOL_TRAIN_BF16).
 TOL = {"loss": 1e-3, "grad_norm": 5e-3}
 # (name, config kind, mesh, config changes) by card count.
+# The trainer run: steps, saves after these steps, rank 2's planted death
+# after FIT_DIE_AT (once that save is committed), and the steps the reshape
+# resume runs.
+FIT_CFG = dict(TRAIN_CFG, layers=4)
+FIT_BATCH, FIT_STEPS, FIT_SAVE_AT, FIT_DIE_AT = 4, 6, (1, 4), 3
+FIT_RESHAPE_STEPS = 8
 RUNS = {4: (("fsdp4", "dense", {"fsdp": 4}, {}),
             ("dp2xfsdp2", "dense", {"dp": 2, "fsdp": 2}, {}),
             ("dp2xtp2", "dense", {"dp": 2, "tp": 2}, {}),
@@ -191,13 +209,187 @@ def _row(name, kind, runs, ref, cfg, batch, seq, smi):
             "launches_by_rank": [r["launches"] for r in runs]}
 
 
+def _fit_cfg(cpu: bool):
+    import torch
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_tiny
+    if cpu:
+        return (llama_tiny().replace(dtype=torch.float32, remat=True),
+                torch.float32, 64)
+    return (LlamaConfig(**FIT_CFG, dtype=torch.bfloat16, remat=True,
+                        attention_impl="flash"), torch.bfloat16, 2048)
+
+
+def _fit_batch(cfg, step: int, seq: int):
+    rng = np.random.default_rng(100 + step)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (FIT_BATCH, seq),
+                                   dtype=np.int32)}
+
+
+def fit_train_fn(config):
+    """The trainer run's train fn (module level: each worker imports it
+    from this file)."""
+    import os
+
+    import torch
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch._tree import tree_map
+    from ray_tpu_torch.checkpoint.format import is_committed
+    from ray_tpu_torch.models.llama import param_logical_axes
+    from ray_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from ray_tpu_torch.optim import AdamState
+    from ray_tpu_torch.parallel import make_lm_train_step
+    cpu = config["cpu"]
+    if not cpu:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = train.get_context()
+    cfg, dtype, seq = _fit_cfg(cpu)
+    mesh = train.get_mesh()
+    init_fn, step_fn, place = make_lm_train_step(
+        cfg, mesh, learning_rate=LR, param_dtype=dtype)
+    axes = param_logical_axes(cfg)
+    t0 = time.perf_counter()
+    state = train.load_sharded({"params": axes, "mu": axes, "nu": axes,
+                                "count": None, "step": None})
+    if state is None:
+        params, opt = init_fn(torch.Generator(
+            device="cpu" if cpu else "cuda").manual_seed(0))
+        start, restore_s = 0, None
+    else:
+        params = tree_map(lambda p: p.requires_grad_(True),
+                          state["params"])
+        opt = AdamState(state["count"], state["mu"], state["nu"])
+        start, restore_s = int(state["step"]), time.perf_counter() - t0
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    for step in range(start, config["last_step"]):
+        sync()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, place(_fit_batch(cfg, step,
+                                                               seq)))
+        loss = float(m["loss"])
+        metrics = {"step": step, "loss": loss,
+                   "step_ms": (time.perf_counter() - t0) * 1e3,
+                   "wall": time.time(), "resumed_from": start,
+                   "mesh": mesh.shape, "restore_s": restore_s,
+                   "launches": {fn.__name__: fn.launches for fn in
+                                (flash_fwd, flash_bwd_dq, flash_bwd_dkv)}}
+        if step in FIT_SAVE_AT:
+            t0 = time.perf_counter()
+            path = train.save_checkpoint({
+                "params": params, "mu": opt.mu, "nu": opt.nu,
+                "count": opt.count, "step": step + 1})
+            metrics["ckpt_block_s"] = time.perf_counter() - t0
+        train.report(metrics)
+        if step == FIT_DIE_AT and ctx.get_world_rank() == 2 and \
+                not os.path.exists(config["marker"]):
+            ctx.checkpoint_client().flush()
+            while not is_committed(path):
+                time.sleep(0.01)
+            open(config["marker"], "w").close()
+            train.report({"planted_death": time.time()})
+            os._exit(1)
+
+
+def _fit_runs(cpu: bool, smi):
+    """The trainer run and its reshape resume, held to one card: the
+    JSON line, and whether it held."""
+    import torch
+    from ray_tpu_torch.parallel import build_mesh, make_lm_train_step
+    from ray_tpu_torch.train import (FailureConfig, MeshConfig, RunConfig,
+                                     ScalingConfig, TorchTrainer)
+    cfg, dtype, seq = _fit_cfg(cpu)
+    init_fn, step_fn, place = make_lm_train_step(
+        cfg, build_mesh(device="cpu" if cpu else "cuda"), learning_rate=LR,
+        param_dtype=dtype)
+    params, opt = init_fn(torch.Generator(
+        device="cpu" if cpu else "cuda").manual_seed(0))
+    bare = []
+    for step in range(FIT_RESHAPE_STEPS):
+        params, opt, m = step_fn(params, opt, place(_fit_batch(cfg, step,
+                                                               seq)))
+        bare.append(float(m["loss"]))
+    del params, opt, m
+    if not cpu:
+        torch.cuda.empty_cache()
+    out = {"run": "fit", "card": smi, "config": "bench.py:3384-3390 "
+           "width, 4 layers" if not cpu else "llama_tiny",
+           "batch": [FIT_BATCH, seq], "loss_one_card": bare, "tol": TOL}
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, mesh, last in (("fsdp4", MeshConfig(fsdp=4), FIT_STEPS),
+                                 ("dp2xfsdp2", MeshConfig(dp=2, fsdp=2),
+                                  FIT_RESHAPE_STEPS)):
+            t0 = time.perf_counter()
+            result = TorchTrainer(
+                fit_train_fn, train_loop_config={
+                    "cpu": cpu, "last_step": last,
+                    "marker": f"{tmp}/died"},
+                scaling_config=ScalingConfig(
+                    num_workers=4, mesh_config=mesh,
+                    device="cpu" if cpu else None),
+                run_config=RunConfig(name="fit", storage_path=tmp,
+                                     failure_config=FailureConfig(
+                                         max_failures=1))).fit()
+            reps = [r for r in result.all_reports
+                    if "step" in r["metrics"]]
+            errs = [abs(r["metrics"]["loss"] - bare[r["metrics"]["step"]])
+                    / abs(bare[r["metrics"]["step"]]) for r in reps]
+            rank0 = [r["metrics"] for r in reps if r["rank"] == 0]
+            death = [r["metrics"]["planted_death"]
+                     for r in result.all_reports
+                     if "planted_death" in r["metrics"]]
+            resumed = [m for m in rank0 if m["resumed_from"] > 0]
+            launches = {}
+            for r in reps:
+                launches.setdefault(r["rank"], {}).update(
+                    r["metrics"]["launches"])
+            problems = (result.checkpoint.validate(deep=True)
+                        if result.checkpoint else ["no checkpoint"])
+            out[name] = {
+                "fit_s": time.perf_counter() - t0,
+                "error": repr(result.error) if result.error else None,
+                "num_failures": result.num_failures,
+                "mesh": result.mesh,
+                "formation_s": result.formation_seconds,
+                "loss": [[m["step"], m["loss"]] for m in rank0],
+                "max_rel_err_vs_one_card": max(errs) if errs else None,
+                "step_ms": [m["step_ms"] for m in rank0],
+                "ckpt_block_s": [m["ckpt_block_s"] for m in rank0
+                                 if "ckpt_block_s" in m],
+                "restore_s": [m["restore_s"] for m in resumed[:1]],
+                "time_to_recover_s": resumed[0]["wall"] - death[0]
+                if death and resumed else None,
+                "goodput": result.goodput,
+                "step_phases": result.step_phases,
+                "checkpoint_problems": problems,
+                "launches_by_rank": [launches.get(r, {})
+                                     for r in range(4)]}
+            launched = cpu or all(v > 0 for r in range(4)
+                                  for v in launches.get(r, {}).values())
+            want = ({"failures": 1, "resumed": FIT_SAVE_AT[0] + 1}
+                    if name == "fsdp4" else
+                    {"failures": 0, "resumed": FIT_SAVE_AT[-1] + 1})
+            ok = ok and result.error is None and not problems and \
+                launched and result.num_failures == want["failures"] and \
+                bool(errs) and max(errs) <= TOL["loss"] and \
+                bool(resumed) and \
+                resumed[0]["step"] == want["resumed"]
+    out["held"] = ok
+    return out, ok
+
+
 def main(argv) -> int:
     cpu = "--cpu" in argv
+    fit_only = "--fit" in argv
     import torch
     from ray_tpu_torch._device import card_power_line
     from ray_tpu_torch.parallel import build_mesh
     from ray_tpu_torch.parallel.launch import run_local
     world = 4 if cpu else torch.cuda.device_count()
+    if fit_only and world < 4:
+        print("sharded_smoke: the trainer run needs four cards",
+              file=sys.stderr)
+        return 1
     if not cpu and world < 2:
         print("sharded_smoke: needs two or more CUDA cards", file=sys.stderr)
         return 1
@@ -212,7 +404,8 @@ def main(argv) -> int:
         emit({"phase": "build", "seconds": time.perf_counter() - t0})
     refs = {}
     failed = []
-    for name, kind, spec_kw, changes in RUNS[4 if world >= 4 else 2]:
+    runs = () if fit_only else RUNS[4 if world >= 4 else 2]
+    for name, kind, spec_kw, changes in runs:
         if kind not in refs:
             if not cpu:
                 refs.clear()
@@ -248,6 +441,14 @@ def main(argv) -> int:
         if not (row["same_on_every_rank"] and launched
                 and all(errs[k] <= TOL[k] for k in held)):
             failed.append(name)
+    if world >= 4:
+        if not cpu:
+            refs.clear()
+            torch.cuda.empty_cache()
+        row, ok = _fit_runs(cpu, smi)
+        emit(row)
+        if not ok:
+            failed.append("fit")
     if failed:
         print(f"sharded_smoke: meshes disagree with one card: {failed}",
               file=sys.stderr)
