@@ -10,7 +10,12 @@ checks exact greedy serving on a narrow fp32 model, then serves
 ``llama_1b`` at full width and depth (random weights from a seeded
 generator) through the port's entry points, greedy and sampled; serves the
 JAX preset ``llama_tiny`` (head_dim 32); decodes on two streams and beside a
-replayed CUDA graph.  It then checks exact fp32 training on a narrow model
+replayed CUDA graph.  It holds ``DisaggServer`` (each mode) and
+``FleetServer`` to the per-token gold on a narrow fp32 model, then serves
+``llama_1b`` behind each under open-loop Poisson traffic, at saturation,
+through a replica killed in flight and an autoscale up and down
+(``disagg_exact``, ``disagg_load``, ``fleet``).  It then checks exact fp32
+training on a narrow model
 and one step of ``llama_tiny``, trains the JAX bench's 1.36B-parameter
 config (``bench.py:3384-3390``) at full width and depth through
 ``make_lm_train_step`` under full remat and under ``"dots"`` and
@@ -28,6 +33,7 @@ result.  It imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -1585,10 +1591,18 @@ def _launch_counts():
 def _reset_launches():
     for fn in _launch_counts().values():
         fn.launches = 0
+        fn.launches_by_thread.clear()
 
 
 def _read_launches():
     return {k: fn.launches for k, fn in _launch_counts().items()}
+
+
+def _launches_by_thread():
+    """{kernel: {thread name: launches}} since the last reset, for the
+    kernels that launched."""
+    return {k: dict(fn.launches_by_thread)
+            for k, fn in _launch_counts().items() if fn.launches_by_thread}
 
 
 def phase_serve_tiny():
@@ -1852,6 +1866,553 @@ def phase_paged_streams():
           f"paged_streams {worst}")
     check(eager_launches == 100, f"paged_streams launches {launches}")
     return {"paged_decode": launches["paged_decode"]}
+
+
+# ---------------------------------------------------- disaggregated serving
+
+#: llama_1b's serving engine in the disagg and fleet phases: 32 slots, 16-
+#: token pages, the JAX engine's buckets, 2,048 pages (1 MiB a page at
+#: llama_1b's width: 16 layers x 16 tokens x 16 combined heads x 128 x 2 B).
+SERVE_OPTS = dict(device="cuda", max_slots=32, page_size=16,
+                  prefill_buckets=(64, 256, 1024), num_pages=2048)
+#: Poisson arrivals at 8 req/s for 8 s, a quarter long: about 40% of what a
+#: 32-slot batch finishes at PERF.md's 23.4 ms a step (NVIDIA H100 80GB
+#: HBM3, 700.00 W).
+LOAD_SPEC = dict(rps=8.0, duration_s=8.0, long_fraction=0.25,
+                 short_prompt=32, short_max_tokens=64, long_prompt=960,
+                 long_max_tokens=16, drain_timeout_s=120.0)
+#: The saturation run: chunked at 4x the offered rate for 3 s under tight
+#: class bounds (bench.py:2217-2226).
+SAT_RPS, SAT_DURATION_S, SAT_DEADLINE_S = 32.0, 3.0, 2.0
+#: Admitted TTFT p99 must stay under this at saturation (the JAX tier-1
+#: smoke's bound, tests/test_llm_disagg.py).
+SAT_TTFT_P99_MS = 5000.0
+#: The fleet's prefix-heavy traffic (bench.py:2253-2264): 8 prompts of 960
+#: tokens, 4 new tokens each, at 40 req/s for 5 s; each replica's cache
+#: holds half the pool in real handoff bytes.
+FLEET_POOL, FLEET_RPS, FLEET_DURATION_S = 8, 40.0, 5.0
+#: The unsaturated hit-vs-cold TTFT split: 6 req/s for 3 s on one replica.
+FLEET_LIGHT_RPS, FLEET_LIGHT_S = 6.0, 3.0
+FLEET_PROMPT, FLEET_MAX_TOKENS = 960, 4
+
+
+def _open_admission():
+    """Admit everything: the equal-load runs compare latency at the same
+    admitted load, not shedding (bench.py's ``open_adm``)."""
+    from ray_tpu_torch.llm.disagg import AdmissionConfig, RequestClass
+    return AdmissionConfig(classes={"default": RequestClass(
+        max_queue_depth=100000, queue_deadline_s=600.0)})
+
+
+def _load_row(r):
+    """The numbers a run of ``run_open_loop`` reports, as recorded."""
+    keys = ("offered", "offered_rps", "completed", "sustained_rps",
+            "shed_submit", "shed_deadline", "shed_rate", "errors",
+            "rejected", "unfinished", "ttft_p50_ms", "ttft_p99_ms",
+            "itl_p50_ms", "itl_p99_ms", "itl_samples", "prefix_hits",
+            "prefix_hit_rate", "ttft_hit_p50_ms", "ttft_cold_p50_ms")
+    return {k: r[k] for k in keys}
+
+
+def phase_disagg_exact():
+    """The narrow fp32 model of serve_exact on the card: greedy streams
+    equal a per-token full forward with the plain attention through
+    DisaggServer in each mode, FleetServer with 1 and 2 replicas, a full
+    prefix hit replayed from a replica's cache, and a handoff made by the
+    PrefillWorker imported into a fresh engine.  A sampled request of a
+    cached prompt is never replayed."""
+    import torch
+    from ray_tpu_torch.llm import InferenceEngine, SamplingParams
+    from ray_tpu_torch.llm.disagg import DisaggServer, PrefillWorker
+    from ray_tpu_torch.llm.fleet import FleetConfig, FleetServer
+    from ray_tpu_torch.models.llama import LlamaConfig, forward, init_params
+    cfg = LlamaConfig(vocab_size=512, hidden=256, layers=2, heads=4,
+                      kv_heads=2, head_dim=64, mlp_dim=512, max_seq_len=256,
+                      dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    ref_cfg = cfg.replace(attention_impl="reference")
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 512, size=n).tolist() for n in (5, 17, 40, 64)]
+    max_new = 12
+
+    def gold(prompt):
+        toks, out = list(prompt), []
+        for _ in range(max_new):
+            logits = forward(params, torch.tensor([toks], device="cuda"),
+                             ref_cfg)
+            out.append(int(logits[0, len(toks) - 1].argmax()))
+            toks.append(out[-1])
+        return out
+
+    t0 = time.perf_counter()
+    want = [gold(p) for p in prompts]
+    opts = dict(device="cuda", max_slots=2, page_size=16, num_pages=64,
+                prefill_buckets=(64,))
+
+    def body(prompt):
+        return {"prompt_tokens": prompt, "max_tokens": max_new,
+                "timeout_s": 120}
+
+    res = {"phase": "disagg_exact", "requests_each": len(prompts),
+           "tokens_each": max_new,
+           "seconds": {"gold": time.perf_counter() - t0}}
+
+    def lap(name):
+        res["seconds"][name] = time.perf_counter() - t0 - sum(
+            res["seconds"].values())
+
+    _reset_launches()
+    for mode in ("inline", "chunked", "disagg"):
+        eo = dict(opts, prefill_chunk=16) if mode == "chunked" else opts
+        srv = DisaggServer(lambda: (params, cfg), mode=mode,
+                           engine_options=eo)
+        try:
+            pubs = [srv.submit(body(p)) for p in prompts]
+            got = [srv.result(x, timeout_s=120) for x in pubs]
+        finally:
+            srv.close()
+        res[mode] = [g.get("output_tokens") for g in got] == want
+        lap(mode)
+        check(res[mode], f"disagg_exact {mode}: {got} != gold {want}")
+    for n in (1, 2):
+        srv = FleetServer(lambda: (params, cfg), name=f"exact{n}",
+                          config=FleetConfig(num_replicas=n,
+                                             engine_options=opts,
+                                             cache_capacity_bytes=1 << 26))
+        try:
+            pubs = [srv.submit(body(p)) for p in prompts]
+            got = [srv.result(x, timeout_s=120) for x in pubs]
+            res[f"fleet_{n}"] = [g.get("output_tokens") for g in got] == want
+            check(res[f"fleet_{n}"],
+                  f"disagg_exact fleet x{n}: {got} != gold {want}")
+            if n == 1:
+                hit = srv(body(prompts[2]))
+                sampled = srv(dict(body(prompts[2]), temperature=0.8,
+                                   top_k=40))
+                res["full_hit_replayed"] = (
+                    hit.get("prefix_outcome") == "full"
+                    and hit.get("output_tokens") == want[2])
+                res["sampled_outcome"] = sampled.get("prefix_outcome")
+                check(res["full_hit_replayed"], f"disagg_exact hit {hit}")
+                check(sampled.get("prefix_outcome") != "full"
+                      and len(sampled.get("output_tokens", ())) == max_new,
+                      f"disagg_exact: a sampled request replayed {sampled}")
+        finally:
+            srv.close()
+        lap(f"fleet_{n}")
+    pw = PrefillWorker(params, cfg, device="cuda", prefill_buckets=(64,),
+                       page_size=16)
+    eng = InferenceEngine(params, cfg, **opts)
+    rid = eng.import_prefill(pw.prefill(prompts[3],
+                                        SamplingParams(max_tokens=max_new)))
+    done = {}
+    while eng.has_work():
+        for r in eng.step():
+            done[r.request_id] = r.output_tokens
+    res["handoff_round_trip"] = done.get(rid) == want[3]
+    check(res["handoff_round_trip"],
+          f"disagg_exact round trip {done.get(rid)} != {want[3]}")
+    torch.cuda.synchronize()
+    res["launches"] = _read_launches()
+    res["launches_by_thread"] = _launches_by_thread()
+    emit(res)
+    check(res["launches"]["flash_fwd"] > 0
+          and res["launches"]["paged_decode"] > 0,
+          f"disagg_exact launches {res['launches']}")
+
+
+def _import_device_ms(eng, handoff, reps: int = 5) -> float:
+    """Least device time of one ``import_prefill`` scatter of ``handoff``
+    on the engine's stream (CUDA events around it; the request is
+    cancelled after each so its pages come back)."""
+    import torch
+    best = None
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(eng.stream)
+        rid = eng.import_prefill(handoff)
+        end.record(eng.stream)
+        end.synchronize()
+        check(rid is not None, "import_prefill found no room")
+        eng.cancel(rid)
+        ms = start.elapsed_time(end)
+        best = ms if best is None else min(best, ms)
+    return best
+
+
+def phase_serving_tiers(smi):
+    """disagg_load, then fleet, on one set of llama_1b weights (bf16, from
+    a seeded generator, as the serve phase's)."""
+    import torch
+    from ray_tpu_torch.models.llama import init_params, llama_1b
+    cfg = llama_1b()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         param_dtype=torch.bfloat16, device="cuda")
+    disagg = phase_disagg_load(smi, params, cfg)
+    torch.cuda.empty_cache()
+    fleet = phase_fleet(smi, params, cfg)
+    # Servers, replicas and their threads refer to each other: collect
+    # them now, so their pages are free for the phases after.
+    gc.collect()
+    return disagg, fleet
+
+
+def phase_disagg_load(smi, params, cfg):
+    """llama_1b at full width (bf16, seeded weights) behind DisaggServer
+    under open-loop Poisson traffic (LOAD_SPEC) in each mode, then chunked
+    at saturation under tight class bounds.  Each run's launch counts are
+    zeroed just before it and read just after, by thread: in disagg mode
+    the flash forward runs in the dispatcher's thread (the prefill
+    worker's, on its own stream) and the paged decode in the engine's."""
+    import torch
+    from ray_tpu_torch.llm.disagg import (AdmissionConfig, DisaggServer,
+                                          RequestClass, ServeLoadSpec,
+                                          run_open_loop)
+    out = {"phase": "disagg_load", "model": "llama_1b", "card": smi,
+           "engine": {k: v for k, v in SERVE_OPTS.items() if k != "device"},
+           "traffic": LOAD_SPEC}
+    totals = {"flash_fwd": 0, "paged_decode": 0}
+
+    def run(mode, admission, spec, chunk=None):
+        eo = dict(SERVE_OPTS)
+        if chunk is not None:
+            eo["prefill_chunk"] = chunk
+        srv = DisaggServer(lambda: (params, cfg), mode=mode,
+                           admission=admission, engine_options=eo,
+                           record_token_times=True)
+        imports = []
+        try:
+            for n in (LOAD_SPEC["short_prompt"], LOAD_SPEC["long_prompt"]):
+                srv({"prompt_tokens": list(range(1, n + 1)),
+                     "max_tokens": 2, "timeout_s": 300})
+            if mode == "disagg":
+                inner = srv.engine.import_prefill
+
+                def timed(handoff):
+                    t0 = time.perf_counter()
+                    rid = inner(handoff)
+                    if rid is not None:
+                        imports.append(((time.perf_counter() - t0) * 1e3,
+                                        handoff.nbytes))
+                    return rid
+                srv.engine.import_prefill = timed
+            torch.cuda.synchronize()
+            # -- the main path: launch counts read from this window only.
+            _reset_launches()
+            r = run_open_loop(srv, spec, vocab_size=cfg.vocab_size)
+            torch.cuda.synchronize()
+            launches = _read_launches()
+            by_thread = _launches_by_thread()
+            # -- end of the main path.
+            row = _load_row(r)
+            if mode == "disagg":
+                # The class's method again (the wrapper held the engine in
+                # a reference cycle, kept alive until a garbage collection).
+                del srv.engine.import_prefill
+                probe = srv.prefill_worker.prefill(
+                    list(range(1, LOAD_SPEC["long_prompt"] + 1)))
+                row["import_device_ms_960"] = _import_device_ms(srv.engine,
+                                                                probe)
+                row["handoff_bytes_960"] = probe.nbytes
+        finally:
+            srv.close()
+        for k in totals:
+            totals[k] += launches[k]
+        row["launches"] = {k: launches[k] for k in totals}
+        row["launches_by_thread"] = by_thread
+        if imports:
+            ms = [m for m, _b in imports]
+            row["imports"] = len(imports)
+            row["handoff_bytes_mean"] = float(np.mean([b for _m, b in
+                                                       imports]))
+            row["import_host_ms_p50"] = pct(ms, 50)
+            row["import_host_ms_max"] = max(ms)
+        check(r["unfinished"] == 0 and r["errors"] == 0 and r["completed"],
+              f"disagg_load {mode}: {row}")
+        drive = "disagg-drive"
+        prefill_thread = "disagg-dispatch" if mode == "disagg" else drive
+        check(by_thread.get("flash_fwd", {}).get(prefill_thread, 0) > 0
+              and by_thread.get("paged_decode", {}).get(drive, 0) > 0,
+              f"disagg_load {mode}: launches by thread {by_thread}")
+        return row
+
+    t0 = time.perf_counter()
+    for mode in ("inline", "chunked", "disagg"):
+        out[mode] = run(mode, _open_admission(), ServeLoadSpec(**LOAD_SPEC),
+                        chunk=256 if mode == "chunked" else None)
+        emit({"phase": "disagg_load", "mode": mode, **out[mode]})
+    slots = SERVE_OPTS["max_slots"]
+    tight = AdmissionConfig(classes={
+        "interactive": RequestClass("interactive", token_budget=4096,
+                                    max_queue_depth=2 * slots,
+                                    queue_deadline_s=SAT_DEADLINE_S),
+        "batch": RequestClass("batch", token_budget=4096,
+                              max_queue_depth=slots,
+                              queue_deadline_s=SAT_DEADLINE_S),
+        "default": RequestClass()})
+    sat = run("chunked", tight, ServeLoadSpec(
+        **dict(LOAD_SPEC, rps=SAT_RPS, duration_s=SAT_DURATION_S)),
+        chunk=256)
+    out["saturation"] = dict(sat, rps=SAT_RPS, duration_s=SAT_DURATION_S)
+    inline_itl = out["inline"]["itl_p99_ms"]
+    best = min(x for x in (out["chunked"]["itl_p99_ms"],
+                           out["disagg"]["itl_p99_ms"]) if x is not None)
+    # JAX's bench contract (chunked or disagg ITL p99 at least 2x better
+    # than inline) is reported, not enforced.
+    out["itl_p99_improvement_x"] = inline_itl / best if best else None
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = totals
+    emit({k: v for k, v in out.items()
+          if k not in ("inline", "chunked", "disagg")})
+    check(sat["shed_submit"] + sat["shed_deadline"] > 0,
+          f"disagg_load saturation shed nothing: {sat}")
+    check(sat["ttft_p99_ms"] is not None
+          and sat["ttft_p99_ms"] < SAT_TTFT_P99_MS,
+          f"disagg_load saturation TTFT p99 {sat['ttft_p99_ms']}")
+    return totals
+
+
+def phase_fleet(smi, params, cfg):
+    """llama_1b (bf16) behind FleetServer on one card: prefix-heavy traffic
+    on 1 and on 2 replicas (each replica's cache holds half the pool), an
+    unsaturated hit-vs-cold TTFT split, a replica killed in flight (its
+    requests shed retriably as replica_lost while the fleet backfills),
+    and an autoscale up and back down.  Launch counts by thread: the
+    flash forward in the dispatcher's (the prefill tier's) thread, the
+    paged decode in every replica's drive thread."""
+    import torch
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.llm.disagg import (PrefillWorker, ServeLoadSpec,
+                                          run_open_loop)
+    from ray_tpu_torch.llm.fleet import FleetConfig, FleetServer
+    eo = dict(SERVE_OPTS)
+    out = {"phase": "fleet", "model": "llama_1b", "card": smi,
+           "pool": FLEET_POOL, "rps": FLEET_RPS,
+           "duration_s": FLEET_DURATION_S}
+    t0 = time.perf_counter()
+    entry = PrefillWorker(params, cfg, device="cuda",
+                          prefill_buckets=eo["prefill_buckets"],
+                          page_size=eo["page_size"]).prefill(
+        list(range(1, FLEET_PROMPT + 1)),
+        SamplingParams(max_tokens=FLEET_MAX_TOKENS)).nbytes
+    cache_bytes = int(entry * (FLEET_POOL // 2) + entry // 2)
+    out.update(entry_bytes=entry, cache_capacity_bytes=cache_bytes)
+    spec = dict(rps=FLEET_RPS, duration_s=FLEET_DURATION_S,
+                long_fraction=1.0, long_prompt=FLEET_PROMPT,
+                long_max_tokens=FLEET_MAX_TOKENS, short_prompt=32,
+                short_max_tokens=FLEET_MAX_TOKENS, prompt_pool=FLEET_POOL,
+                drain_timeout_s=120.0)
+    totals = {"flash_fwd": 0, "paged_decode": 0}
+    adm = _open_admission()
+    for n in (1, 2):
+        name = f"fleet{n}"
+        srv = FleetServer(lambda: (params, cfg), name=name, admission=adm,
+                          config=FleetConfig(num_replicas=n,
+                                             engine_options=eo,
+                                             cache_capacity_bytes=cache_bytes),
+                          record_token_times=True)
+        try:
+            # Every replica takes a request off the clock (constant
+            # prompts: no prefix hits against the measured pool).
+            pubs = [srv.submit({"prompt_tokens": [1] * (FLEET_PROMPT - i),
+                                "max_tokens": 2, "timeout_s": 300})
+                    for i in range(2 * n)]
+            for x in pubs:
+                srv.result(x, timeout_s=300)
+            if n == 1:
+                split = run_open_loop(srv, ServeLoadSpec(**dict(
+                    spec, rps=FLEET_LIGHT_RPS, duration_s=FLEET_LIGHT_S,
+                    seed=7)), cfg.vocab_size)
+                out["ttft_split"] = _load_row(split)
+            waits = _time_router_calls(srv)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # -- the main path: launch counts read from this window only.
+            _reset_launches()
+            r = run_open_loop(srv, ServeLoadSpec(**spec), cfg.vocab_size)
+            torch.cuda.synchronize()
+            launches = _read_launches()
+            by_thread = _launches_by_thread()
+            # -- end of the main path.
+            _untime_router_calls(srv, waits)
+            replicas = [rep.name for rep in srv._replicas.values()]
+            st = srv.status()
+        finally:
+            srv.close()
+        row = _load_row(r)
+        row.update(launches=launches, launches_by_thread=by_thread,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                   prefix=st["prefix"], rebalances=st["rebalances"],
+                   router_calls=_summarize_waits(waits))
+        for k in totals:
+            totals[k] += launches[k]
+        out[f"replicas_{n}"] = row
+        emit({"phase": "fleet", "replicas": n, **row})
+        check(r["unfinished"] == 0 and r["errors"] == 0,
+              f"fleet x{n}: {row}")
+        check(by_thread.get("flash_fwd", {}).get(f"fleet-dispatch-{name}",
+                                                 0) > 0
+              and all(by_thread.get("paged_decode", {}).get(
+                  f"fleet-decode-{rep}", 0) > 0 for rep in replicas),
+              f"fleet x{n}: launches by thread {by_thread} (replicas "
+              f"{replicas})")
+    f1, f2 = out["replicas_1"], out["replicas_2"]
+    out["scaling_2x"] = f2["sustained_rps"] / f1["sustained_rps"]
+    split = out["ttft_split"]
+    out["hit_ttft_ratio"] = (split["ttft_hit_p50_ms"]
+                             / split["ttft_cold_p50_ms"]) \
+        if split["ttft_hit_p50_ms"] and split["ttft_cold_p50_ms"] else None
+    check(f2["prefix_hits"] > 0, f"fleet x2: no prefix hit {f2}")
+    out["kill"] = _fleet_kill(params, cfg, eo)
+    out["autoscale"] = _fleet_autoscale(params, cfg, eo)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = totals
+    emit({k: v for k, v in out.items()
+          if k not in ("replicas_1", "replicas_2")})
+    return totals
+
+
+def _time_router_calls(srv):
+    """Time, on the host clock, every call the router and the load
+    generator make into a replica's engine (``load_stats`` for routing and
+    admission, ``import_prefill`` for a handoff or a replay): each takes
+    the engine's lock, which the drive thread holds through a whole decode
+    step.  Returns {call: [ms, ...]}, filled as the run goes."""
+    waits = {"load_stats": [], "import_prefill": []}
+    for rep in srv._replicas.values():
+        for name, ms in waits.items():
+            inner = getattr(rep.engine, name)
+
+            def timed(*a, _inner=inner, _ms=ms, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _inner(*a, **k)
+                finally:
+                    _ms.append((time.perf_counter() - t0) * 1e3)
+            setattr(rep.engine, name, timed)
+    return waits
+
+
+def _untime_router_calls(srv, waits):
+    """Undo ``_time_router_calls``: each engine's own methods again (a
+    wrapper holds its engine in a reference cycle, which would keep the
+    engine's pages allocated until a garbage collection)."""
+    for rep in srv._replicas.values():
+        for name in waits:
+            rep.engine.__dict__.pop(name, None)
+
+
+def _summarize_waits(waits):
+    return {name: {"calls": len(ms), "ms_p50": pct(ms, 50) if ms else None,
+                   "ms_p99": pct(ms, 99) if ms else None,
+                   "ms_total": float(sum(ms))}
+            for name, ms in waits.items()}
+
+
+def _fleet_kill(params, cfg, eo):
+    """Two replicas; one killed while it holds mapped requests: those shed
+    retriably as replica_lost, the rest finish, and the manager backfills
+    to two replicas, which serve again."""
+    from ray_tpu_torch.llm.fleet import FleetConfig, FleetServer
+    srv = FleetServer(lambda: (params, cfg), name="chaos",
+                      admission=_open_admission(),
+                      config=FleetConfig(num_replicas=2, engine_options=eo,
+                                         manager_interval_s=0.1))
+    rng = np.random.default_rng(21)
+    try:
+        pubs = [srv.submit({"prompt_tokens": rng.integers(
+            0, cfg.vocab_size, 32).tolist(), "max_tokens": 50,
+            "timeout_s": 300}) for _ in range(16)]
+        deadline = time.perf_counter() + 60
+        victim = None
+        while victim is None and time.perf_counter() < deadline:
+            with srv._lock:
+                victim = next((name for name, _rid in srv._rid_map
+                               if name in srv._replicas), None)
+            time.sleep(0.01)
+        check(victim is not None, "fleet kill: no mapped request")
+        t_kill = time.perf_counter()
+        check(srv.kill_replica(victim), f"fleet kill: {victim} not killed")
+        while time.perf_counter() < deadline:
+            st = srv.status()
+            if len(st["replicas"]) == 2 and not st["draining"]:
+                break
+            time.sleep(0.01)
+        backfill_s = time.perf_counter() - t_kill
+        results = [srv.result(x, timeout_s=300) for x in pubs]
+        after = srv({"prompt_tokens": [9, 8, 7], "max_tokens": 3,
+                     "timeout_s": 120})
+        st = srv.status()
+    finally:
+        srv.close()
+    shed = [r for r in results if r.get("finish_reason") == "shed"]
+    done = [r for r in results if r.get("finish_reason") == "length"]
+    row = {"requests": len(results), "shed": len(shed),
+           "replica_lost": sum(r.get("reason") == "replica_lost"
+                               for r in shed),
+           "finished": len(done), "replicas_after": len(st["replicas"]),
+           "backfill_s": backfill_s, "served_after": "error" not in after}
+    check(row["replica_lost"] > 0 and all(r.get("retriable") for r in shed)
+          and len(shed) + len(done) == len(results)
+          and row["replicas_after"] == 2 and row["served_after"],
+          f"fleet kill: {row}")
+    return row
+
+
+def _fleet_autoscale(params, cfg, eo):
+    """One replica of one slot under a burst at three times its measured
+    sequential rate: the manager scales up; once the burst is served the
+    idle fleet drains back down to one replica, and nothing is left
+    unfinished (bench.py's autoscale run)."""
+    from ray_tpu_torch.llm.disagg import ServeLoadSpec, run_open_loop
+    from ray_tpu_torch.llm.fleet import (FleetConfig, FleetServer,
+                                         ServeScaleConfig)
+    scale = ServeScaleConfig(min_replicas=1, max_replicas=2, queue_high=2.0,
+                             sustain_s=0.5, down_sustain_s=1.5,
+                             cooldown_s=1.0, window_s=2.0)
+    srv = FleetServer(lambda: (params, cfg), name="auto",
+                      admission=_open_admission(),
+                      config=FleetConfig(num_replicas=1,
+                                         engine_options=dict(eo,
+                                                             max_slots=1),
+                                         autoscale=scale,
+                                         manager_interval_s=0.1),
+                      record_token_times=True)
+    max_tokens = 8
+    try:
+        for i in range(2):
+            srv({"prompt_tokens": [2 + i] * 32, "max_tokens": max_tokens,
+                 "timeout_s": 300})
+        t0 = time.perf_counter()
+        for i in range(3):
+            srv({"prompt_tokens": [9 + i] * 32, "max_tokens": max_tokens,
+                 "timeout_s": 300})
+        t_seq = (time.perf_counter() - t0) / 3
+        burst_rps = min(400.0, max(10.0, 3.0 / t_seq))
+        burst = run_open_loop(srv, ServeLoadSpec(
+            rps=burst_rps, duration_s=1.0, long_fraction=0.0,
+            short_prompt=32, short_max_tokens=max_tokens,
+            drain_timeout_s=120.0), cfg.vocab_size)
+        after_burst = srv.status()
+        deadline = time.perf_counter() + 30.0
+        while time.perf_counter() < deadline:
+            st = srv.status()
+            if st["scales"].get("down", 0) >= 1 \
+                    and len(st["replicas"]) <= 1 and not st["draining"]:
+                break
+            time.sleep(0.1)
+    finally:
+        srv.close()
+    row = {"t_seq_ms": t_seq * 1e3, "burst_rps": burst_rps,
+           "burst": _load_row(burst),
+           "scales_after_burst": after_burst["scales"],
+           "scales": st["scales"], "final_replicas": len(st["replicas"])}
+    check(st["scales"].get("up", 0) >= 1 and st["scales"].get("down", 0) >= 1
+          and row["final_replicas"] == 1 and burst["unfinished"] == 0
+          and burst["errors"] == 0, f"fleet autoscale: {row}")
+    return row
 
 
 def phase_train_dots(smi, params, opt):
@@ -2603,6 +3164,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["serve_tiny"] = phase_serve_tiny()
     paths["paged_streams"] = phase_paged_streams()
+    torch.cuda.empty_cache()
+    phase_disagg_exact()
+    torch.cuda.empty_cache()
+    paths["disagg_load"], paths["fleet"] = phase_serving_tiers(smi)
     torch.cuda.empty_cache()
     phase_train_exact()
     paths["train_tiny"] = phase_train_tiny()

@@ -8,6 +8,7 @@ card is an error, never a quiet fall back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 from typing import Optional, Union
 
@@ -27,6 +28,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is visible; ray_tpu_torch runs on the card "
             "unless the caller passes device='cpu'")
     return dev
+
+
+def on_stream(stream: Optional["torch.cuda.Stream"]):
+    """``torch.cuda.stream(stream)``: the device work enqueued inside runs on
+    ``stream``; no context for ``None`` (the CPU has no streams)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)
 
 
 def make_generator(device: DeviceLike = None, seed: int = 0

@@ -1,0 +1,174 @@
+"""Open-loop serving load generator (a copy of
+ray_tpu/llm/disagg/loadgen.py).
+
+Open-loop means arrivals follow a Poisson process pinned to the WALL
+CLOCK: a slow server does not slow the generator down, so saturation
+shows up as growing queues and shed requests — exactly the regime a
+closed-loop (wait-for-completion) driver can never produce, and the one
+"millions of users" serving actually lives in.
+
+The workload is the disagg motivation mix: mostly short interactive
+prompts plus a fraction of long prompts whose inline prefill would
+stall every active decode.  Used by ``chip_smoke.py``'s ``disagg_load``
+and ``fleet`` phases and by the CPU saturation smoke test.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from ...serve.api import OverloadError
+
+
+@dataclass
+class ServeLoadSpec:
+    rps: float = 8.0
+    duration_s: float = 5.0
+    long_fraction: float = 0.2
+    short_prompt: int = 8
+    short_max_tokens: int = 16
+    long_prompt: int = 192
+    long_max_tokens: int = 8
+    #: Class names let per-class budgets separate the two populations.
+    short_class: str = "interactive"
+    long_class: str = "batch"
+    seed: int = 0
+    #: Wall-clock budget for collecting stragglers after the last
+    #: arrival (requests past it count as unfinished, not completed).
+    drain_timeout_s: float = 60.0
+    #: >0 = prefix-heavy traffic: prompts draw from a fixed pool of
+    #: this many distinct prompts (per kind) instead of fresh random
+    #: tokens per request — the regime where a fleet's prefix-affinity
+    #: routing and per-replica KV caches pay off.  0 = every prompt
+    #: unique (the original workload).
+    prompt_pool: int = 0
+
+
+def _percentile_ms(samples: List[float], q: float) -> Optional[float]:
+    if not samples:
+        return None
+    return float(np.percentile(np.asarray(samples), q) * 1000.0)
+
+
+def run_open_loop(server, spec: ServeLoadSpec,
+                  vocab_size: int) -> Dict[str, Any]:
+    """Drive ``server`` (a DisaggServer) with open-loop Poisson
+    arrivals; returns offered/sustained RPS, TTFT/ITL percentiles of
+    ADMITTED requests, and the shed breakdown."""
+    rng = np.random.default_rng(spec.seed)
+    # Pre-draw the whole arrival schedule and request mix so the
+    # submit loop does no RNG work on the clock.
+    arrivals: List[float] = []
+    t = 0.0
+    while True:
+        t += float(rng.exponential(1.0 / spec.rps))
+        if t >= spec.duration_s:
+            break
+        arrivals.append(t)
+    kinds = rng.random(len(arrivals)) < spec.long_fraction
+    prompts = []
+    if spec.prompt_pool > 0:
+        pool = {
+            True: [rng.integers(1, vocab_size, spec.long_prompt).tolist()
+                   for _ in range(spec.prompt_pool)],
+            False: [rng.integers(1, vocab_size,
+                                 spec.short_prompt).tolist()
+                    for _ in range(spec.prompt_pool)],
+        }
+        picks = rng.integers(0, spec.prompt_pool, len(arrivals))
+        for long, pick in zip(kinds, picks):
+            prompts.append(pool[bool(long)][int(pick)])
+    else:
+        for long in kinds:
+            n = spec.long_prompt if long else spec.short_prompt
+            prompts.append(rng.integers(1, vocab_size, n).tolist())
+
+    submitted: List[tuple] = []   # (pub_id, is_long)
+    shed_submit = 0
+    t0 = time.perf_counter()
+    for at, long, prompt in zip(arrivals, kinds, prompts):
+        now = time.perf_counter() - t0
+        if at > now:
+            time.sleep(at - now)   # open loop: wall-clock schedule
+        body = {"prompt_tokens": prompt,
+                "max_tokens": spec.long_max_tokens if long
+                else spec.short_max_tokens,
+                "class": spec.long_class if long else spec.short_class}
+        try:
+            submitted.append((server.submit(body), bool(long)))
+        except OverloadError:
+            shed_submit += 1
+    submit_span = time.perf_counter() - t0
+
+    ttft: List[float] = []
+    ttft_hit: List[float] = []    # full prefix hits (fleet replay path)
+    ttft_cold: List[float] = []
+    prefix_full = 0
+    itl: List[float] = []
+    completed = 0
+    shed_deadline = 0
+    errors = 0
+    rejected = 0
+    unfinished = 0
+    drain_deadline = time.perf_counter() + spec.drain_timeout_s
+    t_last_done = t0
+    for pub_id, _long in submitted:
+        left = drain_deadline - time.perf_counter()
+        if left <= 0:
+            unfinished += 1
+            continue
+        res = server.result(pub_id, timeout_s=left)
+        if res.get("finish_reason") == "shed":
+            shed_deadline += 1
+            continue
+        if "error" in res:
+            if res.get("finish_reason") == "timeout":
+                unfinished += 1
+            else:
+                errors += 1
+            continue
+        if res.get("finish_reason") in ("prompt_too_long",
+                                        "kv_capacity_exceeded"):
+            # Engine-level rejection: zero tokens produced — counting it
+            # as completed would inflate sustained RPS.
+            rejected += 1
+            continue
+        completed += 1
+        t_last_done = max(t_last_done, time.perf_counter())
+        hit = res.get("prefix_outcome") == "full"
+        prefix_full += int(hit)
+        if res.get("ttft_s") is not None:
+            ttft.append(res["ttft_s"])
+            (ttft_hit if hit else ttft_cold).append(res["ttft_s"])
+        itl.extend(res.get("itl_s") or [])
+
+    offered = len(arrivals)
+    span = max(submit_span, t_last_done - t0, 1e-9)
+    shed = shed_submit + shed_deadline
+    return {
+        "offered": offered,
+        "offered_rps": offered / max(spec.duration_s, 1e-9),
+        "completed": completed,
+        "sustained_rps": completed / span,
+        "shed_submit": shed_submit,
+        "shed_deadline": shed_deadline,
+        "shed_rate": shed / offered if offered else 0.0,
+        "errors": errors,
+        "rejected": rejected,
+        "unfinished": unfinished,
+        "ttft_p50_ms": _percentile_ms(ttft, 50),
+        "ttft_p99_ms": _percentile_ms(ttft, 99),
+        "itl_p50_ms": _percentile_ms(itl, 50),
+        "itl_p99_ms": _percentile_ms(itl, 99),
+        "itl_samples": len(itl),
+        # Fleet prefix-affinity split (None/0 for single-engine servers,
+        # which report no prefix_outcome).
+        "prefix_hits": prefix_full,
+        "prefix_hit_rate": prefix_full / completed if completed else 0.0,
+        "ttft_hit_p50_ms": _percentile_ms(ttft_hit, 50),
+        "ttft_cold_p50_ms": _percentile_ms(ttft_cold, 50),
+    }

@@ -4,11 +4,14 @@
 The host half is the JAX engine's, copied: FIFO admission into free slots,
 length-bucketed prefill, lazy page growth, recompute preemption of the
 youngest request, chunked prefill for long prompts, and ``run_pipelined``'s
-double-buffered chunks.  The device half is PyTorch: the KV cache is one
-combined page tensor per layer on ``device``, updated in place; decode runs
-``_model.decode_chunk`` (sampling on the device, one host sync per chunk)
-or ``_model.decode_step``; prefill runs ``_model.prefill`` through the flash
-kernel.  Telemetry (metrics, spans) is not ported yet.
+double-buffered chunks, ``import_prefill`` of a disagg handoff,
+``load_stats`` and the telemetry (gauges, counters, TTFT and per-token
+histograms, profile spans) with the JAX engine's names.  The device half is
+PyTorch: the KV cache is one combined page tensor per layer on ``device``,
+updated in place; decode runs ``_model.decode_chunk`` (sampling on the
+device, one host sync per chunk) or ``_model.decode_step``; prefill runs
+``_model.prefill`` through the flash kernel.  Every device call of the
+engine runs on its ``stream``, whichever thread makes it.
 """
 
 from __future__ import annotations
@@ -23,8 +26,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from .._device import DeviceLike, resolve_device
+from .._device import DeviceLike, on_stream, resolve_device
+from ..models import convert
 from ..models.llama import check_device_supported, check_supported
+from ..util import telemetry
 from . import _model
 from ._cache import PagePool
 
@@ -91,11 +96,15 @@ class InferenceEngine:
     """Single-device continuous-batching engine over the paged cache.
 
     ``params``/``cfg`` as ``models.llama``; tensors are moved to ``device``
-    (default: the card).  ``generator`` drives on-device sampling (default:
-    a generator on ``device`` seeded 0)."""
+    (default: the card; tensors already there are used, not copied, so
+    engines built from one set of weights share it).  ``generator`` drives
+    on-device sampling (default: a generator on ``device`` seeded 0).  On
+    the card, ``stream`` is the CUDA stream the engine's device work runs
+    on (default: the current stream when the engine is built)."""
 
     def __init__(self, params, cfg, *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None,
+                 stream: Optional["torch.cuda.Stream"] = None,
                  max_slots: int = 8, page_size: int = 16,
                  num_pages: int = 512, max_seq_len: Optional[int] = None,
                  prefill_buckets: tuple = (64, 256, 1024),
@@ -111,6 +120,13 @@ class InferenceEngine:
         self.device = resolve_device(device)
         check_device_supported(cfg, self.device)
         self.params = _to_device(params, self.device)
+        self.stream = None
+        if self.device.type == "cuda":
+            creator = torch.cuda.current_stream(self.device)
+            self.stream = stream if stream is not None else creator
+            # The weights (and anything else this thread enqueued) are
+            # ready before the engine's stream first reads them.
+            self.stream.wait_stream(creator)
         self.cfg = cfg
         self.page_size = page_size
         self.max_slots = max_slots
@@ -121,11 +137,13 @@ class InferenceEngine:
 
         Hkv, D = cfg.kv_heads, cfg.head_dim
         # One COMBINED page tensor per layer: K even / V odd combined-head
-        # indices, pages leading (see _model.decode_step).
-        self.kv_pages = tuple(
-            torch.zeros((num_pages, page_size, 2 * Hkv, D), dtype=cfg.dtype,
-                        device=self.device)
-            for _ in range(cfg.layers))
+        # indices, pages leading (see _model.decode_step); zeroed on the
+        # engine's stream, where it is used.
+        with on_stream(self.stream):
+            self.kv_pages = tuple(
+                torch.zeros((num_pages, page_size, 2 * Hkv, D),
+                            dtype=cfg.dtype, device=self.device)
+                for _ in range(cfg.layers))
         # Host-side slot state (mirrored to the device each dispatch).
         self.block_tables = np.zeros((max_slots, self.pages_per_seq),
                                      np.int32)
@@ -177,7 +195,33 @@ class InferenceEngine:
         with self._lock:
             self.waiting.append(req)
             self.running[req.request_id] = req
+            self._update_gauges()
         return req.request_id
+
+    # -- telemetry ----------------------------------------------------------
+
+    def _update_gauges(self) -> None:
+        """Occupancy/queue-depth gauges; callers hold the engine lock."""
+        telemetry.set_gauge("ray_tpu_llm_active_slots",
+                            int(self.slot_active.sum()))
+        telemetry.set_gauge("ray_tpu_llm_kv_page_occupancy",
+                            1.0 - self.pool.num_free
+                            / max(self.pool.num_pages, 1))
+        telemetry.set_gauge("ray_tpu_llm_waiting_requests",
+                            len(self.waiting))
+
+    def _note_finish(self, req: Request, preempted: bool = False) -> None:
+        telemetry.inc("ray_tpu_llm_requests_finished_total",
+                      tags={"reason": req.finish_reason or "unknown"})
+        if preempted:
+            telemetry.inc("ray_tpu_llm_preemptions_total")
+
+    def _note_decode(self, wall_s: float, steps: int) -> None:
+        """One decode dispatch ran ``steps`` model steps in ``wall_s``
+        seconds; per-token latency is the per-step wall time."""
+        if steps > 0:
+            telemetry.observe("ray_tpu_llm_decode_token_seconds",
+                              wall_s / steps)
 
     def _bucket_for(self, n: int) -> Optional[int]:
         for b in self.prefill_buckets:
@@ -260,8 +304,13 @@ class InferenceEngine:
 
             toks = np.zeros((1, bucket), np.int64)
             toks[0, :n] = seed
-            logits, ks, vs = _model.prefill(
-                self.params, self._upload(toks), n, self.cfg)
+            with telemetry.profile_span(
+                    "engine_prefill", "llm",
+                    extra={"request_id": req.request_id, "prompt_len": n}):
+                logits, ks, vs = _model.prefill(
+                    self.params, self._upload(toks), n, self.cfg)
+            telemetry.inc("ray_tpu_llm_tokens_total", n,
+                          tags={"kind": "prompt"})
             # Padding positions land in reserved page 0, which no block
             # table references.
             page_ids_np = np.zeros((bucket,), np.int32)
@@ -286,6 +335,7 @@ class InferenceEngine:
             staged.append((req, slot, logits))
 
         if not staged:
+            self._update_gauges()
             return
         self._dev_state = None  # new slots: host mirrors are authoritative
         all_logits = torch.stack(
@@ -294,6 +344,8 @@ class InferenceEngine:
         for (req, slot, _lg), logits in zip(staged, all_logits):
             first_tok = self._sample_host(logits, req.params)
             if not req.output_tokens:   # first admission, not recompute
+                telemetry.observe("ray_tpu_llm_ttft_seconds",
+                                  max(0.0, now - req.t_submit))
                 req.t_first = now
             req.output_tokens.append(int(first_tok))
             if self.record_token_times:
@@ -302,6 +354,7 @@ class InferenceEngine:
             self._maybe_finish(req, int(first_tok))
             if req.finished:
                 self._admission_finished.append(req)
+        self._update_gauges()
 
     def _reject_head(self, req: Request, reason: str) -> None:
         """Reject the queue-head request at admission (never admitted: no
@@ -311,6 +364,7 @@ class InferenceEngine:
         self.waiting.pop(0)
         self.running.pop(req.request_id, None)
         self._admission_finished.append(req)
+        self._note_finish(req)
 
     def _prefill_tick(self) -> None:
         """Advance ONE chunked prefill by ONE chunk (callers hold the lock):
@@ -350,10 +404,17 @@ class InferenceEngine:
             self.block_tables[slot, base:base + len(pages)] = pages
         toks = np.zeros((1, C), np.int64)
         toks[0, :end - done] = seed[done:end]
-        logits, self.kv_pages = _model.prefill_chunk(
-            self.params, self.kv_pages, self._upload(toks), done,
-            end - done, self._upload(self.block_tables[slot]), self.cfg,
-            self.page_size)
+        with telemetry.profile_span(
+                "engine_prefill_chunk", "llm",
+                extra={"request_id": req.request_id, "start": done,
+                       "len": end - done}):
+            logits, self.kv_pages = _model.prefill_chunk(
+                self.params, self.kv_pages, self._upload(toks), done,
+                end - done, self._upload(self.block_tables[slot]), self.cfg,
+                self.page_size)
+        telemetry.inc("ray_tpu_llm_prefill_chunks_total")
+        telemetry.inc("ray_tpu_llm_tokens_total", end - done,
+                      tags={"kind": "prompt"})
         self._prefilling[slot] = end
         if end < n:
             return
@@ -361,6 +422,8 @@ class InferenceEngine:
         first = self._sample_host(logits.cpu().numpy(), req.params)
         now = time.perf_counter()
         if not req.output_tokens:
+            telemetry.observe("ray_tpu_llm_ttft_seconds",
+                              max(0.0, now - req.t_submit))
             req.t_first = now
         req.output_tokens.append(int(first))
         if self.record_token_times:
@@ -373,6 +436,7 @@ class InferenceEngine:
         self._maybe_finish(req, int(first))
         if req.finished:
             self._admission_finished.append(req)
+        self._update_gauges()
 
     def _need_pages(self, slot: int, steps: int) -> int:
         """Extra pages ``slot`` needs to write KV for ``steps`` more decode
@@ -449,6 +513,7 @@ class InferenceEngine:
         self.block_tables[slot] = 0
         self._dev_state = None
         self.waiting.insert(0, req)
+        telemetry.inc("ray_tpu_llm_preemptions_total")
 
     def _sample_host(self, logits: np.ndarray,
                      params: SamplingParams) -> int:
@@ -467,6 +532,7 @@ class InferenceEngine:
                 self.pool.free(req.pages)
                 req.pages = []
             self.running.pop(req.request_id, None)
+            self._note_finish(req)
 
     def cancel(self, request_id: int) -> None:
         """Abandon a request: free its slot/pages (timeouts, disconnects)."""
@@ -476,7 +542,9 @@ class InferenceEngine:
                 return
             if req in self.waiting:
                 self.waiting.remove(req)
-            if req.slot is not None and self.slot_req[req.slot] is req:
+            preempted = req.slot is not None \
+                and self.slot_req[req.slot] is req
+            if preempted:
                 self.slot_active[req.slot] = False
                 self.slot_req[req.slot] = None
                 self._prefilling.pop(req.slot, None)
@@ -485,6 +553,100 @@ class InferenceEngine:
             req.pages = []
             req.finished = True
             req.finish_reason = "cancelled"
+            self._note_finish(req, preempted=preempted)
+            self._update_gauges()
+
+    # -- disaggregated prefill import ---------------------------------------
+
+    def import_prefill(self, handoff) -> Optional[int]:
+        """Join a request prefilled ELSEWHERE (a disagg PrefillWorker) to
+        this engine's continuous batch: allocate local pages, scatter the
+        handed-off K/V (``_model.write_prefill``, the local admission
+        path's scatter) and activate the slot with the already-sampled
+        first token.
+
+        ``handoff`` is a ``llm.disagg.KVHandoff`` (duck-typed:
+        prompt_tokens / first_token / ks / vs / params / t_submit /
+        t_first, and ``ready``, a CUDA event recorded after the prefill,
+        where it has one).  ``ks``/``vs`` are ``[L, S, Hkv, D]`` tensors
+        on any device, or numpy arrays (a JAX-made handoff).  On this
+        card they are read where they lie: the engine's stream first
+        waits for ``ready``, and the tensors are marked as used on it, so
+        the caching allocator cannot hand their memory out again before
+        the scatter has read it.  Returns the local request id, or None
+        when no slot or pages are free: the caller holds the handoff and
+        retries (backpressure), it is never silently dropped."""
+        with self._lock, on_stream(self.stream):
+            n = len(handoff.prompt_tokens)
+            total = n + handoff.params.max_tokens
+            if total > self.max_seq_len:
+                raise ValueError(
+                    f"handoff needs {total} positions; engine max_seq_len "
+                    f"is {self.max_seq_len}")
+            free_slots = [i for i in range(self.max_slots)
+                          if self.slot_req[i] is None]
+            if not free_slots:
+                return None
+            n_pages = math.ceil((n + 1) / self.page_size)
+            pages = self.pool.alloc(n_pages)
+            if pages is None:
+                return None
+            req = Request(next(self._req_ids),
+                          list(handoff.prompt_tokens), handoff.params,
+                          t_submit=handoff.t_submit or time.perf_counter())
+            req.admit_seq = next(self._admit_seq)
+            slot = free_slots[0]
+            bucket = handoff.ks.shape[1]
+            page_ids_np = np.zeros((bucket,), np.int32)
+            for t in range(n):
+                page_ids_np[t] = pages[t // self.page_size]
+            offs_np = np.arange(bucket, dtype=np.int32) % self.page_size
+            ready = getattr(handoff, "ready", None)
+            if ready is not None and self.stream is not None:
+                self.stream.wait_event(ready)
+            self.kv_pages = _model.write_prefill(
+                self.kv_pages, self._handoff_kv(handoff.ks),
+                self._handoff_kv(handoff.vs), self._upload(page_ids_np),
+                self._upload(offs_np))
+            first = int(handoff.first_token)
+            req.slot = slot
+            req.pages = pages
+            req.t_first = handoff.t_first or time.perf_counter()
+            if handoff.t_submit:
+                # The disagg path's TTFT (submit -> prefill worker's first
+                # token) lands in the same histogram the local admission
+                # paths feed.
+                telemetry.observe("ray_tpu_llm_ttft_seconds",
+                                  max(0.0, req.t_first - req.t_submit))
+            req.output_tokens.append(first)
+            if self.record_token_times:
+                req.token_times.append(req.t_first)
+            self.slot_req[slot] = req
+            self.slot_pos[slot] = n
+            self.slot_tokens[slot] = first
+            self.slot_active[slot] = True
+            bt = np.zeros((self.pages_per_seq,), np.int32)
+            bt[:n_pages] = pages
+            self.block_tables[slot] = bt
+            self.running[req.request_id] = req
+            self._dev_state = None
+            self._maybe_finish(req, first)
+            if req.finished:
+                self._admission_finished.append(req)
+            self._update_gauges()
+            return req.request_id
+
+    def _handoff_kv(self, x) -> torch.Tensor:
+        """A handoff's K or V, readable on this engine's stream: a numpy
+        array or a tensor on another device is copied here; a tensor on
+        this card is used in place and recorded as used by this stream."""
+        if not isinstance(x, torch.Tensor):
+            return convert.params_from_numpy(x, device=self.device)
+        if x.device != self.device:
+            return x.to(self.device)
+        if self.stream is not None:
+            x.record_stream(self.stream)
+        return x
 
     # -- stepping -----------------------------------------------------------
 
@@ -493,12 +655,27 @@ class InferenceEngine:
             return bool(self.waiting or any(self.slot_active)
                         or self._prefilling or self._admission_finished)
 
+    def load_stats(self) -> Dict[str, Any]:
+        """Live load snapshot for admission control / backpressure
+        (router-facing: KV occupancy + queue depths)."""
+        with self._lock:
+            return {
+                "kv_occupancy": 1.0 - self.pool.num_free
+                / max(self.pool.num_pages, 1),
+                "free_pages": self.pool.num_free,
+                "active_slots": int(self.slot_active.sum()),
+                "free_slots": sum(1 for i in range(self.max_slots)
+                                  if self.slot_req[i] is None),
+                "waiting": len(self.waiting),
+                "prefilling": len(self._prefilling),
+            }
+
     def step(self) -> List[Request]:
         """Admit + one batched decode step; returns requests finished now.
 
         Runs under the engine lock: add_request/cancel from server threads
         must not interleave with slot/page mutation."""
-        with self._lock:
+        with self._lock, on_stream(self.stream):
             self._admit()
             self._prefill_tick()
             finished = list(self._admission_finished)
@@ -508,14 +685,18 @@ class InferenceEngine:
             self._ensure_decode_capacity(1)
             if not any(self.slot_active):
                 return finished
-            self._dev_state = None  # per-token path mutates mirrors
-            logits, self.kv_pages = _model.decode_step(
-                self.params, self.kv_pages,
-                self._upload(self.slot_tokens),
-                self._upload(self.slot_pos),
-                self._upload(self.block_tables),
-                self._upload(self.slot_active), self.cfg, self.page_size)
-            logits = logits.cpu().numpy()
+            t0 = time.perf_counter()
+            with telemetry.profile_span("engine_step", "llm"):
+                self._dev_state = None  # per-token path mutates mirrors
+                logits, self.kv_pages = _model.decode_step(
+                    self.params, self.kv_pages,
+                    self._upload(self.slot_tokens),
+                    self._upload(self.slot_pos),
+                    self._upload(self.block_tables),
+                    self._upload(self.slot_active), self.cfg,
+                    self.page_size)
+                logits = logits.cpu().numpy()
+            decoded = 0
             for slot in range(self.max_slots):
                 if not self.slot_active[slot]:
                     continue
@@ -524,11 +705,17 @@ class InferenceEngine:
                 req.output_tokens.append(tok)
                 if self.record_token_times:
                     req.token_times.append(time.perf_counter())
+                decoded += 1
                 self.slot_pos[slot] += 1
                 self.slot_tokens[slot] = tok
                 self._maybe_finish(req, tok)
                 if req.finished:
                     finished.append(req)
+            self._note_decode(time.perf_counter() - t0, steps=1)
+            if decoded:
+                telemetry.inc("ray_tpu_llm_tokens_total", decoded,
+                              tags={"kind": "decode"})
+            self._update_gauges()
             return finished
 
     def step_chunk(self, max_steps: int = 32) -> List[Request]:
@@ -538,17 +725,36 @@ class InferenceEngine:
         Used when every active request shares compatible sampling params;
         falls back to per-token step() otherwise.  Stop tokens/budgets are
         enforced host-side after the chunk."""
-        with self._lock:
-            self._admit()
-            self._prefill_tick()
-            finished = list(self._admission_finished)
-            self._admission_finished.clear()
-            d = self._dispatch_chunk(max_steps)
-        if d is None:
-            return finished
-        if d == "incompatible":
-            return finished + self.step()
-        return finished + self._process_chunk(*d)
+        with on_stream(self.stream):
+            with self._lock:
+                self._admit()
+                self._prefill_tick()
+                finished = list(self._admission_finished)
+                self._admission_finished.clear()
+                # The clock starts AFTER admission: prefill time is not
+                # decode latency (step() excludes it the same way).
+                t0 = time.perf_counter()
+                d = self._dispatch_chunk(max_steps)
+            if d is None:
+                return finished
+            if d == "incompatible":
+                return finished + self.step()
+            with telemetry.profile_span("engine_step_chunk", "llm",
+                                        extra={"steps": d[1]}):
+                out = self._process_chunk(*d)
+            self._note_decode(time.perf_counter() - t0, steps=d[1])
+            return finished + out
+
+    def _process_pending(self, pending, t_mark: float) -> List[Request]:
+        """Pipelined-path chunk application with step_chunk's telemetry:
+        one span per chunk, and the iteration cadence (t_mark -> applied,
+        overlap included) as the per-token decode latency."""
+        with telemetry.profile_span("engine_step_chunk", "llm",
+                                    extra={"steps": pending[1],
+                                           "pipelined": True}):
+            out = self._process_chunk(*pending, keep_dev_state=True)
+        self._note_decode(time.perf_counter() - t_mark, steps=pending[1])
+        return out
 
     def _dispatch_chunk(self, max_steps: int, allow_preempt: bool = True,
                         pos_lag: int = 0):
@@ -619,6 +825,7 @@ class InferenceEngine:
         now = time.perf_counter()
         with self._lock:
             any_finished = False
+            applied = 0
             for slot, entry in enumerate(snap):
                 if entry is None:
                     continue
@@ -632,6 +839,7 @@ class InferenceEngine:
                     req.output_tokens.append(tok)
                     if self.record_token_times:
                         req.token_times.append(now)
+                    applied += 1
                     self.slot_pos[slot] += 1
                     self.slot_tokens[slot] = tok
                     self._maybe_finish(req, tok)
@@ -643,6 +851,10 @@ class InferenceEngine:
                         break
             if any_finished and not keep_dev_state:
                 self._dev_state = None  # host mirrors changed
+            if applied:
+                telemetry.inc("ray_tpu_llm_tokens_total", applied,
+                              tags={"kind": "decode"})
+            self._update_gauges()
         return finished
 
     def run_pipelined(self, max_steps: int = 64,
@@ -655,8 +867,14 @@ class InferenceEngine:
         overgenerate up to one extra chunk whose tokens are dropped
         host-side; budget-exhausted slots overflow-write to reserved page 0.
         Returns every finished request."""
+        with on_stream(self.stream):
+            return self._run_pipelined(max_steps, max_chunks)
+
+    def _run_pipelined(self, max_steps: int,
+                       max_chunks: int) -> List[Request]:
         done: List[Request] = []
         pending = None
+        t_mark = time.perf_counter()
         for _ in range(max_chunks):
             d = None
             with self._lock:
@@ -697,21 +915,21 @@ class InferenceEngine:
             if d == "need_sync":
                 # Page pressure with a chunk in flight: apply it so the host
                 # mirrors catch up; the next iteration may preempt safely.
-                done.extend(self._process_chunk(*pending,
-                                                keep_dev_state=True))
+                done.extend(self._process_pending(pending, t_mark))
                 pending = None
+                t_mark = time.perf_counter()
                 continue
             if d == "incompatible":
                 if pending is not None:
-                    done.extend(self._process_chunk(*pending,
-                                                    keep_dev_state=True))
+                    done.extend(self._process_pending(pending, t_mark))
                     pending = None
                 done.extend(self.step_chunk(max_steps))
+                t_mark = time.perf_counter()
                 continue
             if pending is not None:
-                done.extend(self._process_chunk(*pending,
-                                                keep_dev_state=True))
+                done.extend(self._process_pending(pending, t_mark))
             pending = d
+            t_mark = time.perf_counter()
             if pending is None:
                 with self._lock:
                     if not self.waiting and not self.slot_active.any() \

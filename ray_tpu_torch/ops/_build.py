@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-lineinfo")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, object] = {}
 #: name -> {"seconds": wall time of the parallel build, "ptxas": nvcc's
@@ -127,6 +128,18 @@ def function(name: str, symbol: str, argtypes: Sequence,
             fn.restype = restype
             _fns[key] = fn
     return fn
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel: ``wrapper.launches`` and
+    ``wrapper.launches_by_thread[<this thread's name>]``, both under one
+    lock (``x += 1`` is a read, an add and a write, and drops counts when
+    threads interleave; serving launches from several threads at once)."""
+    name = threading.current_thread().name
+    with _count_lock:
+        wrapper.launches += 1
+        by = wrapper.launches_by_thread
+        by[name] = by.get(name, 0) + 1
 
 
 def check(name: str, code: int, what: str) -> None:

@@ -131,7 +131,8 @@ def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
     Returns (out [B, H, Sq, D] in q's dtype, fp32 LSE [B, H, Sq] or None).
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (bf16 or fp32, D in {32, 64, 128}) or raise.  ``flash_fwd.launches``
-    counts kernel launches."""
+    counts kernel launches, ``flash_fwd.launches_by_thread`` them by the
+    launching thread's name."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return _flash_plain(q, k, v, causal, scale, q_offset, need_lse)
@@ -165,11 +166,12 @@ def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
                   counter.data_ptr() if counter is not None else None,
                   torch.cuda.current_stream().cuda_stream)
     _build.check("flash_fwd", code, "flash_fwd launch")
-    flash_fwd.launches += 1
+    _build.count_launch(flash_fwd)
     return out, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_by_thread = {}
 
 
 def _flash_bwd_plain(q, k, v, out, lse, dout, causal, scale, q_offset):
@@ -249,7 +251,7 @@ def flash_bwd_dq(q, k, v, out, dout, lse, *, causal, scale, q_offset):
             int(causal), int(q_offset),
             torch.cuda.current_stream().cuda_stream)
     _build.check("flash_bwd", code, "flash_bwd dq launch")
-    flash_bwd_dq.launches += 1
+    _build.count_launch(flash_bwd_dq)
     return dq, delta
 
 
@@ -270,12 +272,14 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal, scale, q_offset):
             int(causal), int(q_offset),
             torch.cuda.current_stream().cuda_stream)
     _build.check("flash_bwd", code, "flash_bwd dk/dv launch")
-    flash_bwd_dkv.launches += 1
+    _build.count_launch(flash_bwd_dkv)
     return dk, dv
 
 
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+flash_bwd_dq.launches_by_thread = {}
+flash_bwd_dkv.launches_by_thread = {}
 
 
 def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -215,6 +216,13 @@ _WORKSPACE = {}
 #: prepared _Launch, the _Launch's address, which every call passes).
 _LAUNCH = {}
 _FN = []
+#: Creates every entry of _WORKSPACE, _LAUNCH and _FN.  Threads that miss
+#: a cache at once (serving replicas making their first decode together)
+#: must not each insert: the second insert would free the first entry
+#: while its maker still passes its address to the kernel.  So an entry
+#: is made under this lock, after a second look, and the first one made
+#: is kept for good.  Reads of an existing entry need no lock.
+_CACHE_LOCK = threading.RLock()
 
 
 def _sm_count(device) -> int:
@@ -252,7 +260,12 @@ def _workspace(device, stream: int) -> tuple:
     anyway) allocates it."""
     key = (device, stream)
     hit = _WORKSPACE.get(key)
-    if hit is None:
+    if hit is not None:
+        return hit
+    with _CACHE_LOCK:
+        hit = _WORKSPACE.get(key)
+        if hit is not None:
+            return hit
         if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
                 "paged_decode: this stream has no workspace yet, and it is "
@@ -265,7 +278,7 @@ def _workspace(device, stream: int) -> tuple:
         hit = _WORKSPACE[key] = (
             torch.zeros(blocks // 2 + blocks * part, dtype=torch.float32,
                         device=device), blocks)
-    return hit
+        return hit
 
 
 class _Launch(ctypes.Structure):
@@ -281,10 +294,11 @@ class _Launch(ctypes.Structure):
 
 def _kernel_fn():
     if not _FN:
-        _FN.append(_build.function("paged_decode", "rt_paged_decode", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p]))
+        with _CACHE_LOCK:
+            if not _FN:
+                _FN.append(_build.function(
+                    "paged_decode", "rt_paged_decode",
+                    [ctypes.c_void_p] * 7))
     return _FN[0]
 
 
@@ -293,17 +307,22 @@ def _launch(device, stream, dtype, B, H, Hkv, D, P, page_size) -> int:
     ``device`` (the current device): the stream's workspace and its split
     blocks (none and 0 at one split), dtype, the shapes and the split
     count."""
-    splits = _splits(device, B, Hkv, P)
-    ws, blocks = _workspace(device, stream) if splits > 1 else (None, 0)
-    launch = _Launch(None if ws is None else ws.data_ptr(), blocks,
-                     _DTYPE_CODE[dtype], B, H, Hkv, D, P, page_size, splits)
-    prepare = _build.function("paged_decode", "rt_paged_decode_prepare",
-                              [ctypes.c_void_p])
-    _build.check("paged_decode", prepare(ctypes.addressof(launch)),
-                 "paged_decode prepare")
-    hit = _LAUNCH[(device, stream, dtype, B, H, Hkv, D, P, page_size)] = (
-        launch, ctypes.addressof(launch))
-    return hit[1]
+    key = (device, stream, dtype, B, H, Hkv, D, P, page_size)
+    with _CACHE_LOCK:
+        hit = _LAUNCH.get(key)
+        if hit is not None:
+            return hit[1]
+        splits = _splits(device, B, Hkv, P)
+        ws, blocks = _workspace(device, stream) if splits > 1 else (None, 0)
+        launch = _Launch(None if ws is None else ws.data_ptr(), blocks,
+                         _DTYPE_CODE[dtype], B, H, Hkv, D, P, page_size,
+                         splits)
+        prepare = _build.function("paged_decode", "rt_paged_decode_prepare",
+                                  [ctypes.c_void_p])
+        _build.check("paged_decode", prepare(ctypes.addressof(launch)),
+                     "paged_decode prepare")
+        hit = _LAUNCH[key] = (launch, ctypes.addressof(launch))
+        return hit[1]
 
 
 def _kernel_args(q, kv_pages, block_table, seq_lens, page_size, out):
@@ -330,7 +349,8 @@ def paged_decode_attention(q, kv_pages, block_table, seq_lens,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (one launch a call) or raise.  ``paged_decode_attention.launches``
-    counts kernel launches."""
+    counts kernel launches, ``.launches_by_thread`` them by the launching
+    thread's name."""
     if q.device.type == "cpu":
         return _exact_path(q, kv_pages, block_table, seq_lens, page_size)
     _check_paged(q, kv_pages, block_table, seq_lens, page_size)
@@ -340,10 +360,11 @@ def paged_decode_attention(q, kv_pages, block_table, seq_lens,
         code = fn(*_kernel_args(q, kv_pages, block_table, seq_lens,
                                 page_size, out))
     _build.check("paged_decode", code, "paged_decode launch")
-    paged_decode_attention.launches += 1
+    _build.count_launch(paged_decode_attention)
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_by_thread = {}
 #: The kernel's own name: the same function, and the same launch count.
 paged_decode = paged_decode_attention

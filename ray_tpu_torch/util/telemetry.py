@@ -1,10 +1,11 @@
-"""Built-in telemetry of the train path (a copy of the part of
-ray_tpu/util/telemetry.py that the train runtime calls, with its metric
-names).
+"""Built-in telemetry of the train and serving paths (a copy of the part of
+ray_tpu/util/telemetry.py that the train runtime, the engine, the disagg
+tier and the fleet call, with its metric names).
 
 - ``CATALOG`` declares every metric the train runtime and the checkpoint
-  subsystem record (``ray_tpu_train_*``, ``ray_tpu_ckpt_*``) and the
-  swallowed-error counter.  ``inc``/``observe``/``set_gauge`` record into
+  subsystem record (``ray_tpu_train_*``, ``ray_tpu_ckpt_*``), those the
+  engine, the disagg tier and the fleet record (``ray_tpu_llm_*``,
+  ``ray_tpu_serve_*``), and the swallowed-error counter.  ``inc``/``observe``/``set_gauge`` record into
   this process's registry and never raise (an undeclared name records
   nothing, as JAX's helpers swallow it).
 - Worker processes ship ``snapshot()`` to the controller when their train
@@ -26,13 +27,15 @@ import threading
 import time
 from typing import Any, Dict, Optional, Tuple
 
+_LATENCY_BUCKETS = [0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5,
+                    1.0, 2.5, 5.0, 10.0, 30.0, 60.0]
 _STEP_BUCKETS = [0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 30.0, 60.0,
                  120.0, 300.0, 600.0]
 
 
-def _h(tags, description):
+def _h(tags, description, boundaries=_STEP_BUCKETS):
     return {"type": "histogram", "tag_keys": tags,
-            "boundaries": _STEP_BUCKETS, "description": description}
+            "boundaries": boundaries, "description": description}
 
 
 def _c(tags, description):
@@ -103,6 +106,66 @@ CATALOG: Dict[str, Dict[str, Any]] = {
                      "(source=disk|replica)."),
     "ray_tpu_ckpt_replica_restores_total": _c(
         (), "Restores that used in-memory emergency replica shards."),
+    # -- serve: decode fleet (llm/fleet) ----------------------------------
+    "ray_tpu_serve_replica_count": _g(
+        ("fleet",), "Accepting decode replicas in a serving fleet "
+                    "(FleetServer view; draining/dead excluded)."),
+    "ray_tpu_serve_prefix_hit_total": _c(
+        ("outcome",), "Fleet routing outcomes per dispatched request: "
+                      "full (exact prompt cached, prefill skipped), "
+                      "partial (prefix overlap steered placement), miss "
+                      "(load-only placement)."),
+    "ray_tpu_serve_rebalance_total": _c(
+        (), "Requests whose prefix affinity was overridden by the "
+            "load-imbalance watermark (routed by load instead of cache "
+            "locality)."),
+    "ray_tpu_serve_replica_scale_total": _c(
+        ("direction",), "Fleet replica scale actions (up = spawn/"
+                        "backfill, down = drain-then-remove), autoscaler "
+                        "or manual."),
+    # -- llm (engine, disagg tier) -----------------------------------------
+    "ray_tpu_llm_ttft_seconds": _h(
+        (), "Time to first token: request add -> first output token "
+            "sampled (includes queueing + prefill).", _LATENCY_BUCKETS),
+    "ray_tpu_llm_decode_token_seconds": _h(
+        (), "Per-token decode latency (batched step wall time; chunked "
+            "steps attribute wall/steps per token).", _LATENCY_BUCKETS),
+    "ray_tpu_llm_tokens_total": _c(
+        ("kind",), "Tokens processed by the engine (kind=prompt|decode)."),
+    "ray_tpu_llm_kv_page_occupancy": _g(
+        (), "Fraction of KV-cache pages allocated (0..1)."),
+    "ray_tpu_llm_active_slots": _g(
+        (), "Decode slots with a running request."),
+    "ray_tpu_llm_requests_finished_total": _c(
+        ("reason",), "Engine requests finished, by finish_reason (stop|"
+                     "length|prompt_too_long|kv_capacity_exceeded|"
+                     "cancelled)."),
+    "ray_tpu_llm_preemptions_total": _c(
+        (), "Requests evicted mid-flight (cancel/timeout releasing an "
+            "occupied slot, or recompute preemption under KV pressure)."),
+    "ray_tpu_llm_waiting_requests": _g(
+        (), "Requests queued for admission (KV/slot backpressure "
+            "depth)."),
+    "ray_tpu_llm_admission_queue_depth": _g(
+        ("class",), "Requests held in the SLO router's bounded admission "
+                    "queue, per request class (disagg router; ahead of "
+                    "engine admission)."),
+    "ray_tpu_llm_shed_total": _c(
+        ("reason",), "Requests shed by SLO-aware admission control "
+                     "(reason=queue_full|class_budget|backpressure|"
+                     "deadline|deadline_infeasible|replica_lost).  "
+                     "Shedding is a retriable overload error, never a "
+                     "silent timeout."),
+    "ray_tpu_llm_kv_transfer_bytes_total": _c(
+        (), "KV-cache bytes handed off from prefill to decode workers "
+            "(disagg page-blob transfers)."),
+    "ray_tpu_llm_kv_transfer_seconds": _h(
+        ("op",), "Prefill->decode KV handoff latency (op=export|import: "
+                 "object-store publish / decode-side page scatter).",
+        _LATENCY_BUCKETS),
+    "ray_tpu_llm_prefill_chunks_total": _c(
+        (), "Chunked-prefill chunks executed (single-engine disagg-off "
+            "fallback: long prompts sliced across decode steps)."),
     "ray_tpu_internal_swallowed_errors_total": _c(
         ("where",), "Control-plane exceptions intentionally swallowed "
                     "(best-effort paths), by call site."),

@@ -700,6 +700,58 @@ def test_paged_decode_on_two_streams_never_shares_a_workspace(cuda):
             torch.bfloat16], (i, err, rel)
 
 
+@pytest.mark.parametrize("streams", [1, 2])
+def test_paged_first_launch_from_two_threads(cuda, monkeypatch, streams):
+    """Two threads make their first paged launch of one shape at once (as
+    two serving replicas' first decodes do), on one stream or on two:
+    both outputs equal the plain version, and each (stream, shape) key has
+    exactly one prepared launch and each stream one workspace, the first
+    made (a replaced entry would be freed while its maker still passes its
+    address to the kernel)."""
+    import threading
+    monkeypatch.setattr(paged, "_LAUNCH", {})
+    monkeypatch.setattr(paged, "_WORKSPACE", {})
+    a, b = _paged_pair(700)
+    assert paged._splits(a[0].device, 4, 8, 128) > 1
+    pool = [torch.cuda.Stream() for _ in range(streams)]
+    for s in pool:
+        s.wait_stream(torch.cuda.current_stream())
+    barrier = threading.Barrier(2)
+    outs = [None, None]
+    errors = []
+
+    def first_launch(i, x):
+        try:
+            with torch.cuda.stream(pool[i % streams]):
+                barrier.wait(timeout=60)
+                outs[i] = paged.paged_decode(*x, 16)
+                torch.cuda.current_stream().synchronize()
+        except Exception as exc:  # reported below, in the test's thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=first_launch, args=(i, x))
+               for i, x in enumerate((a, b))]
+    try:
+        for t in threads:
+            t.start()
+    finally:
+        for t in threads:
+            t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    torch.cuda.synchronize()
+    for out, x in zip(outs, (a, b)):
+        err, rel, _ = _paged_errs(out, paged._exact_path(*x, 16), x[3])
+        assert err <= TOL[torch.bfloat16] and rel <= ROW_REL_TOL[
+            torch.bfloat16], (err, rel)
+    keys = list(paged._LAUNCH)
+    assert len(keys) == len(set(keys)) == streams
+    assert sorted(k[1] for k in keys) == sorted(s.cuda_stream for s in pool)
+    assert len(paged._WORKSPACE) == streams
+    for key, (launch, addr) in paged._LAUNCH.items():
+        assert launch.ws == paged._WORKSPACE[key[:2]][0].data_ptr()
+        assert addr == ctypes.addressof(launch)
+
+
 def test_a_captured_paged_graph_beside_an_eager_call(cuda):
     """A CUDA graph of paged_decode replayed on one stream while an eager
     call runs on another: both right."""

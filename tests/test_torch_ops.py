@@ -347,6 +347,71 @@ class TestPaged:
                             assert (blocks // 2 + B * Hkv * n * G * (D + 2)
                                     <= ws.numel())
 
+    def test_workspace_first_use_from_many_threads(self, monkeypatch):
+        """Eight threads released by one barrier make the first call on
+        one stream at once: every thread gets the same workspace (a second
+        one inserted over it would be freed while its maker still passes
+        its address to the kernel).  ``_sm_count`` sleeps, so the threads
+        overlap inside the creation."""
+        import threading
+        import time as _time
+        dev = torch.device("cpu")
+        monkeypatch.setattr(t_paged, "_WORKSPACE", {})
+
+        def slow_sm_count(_device):
+            _time.sleep(0.01)
+            return 16
+        monkeypatch.setattr(t_paged, "_sm_count", slow_sm_count)
+        barrier = threading.Barrier(8)
+        got = [None] * 8
+
+        def first_use(i):
+            barrier.wait(timeout=30)
+            got[i] = t_paged._workspace(dev, 7)[0]
+
+        threads = [threading.Thread(target=first_use, args=(i,))
+                   for i in range(8)]
+        try:
+            for t in threads:
+                t.start()
+        finally:
+            for t in threads:
+                t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+        assert all(g is got[0] for g in got) and got[0] is not None
+        assert list(t_paged._WORKSPACE) == [(dev, 7)]
+
+    def test_launch_counts_lose_nothing_between_threads(self):
+        """count_launch under 16 threads with a short switch interval:
+        the total and the per-thread counts are exact."""
+        import sys
+        import threading
+
+        def fake():
+            pass
+        fake.launches = 0
+        fake.launches_by_thread = {}
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+
+        def work():
+            for _ in range(2000):
+                _build.count_launch(fake)
+
+        threads = [threading.Thread(target=work, name=f"counter-{i}")
+                   for i in range(16)]
+        try:
+            for t in threads:
+                t.start()
+        finally:
+            for t in threads:
+                t.join(timeout=60)
+            sys.setswitchinterval(old)
+        assert not any(t.is_alive() for t in threads)
+        assert fake.launches == 16 * 2000
+        assert fake.launches_by_thread == {f"counter-{i}": 2000
+                                           for i in range(16)}
+
     def test_split_ranges_and_empty_partials(self):
         """Ranges are page-aligned, disjoint and in order, cover each slot's
         reach min(len, P*page) and nothing else; a split whose range is
