@@ -22,6 +22,12 @@ config (``bench.py:3384-3390``) at full width and depth through
 ``"dots_nobatch"``, resumes a 4-layer model of its width from a
 checkpoint, and trains that model through ``TorchTrainer.fit`` in a
 spawned worker, through a planted failure and its restart (``trainer``).
+Last, reinforcement learning (``ray_tpu_torch.rl``, which runs no kernel
+of its own): each algorithm's update on the card against the same update
+on the CPU, the CNN and GRU policies and the device-resident CartPole
+(``rl_exact``); PPO at the default config through ``build().train()``
+with its host syncs counted, a 4,096 x 128 device rollout and one
+``train()`` of every other algorithm (``rl_train``).
 The kernels' launch counts, set to 0 just before each path and
 read just after, show that every path ran through them.  Each phase prints one JSON line; any failed
 check raises and the script exits non-zero.  The last line is
@@ -3136,6 +3142,514 @@ def phase_train_moe(smi):
     return {k: launches[k] for k in want_l}
 
 
+# ------------------------------------------------------------------- RL
+#
+# ray_tpu_torch.rl runs no kernel of its own (ray_tpu/rl reaches no Pallas
+# kernel): these phases hold its algorithms on the card to the same
+# algorithms on the CPU, count its host syncs, and time its training.
+
+RL_TOL = 1e-5      # card vs CPU, TF32 off: relative to the largest
+#                    magnitude in each compared tree
+RL_METRIC_FLOOR = 0.01
+RL_ALGOS = ("PPO", "DQN", "SAC", "TQC", "IMPALA", "APPO", "BC", "MARWIL",
+            "CQL", "IQL", "MultiAgentPPO")
+RL_PPO_ITERS = 5
+RL_ROLLOUT_N, RL_ROLLOUT_T = 4096, 128
+
+
+def _rl_tree_err(got, want) -> float:
+    """max |got - want| over the tree / the largest |want| in it."""
+    from ray_tpu_torch._tree import tree_leaves
+    g = [np.asarray(x, np.float64) for x in tree_leaves(got)]
+    w = [np.asarray(x, np.float64) for x in tree_leaves(want)]
+    check(len(g) == len(w) and all(a.shape == b.shape for a, b in zip(g, w)),
+          "rl trees differ in structure")
+    scale = max(max(float(np.abs(b).max()) for b in w), 1e-12)
+    return max(float(np.abs(a - b).max()) for a, b in zip(g, w)) / scale
+
+
+def _rl_rollout(seed, T, N, obs_dim, n_act):
+    r = np.random.default_rng(seed)
+    dones = r.random((T, N)) < 0.3
+    terms = dones & (r.random((T, N)) < 0.7)
+    return {"obs": r.normal(size=(T, N, obs_dim)).astype(np.float32),
+            "actions": r.integers(0, n_act, (T, N)).astype(np.int32),
+            "logp": np.log(r.uniform(0.1, 0.5, (T, N))).astype(np.float32),
+            "values": r.normal(size=(T, N)).astype(np.float32),
+            "rewards": r.normal(size=(T, N)).astype(np.float32),
+            "dones": dones, "terminateds": terms,
+            "bootstrap_values": np.where(dones & ~terms, r.normal(
+                size=(T, N)), 0).astype(np.float32),
+            "last_values": r.normal(size=N).astype(np.float32)}
+
+
+def _rl_offline_data(tmp: str) -> str:
+    from ray_tpu_torch.rl import collect_from_env
+
+    def behavior(obs, r):
+        return int(r.integers(4)) if r.random() < 0.3 \
+            else int(np.argmax(obs))
+    return collect_from_env("StatelessGuess", behavior, 2000,
+                            os.path.join(tmp, "guess.npz"), seed=0)
+
+
+def rl_update(name: str, device: str, data_path: str, weights=None):
+    """One update of algorithm ``name`` (``RL_ALGOS``) on ``device`` from
+    ``weights`` (a numpy tree; None: the algorithm's own seeded init) and
+    a batch from numpy seeds: PPO and MultiAgentPPO a whole training_step
+    on a fixed rollout, the others their one-update method on a fixed
+    batch (SAC/TQC with fixed normal draws).  Returns (the weights before
+    as numpy, metrics, the weights after as numpy)."""
+    import ray_tpu_torch.rl as rl
+    from ray_tpu_torch.rl._transfer import to_numpy
+    r = np.random.default_rng(1)
+    B = 64
+    disc = lambda: {"obs": r.normal(size=(B, 4)).astype(np.float32),
+                    "actions": r.integers(0, 4, B).astype(np.int32)}
+    trans = lambda: dict(disc(), rewards=r.normal(size=B).astype(
+        np.float32), next_obs=r.normal(size=(B, 4)).astype(np.float32),
+        terminateds=(r.random(B) < 0.2).astype(np.float32))
+    base = lambda c: c.debugging(seed=0).training(lr=1e-3).resources(
+        device=device)
+    if name == "PPO":
+        algo = base(rl.PPOConfig().environment(
+            lambda: rl.StatelessGuess(4)).env_runners(
+                rollout_fragment_length=32)).build_algo()
+    elif name == "DQN":
+        algo = base(rl.DQNConfig().environment(
+            lambda: rl.StatelessGuess(4))).build_algo()
+    elif name in ("SAC", "TQC"):
+        algo = base(getattr(rl, name + "Config")().environment(
+            "Pendulum-v1")).build_algo()
+    elif name in ("IMPALA", "APPO"):
+        algo = base(getattr(rl, name + "Config")().environment(
+            lambda: rl.StatelessGuess(4)).env_runners(
+                num_env_runners=0)).build_algo()
+    elif name == "MultiAgentPPO":
+        algo = base(rl.MultiAgentPPOConfig().environment(
+            lambda: rl.MultiGuess(seed=0)).multi_agent(
+                policy_mapping_fn=lambda aid: aid)).build_algo()
+    else:
+        algo = base(getattr(rl, name + "Config")().environment(
+            "StatelessGuess").offline_data(input_path=data_path)
+        ).build_algo()
+    if weights is not None:
+        algo.set_weights(weights)
+    before = to_numpy(algo.get_weights())
+    if name == "PPO":
+        ro = _rl_rollout(2, 32, 4, 4, 4)
+        algo.env_runner_group.sample = lambda n: [ro]
+        m = algo.training_step()["learner"]
+    elif name == "MultiAgentPPO":
+        per = {pid: {k: v.reshape(32, *v.shape[2:])
+                     for k, v in _rl_rollout(3 + i, 32, 1, 4, 4).items()
+                     if k not in ("bootstrap_values", "last_values")}
+               for i, pid in enumerate(("a0", "a1"))}
+        algo.runner.sample = lambda n: per
+        m = algo.training_step()["learner"]
+    elif name == "DQN":
+        m = algo._update(trans())
+    elif name in ("SAC", "TQC"):
+        b = {"obs": r.normal(size=(B, 3)).astype(np.float32),
+             "actions": r.uniform(-2, 2, (B, 1)).astype(np.float32),
+             "rewards": r.normal(size=B).astype(np.float32),
+             "next_obs": r.normal(size=(B, 3)).astype(np.float32),
+             "terminateds": (r.random(B) < 0.2).astype(np.float32)}
+        eps = tuple(r.normal(size=(B, 1)).astype(np.float32)
+                    for _ in range(2))
+        from ray_tpu_torch.rl._transfer import fetch_metrics
+        m = fetch_metrics(algo._update(b, eps=eps))
+    elif name in ("IMPALA", "APPO"):
+        m = algo._correct_and_update(_rl_rollout(4, 32, 4, 4, 4))
+    elif name in ("CQL", "IQL"):
+        m = algo._update(trans())
+    else:
+        m = algo.learner.update(algo._prepare_batch(dict(
+            disc(), returns_to_go=r.normal(size=B).astype(np.float32))))
+    return before, m, to_numpy(algo.get_weights())
+
+
+def rl_card_vs_cpu(name: str, data_path: str, device: str = "cuda"):
+    """``rl_update`` of ``name`` on the card and on the CPU from the same
+    weights: (max relative error of the params, of the metrics).  A
+    metric is held relative to max(|value|, RL_METRIC_FLOOR): some are
+    means of signed values that cancel (TQC's z_mean: ~4e-4 from
+    quantiles of ~0.1)."""
+    w0, m_cpu, w_cpu = rl_update(name, "cpu", data_path)
+    _w, m_gpu, w_gpu = rl_update(name, device, data_path, weights=w0)
+    flat = lambda m: {f"{k}/{j}" if isinstance(v, dict) else k: x
+                      for k, v in m.items()
+                      for j, x in (v.items() if isinstance(v, dict)
+                                   else [(None, v)])}
+    mc, mg = flat(m_cpu), flat(m_gpu)
+    check(sorted(mc) == sorted(mg), f"rl {name}: metric names differ")
+    metric_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), RL_METRIC_FLOOR)
+                     for k in mc)
+    return _rl_tree_err(w_gpu, w_cpu), metric_err
+
+
+def rl_models_card_vs_cpu(device: str = "cuda"):
+    """The CNN forward at 84x84x4 and the GRU forward_train at T 32, on
+    the card and on the CPU from the same weights: max relative errors."""
+    import torch
+    from ray_tpu_torch.rl import (CNNPolicyModule, CNNPolicySpec,
+                                  GRUPolicyModule, RecurrentPolicySpec)
+    from ray_tpu_torch.rl._transfer import to_device, to_numpy
+    r = np.random.default_rng(5)
+    out = {}
+    cnn = CNNPolicyModule(CNNPolicySpec((84, 84, 4), 6))
+    gru = GRUPolicyModule(RecurrentPolicySpec(8, 4, hidden=64))
+    p_cnn = cnn.init(torch.Generator().manual_seed(0))
+    p_gru = gru.init(torch.Generator().manual_seed(1))
+    obs = r.uniform(size=(32, 84, 84, 4)).astype(np.float32)
+    seq = r.normal(size=(16, 32, 8)).astype(np.float32)
+    h0 = r.normal(size=(16, 64)).astype(np.float32)
+    resets = r.random((16, 32)) < 0.1
+    res = {}
+    for dev in ("cpu", device):
+        d = torch.device(dev)
+        with torch.no_grad():
+            c = cnn.forward_train(to_device(p_cnn, d), to_device(obs, d))
+            g = gru.forward_train(to_device(p_gru, d), to_device(seq, d),
+                                  to_device(h0, d), to_device(resets, d))
+        res[dev] = to_numpy({"cnn": c, "gru": g})
+    for k in ("cnn", "gru"):
+        out[k] = _rl_tree_err(res[device][k], res["cpu"][k])
+    return out
+
+
+def rl_cartpole_card_vs_numpy(n: int = 4096, device: str = "cuda"):
+    """``TorchCartPoleVector.step`` on the card from 4096 states against
+    numpy ``CartPole.step`` from the same states: the number of lanes
+    outside rtol 1e-5 / atol 1e-6 (the JAX test's), and the flags'
+    mismatches."""
+    import torch
+    from ray_tpu_torch.rl import CartPole, TorchCartPoleVector
+    vec = TorchCartPoleVector(n, seed=3, device=device)
+    states = vec.reset().cpu().numpy().copy()
+    actions = np.arange(n) % 2
+    nxt, rew, term, trunc = vec.step(torch.from_numpy(actions).to(device))
+    nxt, term = nxt.cpu().numpy(), term.cpu().numpy()
+    bad_state = bad_flag = 0
+    for i in range(n):
+        py = CartPole()
+        py._state = states[i].astype(np.float64)
+        want, _r, te, _tr, _ = py.step(int(actions[i]))
+        bad_flag += int(bool(term[i]) != te)
+        if not te and not np.allclose(nxt[i], want, rtol=1e-5, atol=1e-6):
+            bad_state += 1
+    return {"lanes": n, "state_mismatches": bad_state,
+            "terminated_mismatches": bad_flag,
+            "rewards_all_one": bool((rew == 1).all().item())}
+
+
+def phase_rl_exact(smi):
+    """Each algorithm's update on the card against the same update on the
+    CPU (TF32 off for matmuls and cuDNN); the CNN and GRU forwards; the
+    device CartPole against the numpy env.  A mismatch fails the run."""
+    import tempfile
+    import torch
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data = _rl_offline_data(tmp)
+            algos = {}
+            for name in RL_ALGOS:
+                p_err, m_err = rl_card_vs_cpu(name, data)
+                algos[name] = {"params_rel_err": p_err,
+                               "metrics_rel_err": m_err}
+        models = rl_models_card_vs_cpu()
+        cartpole = rl_cartpole_card_vs_numpy()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    emit({"phase": "rl_exact", "card": smi, "tf32": False, "tol": RL_TOL,
+          "algos": algos, "models_rel_err": models, "cartpole": cartpole,
+          "seconds": time.perf_counter() - t0})
+    bad = {k: v for k, v in algos.items()
+           if v["params_rel_err"] > RL_TOL or v["metrics_rel_err"] > RL_TOL}
+    check(not bad, f"rl_exact: card and CPU updates differ: {bad}")
+    check(all(v <= RL_TOL for v in models.values()),
+          f"rl_exact: CNN/GRU card vs CPU {models}")
+    check(cartpole["state_mismatches"] == 0
+          and cartpole["terminated_mismatches"] == 0
+          and cartpole["rewards_all_one"], f"rl_exact cartpole {cartpole}")
+
+
+def _rl_syncs(fn):
+    """(fn's result, the host syncs torch's sync debug mode reports while
+    it runs)."""
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, len(_syncs(caught))
+
+
+def _rl_profile(run):
+    """One call of ``run`` under torch.profiler: its wall ms, the card's
+    busy ms (kernel time summed), the kernels launched and the idle
+    share 1 - busy / wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy_us, launches = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            busy_us += us
+            launches += ev.count
+    return {"wall_ms": wall, "busy_ms": busy_us / 1e3,
+            "kernels": launches, "idle_share": 1 - busy_us / 1e3 / wall}
+
+
+def _rl_sample_parts(runner, steps):
+    """Where a sample's time goes, per env step (ms): the forward with
+    its one readback (``_act``), the numpy envs' step, and the rest (the
+    pinned upload, buffers, bookkeeping); then the forward alone, enqueued
+    back to back with no readback, which leaves the round trip."""
+    import torch
+    import ray_tpu_torch.rl.env_runner as er
+    parts = {"act": 0.0, "env_step": 0.0}
+
+    def timed(part, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                parts[part] += (time.perf_counter() - t) * 1e3
+        return run
+
+    runner._act = timed("act", runner._act)
+    runner.vec.step = timed("env_step", runner.vec.step)
+    try:
+        t0 = time.perf_counter()
+        runner.sample(steps)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        del runner._act, runner.vec.step
+    obs = er.to_device(runner._obs, runner.device)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            runner.module.forward_exploration(runner.params, obs,
+                                              runner._gen)
+        enqueue = (time.perf_counter() - t0) * 1e3 / steps
+        torch.cuda.synchronize()
+    per = {k: v / steps for k, v in parts.items()}
+    per["other"] = wall / steps - sum(per.values())
+    per["forward_enqueue_only"] = enqueue
+    per["readback_wait"] = per["act"] - enqueue
+    return per
+
+
+def _rl_ppo_default(smi, device="cuda"):
+    """PPO at the repo's default config on CartPole (4 envs x 128 steps,
+    MLP 64x64, 4 epochs of 128-row minibatches), RL_PPO_ITERS iterations
+    of build().train(), timed by part; then the host syncs of one sample
+    and of one learner update."""
+    import ray_tpu_torch.rl.ppo as ppo_mod
+    from ray_tpu_torch.rl import PPOConfig
+    algo = PPOConfig().environment("CartPole-v1").resources(
+        device=device).build()
+    parts = {"sample": 0.0, "gae": 0.0, "learner": 0.0}
+
+    def timed(part, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                parts[part] += time.perf_counter() - t
+        return run
+
+    runner_group, learner_group = algo.env_runner_group, algo.learner_group
+    runner_group.sample = timed("sample", runner_group.sample)
+    learner_group.update = timed("learner", learner_group.update)
+    real_gae = ppo_mod.compute_gae
+    ppo_mod.compute_gae = timed("gae", real_gae)
+    try:
+        algo.train()                         # warm-up iteration
+        for k in parts:
+            parts[k] = 0.0
+        t0 = time.perf_counter()
+        for _ in range(RL_PPO_ITERS):
+            res = algo.train()
+        total = time.perf_counter() - t0
+    finally:
+        ppo_mod.compute_gae = real_gae
+        del runner_group.sample, learner_group.update
+    cfg = algo.config
+    steps = cfg.rollout_fragment_length * cfg.num_envs_per_runner
+    runner = runner_group.local
+    batch, sample_syncs = _rl_syncs(lambda: runner.sample(
+        cfg.rollout_fragment_length))
+    mb = {k: v.reshape(-1, *v.shape[2:])[:cfg.minibatch_size]
+          for k, v in batch.items() if k in ("obs", "actions")}
+    n = len(mb["actions"])
+    mb.update(logp_old=batch["logp"].reshape(-1)[:n],
+              advantages=np.ones(n, np.float32),
+              value_targets=np.zeros(n, np.float32),
+              **ppo_mod.ppo_consts(cfg))
+    _m, update_syncs = _rl_syncs(lambda: learner_group.update(mb))
+    check(sample_syncs == cfg.rollout_fragment_length + 1,
+          f"rl_train: {sample_syncs} host syncs in a sample of "
+          f"{cfg.rollout_fragment_length} steps (want one a step and one "
+          f"for the bootstrap values)")
+    check(update_syncs == 1,
+          f"rl_train: {update_syncs} host syncs in one learner update")
+    sample_parts = _rl_sample_parts(runner, cfg.rollout_fragment_length)
+    sample_prof = _rl_profile(lambda: runner.sample(
+        cfg.rollout_fragment_length))
+    update_prof = _rl_profile(lambda: learner_group.update(mb))
+    updates = cfg.num_epochs * (steps // cfg.minibatch_size)
+    per = {k: v / RL_PPO_ITERS for k, v in parts.items()}
+    return {"config": {"env": "CartPole-v1",
+                       "num_envs": cfg.num_envs_per_runner,
+                       "rollout_fragment_length": cfg.rollout_fragment_length,
+                       "hidden": list(cfg.module_hidden),
+                       "num_epochs": cfg.num_epochs,
+                       "minibatch_size": cfg.minibatch_size},
+            "iterations": RL_PPO_ITERS, "s_per_iter": total / RL_PPO_ITERS,
+            "s_per_iter_by_part": per,
+            "s_per_iter_other": total / RL_PPO_ITERS - sum(per.values()),
+            "env_steps_per_iter": steps, "updates_per_iter": updates,
+            "env_steps_per_s": steps * RL_PPO_ITERS / total,
+            "sample_env_steps_per_s": steps / per["sample"],
+            "host_syncs_per_sample": sample_syncs,
+            "host_syncs_per_env_step": sample_syncs
+            / cfg.rollout_fragment_length,
+            "host_syncs_per_update": update_syncs,
+            "sample_ms_per_env_step": sample_parts,
+            "sample_profile": sample_prof, "update_profile": update_prof,
+            "episode_return_mean":
+                res["env_runners"]["episode_return_mean"],
+            "card": smi}
+
+
+def _rl_device_rollout(smi, device="cuda"):
+    """TorchCartPoleVector.rollout at N x T with the PPO module's
+    exploration forward as the policy: env steps/s and the host syncs
+    inside (none: nothing is read back until the caller reads)."""
+    import torch
+    from ray_tpu_torch.rl import (DiscretePolicyModule, RLModuleSpec,
+                                  TorchCartPoleVector)
+    module = DiscretePolicyModule(RLModuleSpec(4, 2))
+    params = module.init(torch.Generator(device=device).manual_seed(0))
+    vec = TorchCartPoleVector(RL_ROLLOUT_N, seed=0, device=device)
+    vec.reset()
+    gen = torch.Generator(device=device).manual_seed(1)
+    policy = lambda p, obs, g: module.forward_exploration(p, obs, g)[0]
+    vec.rollout(params, policy, 8, gen)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj, syncs = _rl_syncs(lambda: vec.rollout(params, policy,
+                                                RL_ROLLOUT_T, gen))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    prof = _rl_profile(lambda: vec.rollout(params, policy, RL_ROLLOUT_T,
+                                           gen))
+    rew = float(traj[2].sum().item())
+    check(syncs == 0, f"rl_train: {syncs} host syncs inside rollout")
+    check(rew == RL_ROLLOUT_N * RL_ROLLOUT_T and tuple(traj[0].shape) == (
+        RL_ROLLOUT_T, RL_ROLLOUT_N, 4), "rl_train: rollout output")
+    return {"num_envs": RL_ROLLOUT_N, "steps": RL_ROLLOUT_T,
+            "seconds": secs,
+            "env_steps_per_s": RL_ROLLOUT_N * RL_ROLLOUT_T / secs,
+            "host_syncs_inside": syncs, "profile": prof,
+            "kernels_per_step": prof["kernels"] / RL_ROLLOUT_T,
+            "episodes_ended": int(traj[3].sum().item()), "card": smi}
+
+
+def _rl_others(smi, data_path, device="cuda"):
+    """One train() of every other algorithm at its JAX default widths
+    (MLP 64x64, default batch sizes; the offline ones on 2,000
+    StatelessGuess transitions).  The off-policy ones start learning
+    after 64 steps instead of 500, so their one iteration of 128 env
+    steps includes updates.  Each runs twice; the second is timed."""
+    import ray_tpu_torch.rl as rl
+    cfgs = {
+        "DQN": rl.DQNConfig().environment("CartPole-v1").training(
+            learning_starts=64),
+        "SAC": rl.SACConfig().environment("Pendulum-v1").training(
+            learning_starts=64),
+        "TQC": rl.TQCConfig().environment("Pendulum-v1").training(
+            learning_starts=64),
+        "IMPALA": rl.IMPALAConfig().environment("CartPole-v1").env_runners(
+            num_env_runners=0),
+        "APPO": rl.APPOConfig().environment("CartPole-v1").env_runners(
+            num_env_runners=0),
+        "BC": rl.BCConfig().environment("StatelessGuess").offline_data(
+            input_path=data_path),
+        "MARWIL": rl.MARWILConfig().environment(
+            "StatelessGuess").offline_data(input_path=data_path),
+        "CQL": rl.CQLConfig().environment("StatelessGuess").offline_data(
+            input_path=data_path),
+        "IQL": rl.IQLConfig().environment("StatelessGuess").offline_data(
+            input_path=data_path),
+        "MultiAgentPPO": rl.MultiAgentPPOConfig().environment(
+            lambda: rl.MultiGuess(seed=0)).multi_agent(
+                policy_mapping_fn=lambda aid: aid),
+    }
+    rows = {}
+    for name, cfg in cfgs.items():
+        algo = cfg.resources(device=device).build_algo()
+        t0 = time.perf_counter()
+        algo.train()
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = algo.train()
+        rows[name] = {"s_first_iter": first,
+                      "s_per_iter": time.perf_counter() - t0,
+                      "learner": sorted(res.get("learner", {}))}
+        check(rows[name]["learner"], f"rl_train: {name} made no update")
+    return rows
+
+
+def phase_rl_train(smi):
+    """PPO at the default config through build().train(); the device
+    CartPole rollout; one train() of every other algorithm.  Torch's TF32
+    defaults (matmul off, cuDNN on)."""
+    import tempfile
+    import torch
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    t0 = time.perf_counter()
+    try:
+        ppo = _rl_ppo_default(smi)
+        rollout = _rl_device_rollout(smi)
+        with tempfile.TemporaryDirectory() as tmp:
+            others = _rl_others(smi, _rl_offline_data(tmp))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    emit({"phase": "rl_train", "card": smi, "ppo": ppo,
+          "device_rollout": rollout, "others": others,
+          "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3182,6 +3696,12 @@ def main() -> int:
     paths["ring_local"] = phase_ring_local(smi)
     torch.cuda.empty_cache()
     paths["train_moe"] = phase_train_moe(smi)
+    torch.cuda.empty_cache()
+    t_rl = time.perf_counter()
+    phase_rl_exact(smi)
+    phase_rl_train(smi)
+    emit({"phase": "rl", "card": smi,
+          "seconds": time.perf_counter() - t_rl})
     kernels = []
     for name, row, src, rep in (
             ("flash_fwd", rows["flash_fwd_S256"], FLASH_SOURCE,

@@ -19,5 +19,8 @@ and sharded training (``parallel``: mesh, sharding rules, the sharded step
 over ``torch.distributed``; ``checkpoint``: the JAX package's wire format;
 ``train.mesh``: placement helpers and the mesh-reshape restore), and the
 trainer (``train.TorchTrainer``: spawned workers over the ``_control``
-plane, async sharded checkpoints with commit, failure restarts).
+plane, async sharded checkpoints with commit, failure restarts), the
+serving tiers (``llm.disagg``, ``llm.fleet``) and reinforcement learning
+(``rl``: PPO, DQN, SAC, TQC, IMPALA/APPO, offline, multi-agent, the
+device-resident CartPole; in one process).
 """

@@ -5,7 +5,12 @@ whose leaves ``np.asarray`` accepts) into the port's dict of tensors.  The
 layout is kept exactly: the stacked ``[L, ...]`` blocks and every axis order
 of ``ray_tpu/models/llama.py:init_params``, with no transposes, so a test or
 a checkpoint feeds both packages the same weights.  ``opt_state_from_numpy``
-does the same for optax's adamw state.
+does the same for optax's adamw state, and ``optax_state_from_numpy`` for an
+optax state of any nesting (the RL learners' ``chain(clip_by_global_norm,
+adam)``: ``(EmptyState(), (ScaleByAdamState(count, mu, nu), EmptyState()))``)
+node for node.  The RL params trees keep the JAX layouts too (the CNN's
+``HWIO`` kernels, the GRU's fused ``w_x``/``w_h``, TQC's stacked ``[N, ...]``
+critics), so ``params_from_numpy`` carries a JAX ``get_weights()`` over.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
-from ..optim import AdamState
+from ..optim import AdamState, EmptyState
 
 
 def _leaf(x, dtype: Optional[torch.dtype], device: torch.device):
@@ -69,3 +74,22 @@ def opt_state_from_numpy(state: Any, device: DeviceLike = None) -> AdamState:
         count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32),
         mu=params_from_numpy(adam.mu, device=device),
         nu=params_from_numpy(adam.nu, device=device))
+
+
+def optax_state_from_numpy(state: Any, device: DeviceLike = None) -> Any:
+    """An optax state as numpy (tuples of ``ScaleByAdamState`` and
+    ``EmptyState``, any nesting, as ``optax.chain`` builds it) -> the same
+    nesting of ``optim.AdamState`` (``count`` an int32 CPU scalar) and
+    ``optim.EmptyState``."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if _find_adam(node) is node:
+            return opt_state_from_numpy(node, device=dev)
+        if isinstance(node, tuple) and getattr(node, "_fields", None) == ():
+            return EmptyState()
+        if isinstance(node, (list, tuple)):
+            return tuple(conv(v) for v in node)
+        raise TypeError(f"unexpected optax state node {type(node)}")
+
+    return conv(state)

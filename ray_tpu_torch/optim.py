@@ -3,6 +3,9 @@ behaviour that ``ray_tpu/parallel/spmd.py`` relies on
 (``optax.adamw(lr, b1=0.9, b2=0.95, weight_decay=0.1)``), and
 ``global_norm``.
 
+``adam``, ``clip_by_global_norm``, ``chain`` and ``apply_updates`` are the
+functional optax transformations the RL learners use (``ray_tpu/rl``).
+
 ``adamw`` follows ``optax.adamw`` with its defaults (``eps_root=0``,
 ``mu_dtype=None``, ``mask=None``): mu and nu in the params' dtype,
 bias-corrected m_hat / (sqrt(v_hat) + eps) with the correction cast to each
@@ -16,7 +19,7 @@ of ``donate_argnums``, so params, grads, mu and nu never exist twice.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -151,3 +154,104 @@ def global_norm(tree: Any) -> torch.Tensor:
     leaves = tree_leaves(tree)
     norms = torch._foreach_norm(leaves, 2, dtype=torch.float32)
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+# ----------------------------------------------------------------- optax-
+# shaped transformations for the RL learners (``ray_tpu/rl/learner.py``'s
+# ``optax.chain(optax.clip_by_global_norm(m), optax.adam(lr))`` and SAC's
+# ``optax.adam``).  Functional, as optax is: ``update`` returns new update
+# and state trees and never writes into its inputs, so a params tree handed
+# out (a target network, ``get_weights``) stays a snapshot.  The states
+# have optax's layout: ``adam(lr).init(p)`` is ``(AdamState(count, mu, nu),
+# EmptyState())`` and ``chain(a, b).init(p)`` is ``(a.init(p), b.init(p))``.
+
+class GradientTransformation(NamedTuple):
+    """optax's ``GradientTransformation``: ``init(params) -> state`` and
+    ``update(updates, state, params=None) -> (updates, state)``."""
+    init: Callable
+    update: Callable
+
+
+def _empty_init(_params: Any) -> EmptyState:
+    return EmptyState()
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """``optax.clip_by_global_norm``: each leaf becomes ``(t / norm) *
+    max_norm`` when ``norm >= max_norm`` and stays as it is otherwise.
+    (``torch.nn.utils.clip_grad_norm_`` scales by ``max_norm / (norm +
+    1e-6)`` clamped at 1, which differs.)  The test runs on the device: no
+    host sync."""
+
+    def update(updates, state, params=None):
+        g_norm = global_norm(updates)
+        keep = g_norm < max_norm
+        return tree_map(
+            lambda t: torch.where(keep, t, (t / g_norm.to(t.dtype))
+                                  * max_norm), updates), state
+
+    return GradientTransformation(_empty_init, update)
+
+
+def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
+                  eps: float = 1e-8) -> GradientTransformation:
+    """``optax.scale_by_adam`` (``eps_root=0``, no nesterov): mu and nu in
+    the params' dtype, ``count`` an int32 scalar kept on the CPU (the bias
+    correction is computed on the host, in fp32 as optax does)."""
+
+    def init(params):
+        zeros = lambda p: torch.zeros_like(p, requires_grad=False)
+        return AdamState(count=torch.zeros((), dtype=torch.int32),
+                         mu=tree_map(zeros, params),
+                         nu=tree_map(zeros, params))
+
+    def update(updates, state, params=None):
+        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, updates, state.mu)
+        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, updates,
+                      state.nu)
+        count = min(int(state.count) + 1, _INT32_MAX)
+        out = tree_map(
+            lambda m, v: (m / _correction(b1, count, m.dtype))
+            / (torch.sqrt(v / _correction(b2, count, v.dtype)) + eps),
+            mu, nu)
+        return out, AdamState(count=torch.tensor(count, dtype=torch.int32),
+                              mu=mu, nu=nu)
+
+    return GradientTransformation(init, update)
+
+
+def scale_by_learning_rate(learning_rate: float) -> GradientTransformation:
+    """``optax.scale_by_learning_rate``: updates times ``-learning_rate``."""
+    return GradientTransformation(
+        _empty_init,
+        lambda updates, state, params=None: (
+            tree_map(lambda u: -learning_rate * u, updates), state))
+
+
+def chain(*transforms: GradientTransformation) -> GradientTransformation:
+    """``optax.chain``: the state is the tuple of the parts' states."""
+
+    def init(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update(updates, state, params=None):
+        new_state = []
+        for t, s in zip(transforms, state):
+            updates, s = t.update(updates, s, params)
+            new_state.append(s)
+        return updates, tuple(new_state)
+
+    return GradientTransformation(init, update)
+
+
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> GradientTransformation:
+    """``optax.adam``: ``chain(scale_by_adam, scale_by_learning_rate)``."""
+    return chain(scale_by_adam(b1, b2, eps),
+                 scale_by_learning_rate(learning_rate))
+
+
+def apply_updates(params: Any, updates: Any) -> Any:
+    """``optax.apply_updates``: ``p + u`` in each param's dtype, as new
+    tensors."""
+    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)

@@ -866,3 +866,88 @@ def test_llama_tiny_serves_and_trains_through_the_d32_kernels(cuda):
         InferenceEngine(params, odd, device="cuda")
     with pytest.raises(ValueError, match='attention_impl="reference"'):
         make_lm_train_step(odd, build_mesh())
+
+
+# ----------------------------------------------------------------------- RL
+# ray_tpu_torch.rl has no kernel of its own: these hold its algorithms on
+# the card to the same algorithms on the CPU (chip_smoke.py's rl_exact
+# cases, TF32 off as the ``cuda`` fixture sets it, and cuDNN's too) and
+# count its host syncs.
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def rl_offline_data(tmp_path_factory):
+    return _chip_smoke()._rl_offline_data(
+        str(tmp_path_factory.mktemp("rl")))
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("name", ["PPO", "DQN", "SAC", "TQC", "IMPALA",
+                                  "APPO", "BC", "MARWIL", "CQL", "IQL",
+                                  "MultiAgentPPO"])
+def test_rl_update_on_the_card_matches_cpu(no_tf32, rl_offline_data, name):
+    cs = _chip_smoke()
+    p_err, m_err = cs.rl_card_vs_cpu(name, rl_offline_data)
+    assert p_err <= cs.RL_TOL and m_err <= cs.RL_TOL, (p_err, m_err)
+
+
+def test_rl_cnn_and_gru_on_the_card_match_cpu(no_tf32):
+    cs = _chip_smoke()
+    errs = cs.rl_models_card_vs_cpu()
+    assert all(v <= cs.RL_TOL for v in errs.values()), errs
+
+
+def test_torch_cartpole_on_the_card_matches_numpy_env(cuda):
+    res = _chip_smoke().rl_cartpole_card_vs_numpy()
+    assert res["state_mismatches"] == 0, res
+    assert res["terminated_mismatches"] == 0 and res["rewards_all_one"]
+
+
+def test_rl_host_syncs(cuda):
+    """One host sync an env step in the runner (plus one for the bootstrap
+    values of a sample), one a learner update, none inside a device
+    rollout."""
+    from ray_tpu_torch.rl import (DiscretePolicyModule, EnvRunner,
+                                  RLModuleSpec, StatelessGuess,
+                                  TorchCartPoleVector, TorchLearner)
+    from ray_tpu_torch.rl.ppo import ppo_loss
+    cs = _chip_smoke()
+    runner = EnvRunner(lambda: StatelessGuess(4), num_envs=4,
+                       device="cuda")
+    batch, syncs = cs._rl_syncs(lambda: runner.sample(16))
+    assert syncs == 17
+    learner = TorchLearner(DiscretePolicyModule(RLModuleSpec(4, 4)),
+                           ppo_loss, device="cuda")
+    n = 64
+    mb = {"obs": batch["obs"].reshape(n, 4),
+          "actions": batch["actions"].reshape(n),
+          "logp_old": batch["logp"].reshape(n),
+          "advantages": np.ones(n, np.float32),
+          "value_targets": np.zeros(n, np.float32),
+          "clip_param": np.array([0.2], np.float32),
+          "vf_coeff": np.array([0.5], np.float32),
+          "ent_coeff": np.array([0.01], np.float32)}
+    _m, syncs = cs._rl_syncs(lambda: learner.update(mb))
+    assert syncs == 1
+    vec = TorchCartPoleVector(256, seed=0, device="cuda")
+    policy = lambda p, obs, g: torch.randint(0, 2, (obs.shape[0],),
+                                             generator=g, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _traj, syncs = cs._rl_syncs(lambda: vec.rollout(None, policy, 16, gen))
+    assert syncs == 0
