@@ -27,7 +27,13 @@ of its own): each algorithm's update on the card against the same update
 on the CPU, the CNN and GRU policies and the device-resident CartPole
 (``rl_exact``); PPO at the default config through ``build().train()``
 with its host syncs counted, a 4,096 x 128 device rollout and one
-``train()`` of every other algorithm (``rl_train``).
+``train()`` of every other algorithm (``rl_train``).  The process tier:
+``build_llm_deployment`` at ``llama_1b`` in a replica process, its greedy
+tokens against the in-process ``LLMServer`` and its kernels' launches
+counted inside the replica (``serve_deployment``); PPO with 2 remote env
+runners and 2 DDP learners, then IMPALA at its default config
+(``rl_remote``); a 2-process gloo collective group against numpy
+(``collective``).
 The kernels' launch counts, set to 0 just before each path and
 read just after, show that every path ran through them.  Each phase prints one JSON line; any failed
 check raises and the script exits non-zero.  The last line is
@@ -3650,6 +3656,296 @@ def phase_rl_train(smi):
           "seconds": time.perf_counter() - t0})
 
 
+# -- the process tier: serve deployment, remote RL, collective groups ---------
+
+#: serve_deployment: 8 requests of 256 prompt + 32 new tokens through the
+#: handle, one of 64 + 24 through the stream (llama_1b, bf16, seed 0).
+DEPLOY_REQUESTS, DEPLOY_PROMPT, DEPLOY_NEW = 8, 256, 32
+DEPLOY_STREAM = (64, 24)
+DEPLOY_OPTS = dict(max_slots=16, page_size=16, prefill_buckets=(64, 256),
+                   num_pages=16 * 20 + 1)
+
+
+def deployment_params(seed: int, device: str = "cuda",
+                      model: str = "llama_1b"):
+    """The deployment's ``build_params`` (module level: the replica process
+    imports it from this file): ``model`` (llama_1b: full width and depth)
+    in bf16 from a seeded generator on ``device``."""
+    import torch
+    from ray_tpu_torch.models import llama
+    cfg = getattr(llama, model)()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return llama.init_params(cfg, gen, param_dtype=torch.bfloat16,
+                             device=device), cfg
+
+
+class SmokeLLMServer:
+    """The deployment's class in this phase: ``build_llm_deployment``'s
+    ``LLMServer``, which it wraps and to which it hands every call, plus
+    the replica's own kernel launch counts (this process's counters see
+    nothing of another process).  Module level: the replica imports it
+    from this file."""
+
+    def __init__(self, build_params, engine_options=None):
+        from ray_tpu_torch.llm import LLMServer
+        self.server = LLMServer(build_params, engine_options)
+
+    def __call__(self, body):
+        return self.server(body)
+
+    def __getattr__(self, name):
+        return getattr(self.server, name)
+
+    def reset_launches(self) -> bool:
+        _reset_launches()
+        return True
+
+    def read_launches(self):
+        return _read_launches()
+
+
+def _deployment_bodies(vocab: int):
+    rng = np.random.default_rng(11)
+    bodies = [{"prompt_tokens": rng.integers(0, vocab, DEPLOY_PROMPT).tolist(),
+               "max_tokens": DEPLOY_NEW} for _ in range(DEPLOY_REQUESTS)]
+    stream = {"prompt_tokens": rng.integers(0, vocab,
+                                            DEPLOY_STREAM[0]).tolist(),
+              "max_tokens": DEPLOY_STREAM[1]}
+    return bodies, stream
+
+
+def _serve_all(call, stream, bodies, stream_body):
+    """The requests at once (one thread each) and the stream in this
+    thread: (results, streamed items, stream TTFT s, wall s)."""
+    results = [None] * len(bodies)
+
+    def one(i):
+        results[i] = call(bodies[i])
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    items, ttft = [], None
+    for item in stream(stream_body):
+        if ttft is None:
+            ttft = time.perf_counter() - t0
+        items.append(item)
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "requests did not return")
+    return results, items, ttft, time.perf_counter() - t0
+
+
+def phase_serve_deployment(smi, device: str = "cuda",
+                           model: str = "llama_1b"):
+    """build_llm_deployment at llama_1b in one replica process on the card,
+    through serve.run and the handle (remote and the stream), against the
+    in-process LLMServer on the same weights: equal greedy tokens.  The
+    kernels' launches are counted inside the replica, zeroed just before
+    the requests and read just after.  (``device="cpu"`` with
+    ``llama_tiny`` rehearses the phase where there is no card.)"""
+    import functools
+
+    import torch
+    from ray_tpu_torch import _actor, serve
+    from ray_tpu_torch.llm import LLMServer, build_llm_deployment
+    build = functools.partial(deployment_params, 0, device, model)
+    opts = dict(DEPLOY_OPTS, device=device)
+    bodies, stream_body = _deployment_bodies(build()[1].vocab_size)
+    # The reference: the same requests through the in-process server.
+    server = LLMServer(build, opts)
+    try:
+        server(dict(bodies[0], max_tokens=2))          # warm-up
+        ref, ref_items, ref_ttft, ref_wall = _serve_all(
+            server, server.stream, bodies, stream_body)
+    finally:
+        server.close()
+    del server
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    app = build_llm_deployment(build, name=model, engine_options=opts)
+    # The user's entry point, its LLMServer wrapped by the class that
+    # reports the replica's launch counts.
+    check(app.deployment.cls_or_fn is LLMServer, "not LLMServer's")
+    app = serve.Application(app.deployment.options(cls_or_fn=SmokeLLMServer))
+    t0 = time.perf_counter()
+    handle = serve.run(app)
+    start_s = time.perf_counter() - t0
+    try:
+        _actor.get(handle.remote(dict(bodies[0], max_tokens=2)), timeout=300)
+        replica = handle.options(method_name="reset_launches")
+        _actor.get(replica.remote(), timeout=60)
+        # -- the main path: launches counted in the replica.
+        streamer = handle.options(stream=True, method_name="stream")
+        got, items, ttft, wall = _serve_all(
+            lambda b: _actor.get(handle.remote(b), timeout=600),
+            lambda b: (_actor.get(r, timeout=600)
+                       for r in streamer.remote(b)),
+            bodies, stream_body)
+        launches = _actor.get(handle.options(
+            method_name="read_launches").remote(), timeout=60)
+        # -- end of the main path.
+    finally:
+        serve.shutdown()
+    tokens = [r["output_tokens"] for r in got]
+    ref_tokens = [r["output_tokens"] for r in ref]
+    streamed = [it["token"] for it in items if "token" in it]
+    ref_streamed = [it["token"] for it in ref_items if "token" in it]
+    new = DEPLOY_REQUESTS * DEPLOY_NEW + DEPLOY_STREAM[1]
+    res = {"phase": "serve_deployment", "model": model, "card": smi,
+           "replicas": 1, "requests": DEPLOY_REQUESTS,
+           "prompt_tokens": DEPLOY_PROMPT, "new_tokens": DEPLOY_NEW,
+           "stream": list(DEPLOY_STREAM), "start_s": start_s,
+           "wall_s": wall, "gen_tok_s": new / wall, "ttft_s": ttft,
+           "in_process": {"wall_s": ref_wall, "gen_tok_s": new / ref_wall,
+                          "ttft_s": ref_ttft},
+           "tokens_equal": tokens == ref_tokens,
+           "stream_equal": streamed == ref_streamed,
+           "launches": {k: launches[k] for k in ("flash_fwd",
+                                                 "paged_decode")}}
+    emit(res)
+    check(all(len(t) == DEPLOY_NEW for t in tokens)
+          and len(streamed) == DEPLOY_STREAM[1],
+          f"serve_deployment: short outputs {[len(t) for t in tokens]}")
+    check(tokens == ref_tokens and streamed == ref_streamed,
+          "serve_deployment: the deployment's greedy tokens differ from "
+          "the in-process server's on the same weights")
+    check(device == "cpu" or (res["launches"]["flash_fwd"] > 0
+                              and res["launches"]["paged_decode"] > 0),
+          f"serve_deployment: kernels not launched in the replica "
+          f"{res['launches']}")
+    return res["launches"]
+
+
+def phase_rl_remote(smi, device: str = "cuda"):
+    """PPO with 2 remote env runners and 2 DDP learners on the card, 2
+    iterations, the learner replicas bit-identical after; then IMPALA at
+    its default config (2 remote runners, async), 2 iterations."""
+    from ray_tpu_torch import _actor
+    from ray_tpu_torch._tree import tree_leaves
+    from ray_tpu_torch.rl import IMPALAConfig, PPOConfig
+    t0 = time.perf_counter()
+    algo = (PPOConfig().environment("CartPole-v1").resources(device=device)
+            .env_runners(num_env_runners=2)
+            .learners(num_learners=2).build_algo())
+    build_s = time.perf_counter() - t0
+    try:
+        ddp = algo.learner_group._ddp
+        iters = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            out = algo.train()
+            iters.append(time.perf_counter() - t1)
+        ppo_loss = out["learner"]["loss"]
+        replicas = _actor.get([r.get_weights.remote()
+                               for r in algo.learner_group.remotes],
+                              timeout=120)
+        identical = all(np.array_equal(a, b) for a, b in zip(
+            tree_leaves(replicas[0]), tree_leaves(replicas[1])))
+        steps = out["num_env_steps_sampled"]
+    finally:
+        algo.stop()
+    t2 = time.perf_counter()
+    algo = IMPALAConfig().environment("CartPole-v1").resources(
+        device=device).build_algo()
+    try:
+        impala = [algo.train() for _ in range(2)]
+    finally:
+        algo.stop()
+    impala_s = time.perf_counter() - t2
+    losses = [r["learner"]["loss"] for r in impala]
+    res = {"phase": "rl_remote", "card": smi,
+           "ppo": {"env_runners": 2, "learners": 2, "ddp": ddp,
+                   "build_s": build_s, "s_per_iter": iters,
+                   "env_steps_per_iter": steps,
+                   "env_steps_per_s": steps / iters[-1],
+                   "loss": ppo_loss, "replicas_identical": identical},
+           "impala": {"env_runners": 2, "seconds": impala_s,
+                      "losses": losses,
+                      "env_steps": impala[-1]["num_env_steps_sampled"]},
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    check(ddp and identical and np.isfinite(ppo_loss),
+          f"rl_remote: PPO ddp={ddp} identical={identical} loss={ppo_loss}")
+    check(all(np.isfinite(x) for x in losses),
+          f"rl_remote: IMPALA losses {losses}")
+
+
+class CollectiveMember:
+    """One member of the collective phase's groups (module level: the
+    actor imports it from this file)."""
+
+    def __init__(self, rank: int, world: int):
+        self.rank, self.world = rank, world
+
+    def run(self, group: str, backend: str):
+        from ray_tpu_torch import collective as col
+        col.init_collective_group(self.world, self.rank, backend=backend,
+                                  group_name=group)
+        r = self.rank
+        x = np.arange(1 << 20, dtype=np.float32) * (r + 1)
+        out = {"allreduce": col.allreduce(x, group),
+               "allgather": col.allgather(np.full(3, r, np.int64), group),
+               "broadcast": col.broadcast(np.full(4, float(r)), 1, group),
+               "reducescatter": col.reducescatter(
+                   np.arange(2 * self.world, dtype=np.float64), group)}
+        if r % 2 == 0 and r + 1 < self.world:
+            col.send(np.full(5, r + 0.5, np.float32), r + 1, group)
+        elif r % 2:
+            out["recv"] = col.recv((5,), np.float32, r - 1, group)
+        col.barrier(group)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            col.allreduce(x, group)
+        out["allreduce_4mib_ms"] = (time.perf_counter() - t0) * 100
+        col.destroy_collective_group(group)
+        return out
+
+
+def check_collective(results, world: int) -> bool:
+    """Every member's results against numpy."""
+    x = np.arange(1 << 20, dtype=np.float32)
+    total = x * (world * (world + 1) / 2)
+    ok = True
+    for r, out in enumerate(results):
+        ok &= np.array_equal(out["allreduce"], total)
+        ok &= np.array_equal(out["allgather"],
+                             np.repeat(np.arange(world), 3).reshape(world,
+                                                                    3))
+        ok &= np.array_equal(out["broadcast"], np.full(4, 1.0))
+        ok &= np.array_equal(out["reducescatter"],
+                             world * np.arange(2 * world)[2 * r:2 * r + 2])
+        if r % 2:
+            ok &= np.array_equal(out["recv"], np.full(5, r - 0.5,
+                                                      np.float32))
+    return bool(ok)
+
+
+def phase_collective(smi):
+    """A 2-process gloo group over host arrays (collective.allreduce,
+    allgather, broadcast, reducescatter, send/recv, barrier) against
+    numpy."""
+    from ray_tpu_torch import _actor
+    t0 = time.perf_counter()
+    cls = _actor.remote(CollectiveMember).options(device="cpu", num_cpus=1)
+    members = [cls.remote(r, 2) for r in range(2)]
+    try:
+        results = _actor.get([m.run.remote("smoke", "gloo")
+                              for m in members], timeout=300)
+    finally:
+        for m in members:
+            _actor.kill(m)
+    ok = check_collective(results, 2)
+    emit({"phase": "collective", "card": smi, "backend": "gloo",
+          "world": 2, "correct": ok,
+          "allreduce_4mib_ms": [r["allreduce_4mib_ms"] for r in results],
+          "seconds": time.perf_counter() - t0})
+    check(ok, "collective: a gloo op disagrees with numpy")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3683,6 +3979,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["disagg_load"], paths["fleet"] = phase_serving_tiers(smi)
     torch.cuda.empty_cache()
+    paths["serve_deployment"] = phase_serve_deployment(smi)
+    torch.cuda.empty_cache()
     phase_train_exact()
     paths["train_tiny"] = phase_train_tiny()
     paths["train"], params, opt = phase_train(smi)
@@ -3702,6 +4000,8 @@ def main() -> int:
     phase_rl_train(smi)
     emit({"phase": "rl", "card": smi,
           "seconds": time.perf_counter() - t_rl})
+    phase_rl_remote(smi)
+    phase_collective(smi)
     kernels = []
     for name, row, src, rep in (
             ("flash_fwd", rows["flash_fwd_S256"], FLASH_SOURCE,

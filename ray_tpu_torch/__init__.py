@@ -22,5 +22,17 @@ trainer (``train.TorchTrainer``: spawned workers over the ``_control``
 plane, async sharded checkpoints with commit, failure restarts), the
 serving tiers (``llm.disagg``, ``llm.fleet``) and reinforcement learning
 (``rl``: PPO, DQN, SAC, TQC, IMPALA/APPO, offline, multi-agent, the
-device-resident CartPole; in one process).
+device-resident CartPole), and the process tier (``_actor``: spawned
+process actors over the ``_control`` store; ``collective``: groups over
+``torch.distributed``; RL's remote runners and DDP learners; ``serve``:
+deployments whose replicas are actors, under ``build_llm_deployment`` and
+``build_disagg_deployment``).
 """
+
+from ._actor import (ActorError, GetTimeoutError, ObjectRef,  # noqa: E402
+                     ObjectRefGenerator, TaskError, get, kill, put, remote,
+                     wait)
+
+__all__ = ["remote", "get", "put", "wait", "kill", "ObjectRef",
+           "ObjectRefGenerator", "TaskError", "ActorError",
+           "GetTimeoutError"]

@@ -30,6 +30,23 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_unflatten(tree: Any, leaves: List[Any]) -> Any:
+    """``leaves`` (in ``tree_leaves`` order) in ``tree``'s structure."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            out = {k: build(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            items = [build(v) for v in node]
+            return type(node)(*items) if hasattr(node, "_fields") \
+                else type(node)(items)
+        return next(it)
+
+    return build(tree)
+
+
 def _children(node: Any):
     """(key, child) pairs of a tree node in JAX's flattening order, or None
     for a leaf: dict keys sorted, sequence indexes, named-tuple fields;

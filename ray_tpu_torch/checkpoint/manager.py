@@ -25,6 +25,7 @@ import os
 import pickle
 import re
 import shutil
+import tempfile
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -79,6 +80,39 @@ class Checkpoint:
 
     def as_directory(self) -> str:
         return self.path
+
+    def to_directory(self, dest: Optional[str] = None) -> str:
+        """Materialize a copy of the checkpoint at ``dest``.
+
+        The copy lands in a staging dir next to the target and is
+        published with one atomic rename: a reader (or a crash) can never
+        observe a half-copied directory at ``dest``.
+        """
+        dest = os.path.abspath(dest or tempfile.mkdtemp(prefix="ckpt_"))
+        if dest == self.path:
+            return dest
+        parent = os.path.dirname(dest) or "."
+        os.makedirs(parent, exist_ok=True)
+        staging = tempfile.mkdtemp(prefix=os.path.basename(dest) + ".tmp",
+                                   dir=parent)
+        try:
+            # copytree into the (empty) staging dir, then swing it in.
+            shutil.copytree(self.path, staging, dirs_exist_ok=True)
+            try:
+                os.replace(staging, dest)
+            except OSError:
+                # dest already exists (mkdtemp pre-created it, or a prior
+                # copy landed): atomically swap it out of the namespace
+                # first, then retire the old tree.
+                old = tempfile.mkdtemp(prefix=os.path.basename(dest)
+                                       + ".old", dir=parent)
+                os.replace(dest, os.path.join(old, "d"))
+                os.replace(staging, dest)
+                shutil.rmtree(old, ignore_errors=True)
+        except BaseException:
+            shutil.rmtree(staging, ignore_errors=True)
+            raise
+        return dest
 
     # -- pytree convenience -------------------------------------------------
 

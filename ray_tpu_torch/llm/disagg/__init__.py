@@ -5,8 +5,9 @@ Prefill/decode split with the KV handed from a prefill worker (its own CUDA
 stream) to a decode engine on the same card, SLO-aware admission control
 (per-class token budgets, bounded queues with deadline shedding, KV
 occupancy backpressure), and the open-loop load generator.  The same
-exports as the JAX package; the object-store transport and the serve
-deployment raise until ROADMAP Queue 1 item 6.
+exports as the JAX package; ``build_disagg_deployment`` serves one
+``DisaggServer`` a replica process, and the object-store transport raises
+until ROADMAP Queue 1 item 6b.
 """
 
 from .handoff import KVHandoff, export_handoff, import_handoff

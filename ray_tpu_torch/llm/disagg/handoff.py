@@ -10,8 +10,8 @@ stream, ordered after the prefill by the handoff's ``ready`` event.
 
 The JAX package also seals a handoff into its shared-memory object store
 (``export_handoff``/``import_handoff``) so a decode worker in another
-process maps it; that transport crosses process boundaries and comes with
-the serve runtime (ROADMAP Queue 1 item 6).
+process maps it; that transport comes with the process tier's part 2
+(ROADMAP Queue 1 item 6b).
 """
 
 from __future__ import annotations
@@ -24,8 +24,7 @@ import torch
 
 from ..engine import SamplingParams
 
-#: Names the ROADMAP entry that brings what this module refuses.
-_ITEM_6 = "ROADMAP Queue 1 item 6 (the serve deployment over processes)"
+from ...serve.api import PART_2
 
 
 def _nbytes(x) -> int:
@@ -80,7 +79,7 @@ def export_handoff(store, object_id, handoff: KVHandoff):
     worker in another process, is not ported yet."""
     raise NotImplementedError(
         f"export_handoff (the object-store transport of a KV handoff "
-        f"across processes) comes with {_ITEM_6}; in one process pass the "
+        f"across processes) comes with {PART_2}; in one process pass the "
         f"KVHandoff to import_prefill directly")
 
 
@@ -88,5 +87,5 @@ def import_handoff(desc):
     """Mapping an exported handoff by descriptor is not ported yet."""
     raise NotImplementedError(
         f"import_handoff (the object-store transport of a KV handoff "
-        f"across processes) comes with {_ITEM_6}; in one process pass the "
+        f"across processes) comes with {PART_2}; in one process pass the "
         f"KVHandoff to import_prefill directly")

@@ -17,8 +17,10 @@ timeout storms.
   the disagg-off fallback (single engine, long prompts sliced across
   decode steps); ``mode="inline"`` is the stall-everything baseline, kept
   for A/B runs.
-* :func:`build_disagg_deployment`: the plane as a serve deployment, which
-  needs the serve runtime (ROADMAP Queue 1 item 6) and raises.
+* :func:`build_disagg_deployment`: the plane as a serve deployment; each
+  replica process hosts one whole :class:`DisaggServer`, so its handoffs
+  stay inside that process (the cross-process handoff, ``store=``, raises
+  naming ROADMAP Queue 1 item 6b).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from typing import Any, Dict, List, Optional
 from ...serve.api import OverloadError
 from ...util import telemetry, tracing
 from ..engine import InferenceEngine, SamplingParams
-from .handoff import _ITEM_6
+from ...serve.api import PART_2
 from .prefill import PrefillWorker
 
 
@@ -195,7 +197,7 @@ class DisaggServer:
         if store is not None:
             raise NotImplementedError(
                 f"DisaggServer(store=...): the object-store handoff "
-                f"transport comes with {_ITEM_6}; in one process handoffs "
+                f"transport comes with {PART_2}; in one process handoffs "
                 f"pass directly (store=None)")
         params, cfg = build_params() if callable(build_params) \
             else build_params
@@ -604,9 +606,24 @@ class DisaggServer:
     shutdown = close
 
 
-def build_disagg_deployment(build_params, **_options):
-    """The serve deployment of :class:`DisaggServer` needs the serve
-    runtime over processes, which the port has not reached yet."""
-    raise NotImplementedError(
-        f"build_disagg_deployment needs the serve runtime, which comes with "
-        f"{_ITEM_6}; use DisaggServer directly")
+def build_disagg_deployment(build_params, *, name: str = "llm_disagg",
+                            mode: str = "disagg",
+                            num_replicas: int = 1, num_tpus: int = 0,
+                            max_ongoing_requests: int = 64,
+                            max_queued_requests: Optional[int] = None,
+                            admission: Optional[AdmissionConfig] = None,
+                            engine_options: Optional[Dict[str, Any]] = None,
+                            autoscaling_config=None):
+    """The disagg plane as a serve deployment: each replica hosts one
+    DisaggServer (prefill worker + decode engine + SLO router), and the
+    serve handle path adds its own ``max_queued_requests`` admission
+    bound in front."""
+    from ... import serve
+
+    dep = serve.deployment(
+        DisaggServer, name=name, num_replicas=num_replicas,
+        num_tpus=num_tpus, max_ongoing_requests=max_ongoing_requests,
+        max_queued_requests=max_queued_requests,
+        autoscaling_config=autoscaling_config)
+    return dep.bind(build_params, mode=mode, admission=admission,
+                    engine_options=engine_options)

@@ -8,7 +8,7 @@ the card, and SLO-driven replica autoscaling over a windowed series store
 (queue depth / shed rate / ITL p99).  On one card each replica and the
 prefill tier run on their own CUDA streams and share one copy of the
 weights.  ``RemoteReplica``/``ReplicaHost`` raise until ROADMAP Queue 1
-item 6.
+item 6b.
 """
 
 from .autoscale import (FleetScaleDecision, ServeAutoscalePolicy,

@@ -191,14 +191,14 @@ class DecodeReplica:
 
 class RemoteReplica:
     """A decode replica on another host (the JAX package's
-    ``fleet/remote.py``): it needs the serve runtime over processes."""
+    ``fleet/remote.py``): it comes with the process tier's part 2."""
 
     def __init__(self, *_args, **_kwargs):
+        from ...serve.api import PART_2
         raise NotImplementedError(
-            "RemoteReplica (a decode replica in another process or on "
-            "another host) comes with ROADMAP Queue 1 item 6 (the serve "
-            "deployment over processes); use the local DecodeReplica, one "
-            "stream each on the card")
+            f"RemoteReplica (a decode replica in another process or on "
+            f"another host) comes with {PART_2}; use the local "
+            f"DecodeReplica, one stream each on the card")
 
 
 class ReplicaHost(RemoteReplica):

@@ -21,7 +21,7 @@ A replica loss sheds exactly the requests that were mid-flight on it
 survivors.  On one card every replica, and the prefill tier, has its own
 stream and shares one copy of the weights.  Replicas on other hosts
 (``RemoteReplica``) and the object-store handoff come with ROADMAP Queue 1
-item 6.
+item 6b.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from ... import _control
 from ..._device import resolve_device
 from ...serve.api import OverloadError
 from ...util import telemetry, tracing
-from ..disagg.handoff import _ITEM_6
+from ...serve.api import PART_2
 from ..disagg.prefill import PrefillWorker
 from ..disagg.router import (_EARLY_TTL_S, AdmissionConfig,
                              AdmissionController, _Pending)
@@ -90,7 +90,7 @@ class FleetServer:
         if store is not None:
             raise NotImplementedError(
                 f"FleetServer(store=...): the object-store handoff transport "
-                f"comes with {_ITEM_6}; in one process handoffs pass "
+                f"comes with {PART_2}; in one process handoffs pass "
                 f"directly (store=None)")
         self.name = name
         self.config = config or FleetConfig()

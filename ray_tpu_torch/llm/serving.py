@@ -2,8 +2,11 @@
 (counterpart of ray_tpu/llm/serving.py).
 
 ``LLMServer`` is the JAX package's, with a plain ``threading.Thread`` as its
-drive thread.  ``build_llm_deployment`` needs the serve runtime, whose port
-is a later slice.
+drive thread.  ``build_llm_deployment`` wraps it in a serve deployment
+(``ray_tpu_torch.serve``): each replica is a process hosting one
+``LLMServer`` and its engine on the card (``engine_options["device"]``,
+None: the card).  ``build_params`` travels to the replica by pickle, so it
+must be a module-level function or a ``functools.partial`` of one.
 """
 
 from __future__ import annotations
@@ -189,10 +192,19 @@ class LLMServer:
     shutdown = close
 
 
-def build_llm_deployment(build_params: Callable[[], tuple], **_options):
-    """The serve deployment of :class:`LLMServer` needs the serve runtime,
-    which the port has not reached yet."""
-    raise NotImplementedError(
-        "build_llm_deployment needs the serve runtime, which comes with a "
-        "later slice of the port (ROADMAP: the serve deployment); use "
-        "LLMServer directly")
+def build_llm_deployment(build_params: Callable[[], tuple], *,
+                         name: str = "llm",
+                         num_replicas: int = 1,
+                         num_tpus: int = 0,
+                         max_ongoing_requests: int = 64,
+                         engine_options: Optional[Dict[str, Any]] = None,
+                         autoscaling_config=None):
+    """Wrap the engine in a serve deployment (reference: serve/llm
+    build_llm_deployment)."""
+    from .. import serve
+
+    dep = serve.deployment(
+        LLMServer, name=name, num_replicas=num_replicas,
+        num_tpus=num_tpus, max_ongoing_requests=max_ongoing_requests,
+        autoscaling_config=autoscaling_config)
+    return dep.bind(build_params, engine_options)

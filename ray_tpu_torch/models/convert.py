@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
-from ..optim import AdamState, EmptyState
+from ..optim import AdamState, EmptyState, ScaleByScheduleState
 
 
 def _leaf(x, dtype: Optional[torch.dtype], device: torch.device):
@@ -78,9 +78,10 @@ def opt_state_from_numpy(state: Any, device: DeviceLike = None) -> AdamState:
 
 def optax_state_from_numpy(state: Any, device: DeviceLike = None) -> Any:
     """An optax state as numpy (tuples of ``ScaleByAdamState`` and
-    ``EmptyState``, any nesting, as ``optax.chain`` builds it) -> the same
-    nesting of ``optim.AdamState`` (``count`` an int32 CPU scalar) and
-    ``optim.EmptyState``."""
+    ``EmptyState`` and ``ScaleByScheduleState``, any nesting, as
+    ``optax.chain`` builds it) -> the same nesting of ``optim.AdamState``
+    (``count`` an int32 CPU scalar), ``optim.EmptyState`` and
+    ``optim.ScaleByScheduleState``."""
     dev = resolve_device(device)
 
     def conv(node):
@@ -88,6 +89,10 @@ def optax_state_from_numpy(state: Any, device: DeviceLike = None) -> Any:
             return opt_state_from_numpy(node, device=dev)
         if isinstance(node, tuple) and getattr(node, "_fields", None) == ():
             return EmptyState()
+        if isinstance(node, tuple) and getattr(node, "_fields",
+                                               None) == ("count",):
+            return ScaleByScheduleState(
+                torch.tensor(int(np.asarray(node.count)), dtype=torch.int32))
         if isinstance(node, (list, tuple)):
             return tuple(conv(v) for v in node)
         raise TypeError(f"unexpected optax state node {type(node)}")

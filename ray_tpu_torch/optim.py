@@ -10,7 +10,9 @@ functional optax transformations the RL learners use (``ray_tpu/rl``).
 ``mu_dtype=None``, ``mask=None``): mu and nu in the params' dtype,
 bias-corrected m_hat / (sqrt(v_hat) + eps) with the correction cast to each
 moment's dtype before the division, plus decoupled weight decay ``wd * p``
-on every leaf (norms and embedding included), all times ``-lr``.
+on every leaf (norms and embedding included), all times ``-lr``.  A
+learning rate may be a schedule, a callable of the step count (0 at the
+first update) as optax's ``ScalarOrSchedule`` is.
 
 Unlike optax, ``update`` applies the step to the parameters in place with
 ``torch._foreach_*`` ops and uses the gradients as scratch: the port's form
@@ -19,6 +21,8 @@ of ``donate_argnums``, so params, grads, mu and nu never exist twice.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -27,6 +31,7 @@ import torch
 from ._tree import tree_leaves, tree_map
 
 _INT32_MAX = np.iinfo(np.int32).max
+_NORM = threading.local()
 
 
 class AdamState(NamedTuple):
@@ -43,6 +48,20 @@ class AdamState(NamedTuple):
 class EmptyState(NamedTuple):
     """optax's ``EmptyState``: the state of a transformation that keeps
     none (adamw's weight decay and learning-rate scaling)."""
+
+
+class ScaleByScheduleState(NamedTuple):
+    """optax's ``ScaleByScheduleState``: the step count a learning-rate
+    schedule reads (an int32 CPU scalar)."""
+    count: torch.Tensor
+
+
+def _rate(learning_rate, count: int) -> float:
+    """The learning rate at step ``count`` (the number of updates made
+    before this one): a float, or a schedule called on the count."""
+    if callable(learning_rate):
+        return float(learning_rate(count))
+    return learning_rate
 
 
 def optax_state(state: AdamState) -> tuple:
@@ -71,7 +90,7 @@ def _correction(decay: float, count: int, dtype: torch.dtype) -> float:
 
 
 class AdamW:
-    def __init__(self, learning_rate: float, b1: float = 0.9,
+    def __init__(self, learning_rate, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1):
         self.learning_rate = learning_rate
@@ -102,6 +121,7 @@ class AdamW:
         torch._foreach_add_(mu, g, alpha=1 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, g, g, value=1 - b2)
+        lr = _rate(self.learning_rate, int(state.count))
         count = min(int(state.count) + 1, _INT32_MAX)
         for dtype in dict.fromkeys(t.dtype for t in p):
             idx = [i for i, t in enumerate(p) if t.dtype == dtype]
@@ -115,7 +135,7 @@ class AdamW:
             u = torch._foreach_div(mud, _correction(b1, count, dtype))
             torch._foreach_div_(u, gd)
             torch._foreach_add_(u, pd, alpha=self.weight_decay)
-            torch._foreach_add_(pd, u, alpha=-self.learning_rate)
+            torch._foreach_add_(pd, u, alpha=-lr)
         return AdamState(count=torch.tensor(count, dtype=torch.int32),
                          mu=state.mu, nu=state.nu)
 
@@ -140,18 +160,37 @@ def _local_blocks(lists):
     return [[t.to_local() for t in ts] for ts in lists]
 
 
-def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.95,
+def adamw(learning_rate, b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.1) -> AdamW:
     """``optax.adamw`` with ``init(params)`` and ``update(grads, state,
-    params)`` (in place, see the module docstring)."""
+    params)`` (in place, see the module docstring).  ``learning_rate``: a
+    float or a schedule of the step count (the count before this update,
+    as optax's ``scale_by_schedule`` reads it)."""
     return AdamW(learning_rate, b1=b1, b2=b2, eps=eps,
                  weight_decay=weight_decay)
+
+
+@contextlib.contextmanager
+def blockwise_norm(norm_fn: Callable):
+    """Within the block, ``global_norm(tree)`` is ``norm_fn(leaves)`` on
+    this thread: the sharded training step runs an optax-shaped
+    transformation on each rank's local blocks, whose global norm is a sum
+    over the ranks that ``norm_fn`` makes."""
+    prev = getattr(_NORM, "fn", None)
+    _NORM.fn = norm_fn
+    try:
+        yield
+    finally:
+        _NORM.fn = prev
 
 
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, as an fp32 scalar (each
     leaf's norm accumulated in fp32)."""
     leaves = tree_leaves(tree)
+    norm_fn = getattr(_NORM, "fn", None)
+    if norm_fn is not None:
+        return norm_fn(leaves)
     norms = torch._foreach_norm(leaves, 2, dtype=torch.float32)
     return torch.linalg.vector_norm(torch.stack(norms))
 
@@ -220,8 +259,25 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
     return GradientTransformation(init, update)
 
 
-def scale_by_learning_rate(learning_rate: float) -> GradientTransformation:
-    """``optax.scale_by_learning_rate``: updates times ``-learning_rate``."""
+def scale_by_learning_rate(learning_rate) -> GradientTransformation:
+    """``optax.scale_by_learning_rate``: updates times ``-learning_rate``.
+    A schedule (a callable of the step count) keeps the count in a
+    ``ScaleByScheduleState``, as optax's ``scale_by_schedule`` does, and
+    scales by ``-schedule(count)`` cast to each update's dtype."""
+    if callable(learning_rate):
+        def init(params):
+            return ScaleByScheduleState(torch.zeros((), dtype=torch.int32))
+
+        def update(updates, state, params=None):
+            count = int(state.count)
+            step = -_rate(learning_rate, count)
+            # The step rounded to each update's dtype on the host.
+            return (tree_map(lambda u: float(torch.tensor(
+                step, dtype=u.dtype)) * u, updates),
+                    ScaleByScheduleState(torch.tensor(
+                        min(count + 1, _INT32_MAX), dtype=torch.int32)))
+
+        return GradientTransformation(init, update)
     return GradientTransformation(
         _empty_init,
         lambda updates, state, params=None: (
@@ -244,7 +300,7 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
-def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8) -> GradientTransformation:
     """``optax.adam``: ``chain(scale_by_adam, scale_by_learning_rate)``."""
     return chain(scale_by_adam(b1, b2, eps),

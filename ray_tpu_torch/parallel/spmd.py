@@ -4,8 +4,11 @@
 JAX signatures' meaning.  The step is eager PyTorch: ``loss_fn`` forward,
 ``torch.autograd.grad`` over the parameter leaves (not ``torch.func``: the
 flash kernels' ``autograd.Function`` has no vmap rule, and no ``.grad``
-attributes are kept), then the optimizer's in-place update, which is the
-port's form of ``donate_argnums``.
+attributes are kept), then the optimizer: the port's ``optim.AdamW``
+updates in place, which is the port's form of ``donate_argnums``; any other
+optimizer is an optax-shaped ``GradientTransformation`` (``optim.adam``,
+``optim.chain(...)``), whose ``update`` returns the updates and the new
+state, applied with ``optim.apply_updates`` as JAX's step does.
 
 On the one-device mesh everything is a plain tensor on the mesh's device.
 
@@ -55,9 +58,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .._tree import tree_leaves, tree_map
+from .._tree import tree_leaves, tree_map, tree_unflatten
 from ..models import llama as L
-from ..optim import AdamState, adamw, global_norm
+from ..optim import (AdamState, AdamW, adamw, apply_updates, blockwise_norm,
+                     global_norm)
 from .mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_FSDP, AXIS_PIPELINE,
                    AXIS_SEQ, AXIS_TENSOR, CANONICAL_ORDER, Mesh,
                    set_global_mesh)
@@ -75,6 +79,45 @@ def _clone(tree: Any) -> Any:
         return AdamState(tree.count.clone(), _clone(tree.mu), _clone(tree.nu))
     return tree_map(
         lambda t: t.detach().clone().requires_grad_(t.requires_grad), tree)
+
+
+def _update(optimizer, params: Any, grads: list, opt_state: Any,
+            plan: Optional["_ShardedPlan"] = None):
+    """One optimizer update -> (params, opt_state).  The port's ``AdamW``
+    updates ``params`` in place; a ``GradientTransformation`` gets the
+    gradients in the params' tree and its updates are added to new params
+    (keeping each leaf's ``requires_grad``).
+
+    On a mesh of several ranks (``plan``) the transformation runs on each
+    rank's local blocks, as adamw does (a param, its gradient and its state
+    leaves share one layout, so an elementwise step on the blocks is the
+    step of the whole arrays; DTensor's own dispatch takes minutes a step),
+    with ``optim.global_norm`` summed over the ranks; the results are
+    wrapped back with their DTensors' placements."""
+    if isinstance(optimizer, AdamW):
+        return params, optimizer.update(grads, opt_state, params)
+    if plan is None:
+        with torch.no_grad():
+            updates, opt_state = optimizer.update(
+                tree_unflatten(params, grads), opt_state, params)
+            new = apply_updates(params, updates)
+        return tree_map(lambda n, p: n.requires_grad_(p.requires_grad), new,
+                        params), opt_state
+    from torch.distributed.tensor import DTensor
+    local = lambda t: t.to_local() if isinstance(t, DTensor) else t
+    wrap = lambda new, old: DTensor.from_local(
+        new, old.device_mesh, old.placements, run_check=False,
+        shape=old.shape, stride=old.stride()) if isinstance(
+            old, DTensor) else new
+    blocks = tree_map(local, params)
+    with torch.no_grad(), blockwise_norm(plan.blockwise_norm(params)):
+        updates, state = optimizer.update(
+            tree_unflatten(blocks, [local(g) for g in grads]),
+            tree_map(local, opt_state), blocks)
+        new = apply_updates(blocks, updates)
+    return (tree_map(lambda n, p: wrap(n, p).requires_grad_(p.requires_grad),
+                     new, params),
+            tree_map(wrap, state, opt_state))
 
 
 def _grads(params: Any, batch: Dict[str, torch.Tensor], cfg,
@@ -149,7 +192,9 @@ def make_lm_train_step(cfg, mesh: Mesh, *,
     trees stay as they were.  ``grad_accum`` > 1 splits the batch's leading
     dim into that many microbatches, each normalised by the full batch's
     token count, and sums their gradients in the params' dtype before one
-    update.  ``rules``: the logical-axis table (default_rules)."""
+    update.  ``rules``: the logical-axis table (default_rules).
+    ``optimizer``: the port's ``optim.adamw`` (the default, in place) or
+    any optax-shaped ``GradientTransformation``."""
     optimizer = optimizer or adamw(learning_rate, b1=0.9, b2=0.95,
                                    weight_decay=0.1)
     L.check_supported(cfg)
@@ -172,7 +217,8 @@ def make_lm_train_step(cfg, mesh: Mesh, *,
             params, opt_state = _clone(params), _clone(opt_state)
         loss, grads = plan.loss_and_grads(params, batch, grad_accum)
         gnorm = plan.global_norm(grads)
-        opt_state = optimizer.update(grads, opt_state, params)
+        params, opt_state = _update(optimizer, params, grads, opt_state,
+                                    plan)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return init_fn, step_fn, plan.place_batch
@@ -199,7 +245,7 @@ def _one_device_step(cfg, mesh: Mesh, optimizer, donate, param_dtype,
         else:
             loss, grads = _grads(params, batch, cfg)
         gnorm = global_norm(grads)
-        opt_state = optimizer.update(grads, opt_state, params)
+        params, opt_state = _update(optimizer, params, grads, opt_state)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     def place_batch(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -400,17 +446,33 @@ class _ShardedPlan:
         return self._batch_sum(
             local_batch["loss_mask"].float().sum()).clamp_min(1.0)
 
+    def blockwise_norm(self, params):
+        """``global_norm`` of a tree of local blocks laid out as
+        ``params``: each block counted once (by its primary replica),
+        summed over every rank."""
+        primary = [is_primary(p) for p in tree_leaves(params)]
+
+        def norm(leaves):
+            import torch.distributed as dist
+            if len(leaves) != len(primary):
+                raise ValueError(
+                    f"global_norm on the mesh takes a tree laid out as the "
+                    f"params ({len(primary)} leaves), got {len(leaves)}")
+            total = torch.zeros((), dtype=torch.float32,
+                                device=self.mesh.device)
+            for t, first in zip(leaves, primary):
+                if first:
+                    total = total + torch.linalg.vector_norm(
+                        t, dtype=torch.float32) ** 2
+            dist.all_reduce(total)
+            return total.sqrt()
+
+        return norm
+
     def global_norm(self, grads) -> torch.Tensor:
-        """sqrt of the sum of squares of every gradient leaf: each block
-        counted once (by its primary replica), summed over every rank."""
-        import torch.distributed as dist
-        total = torch.zeros((), dtype=torch.float32, device=self.mesh.device)
-        for g in grads:
-            if is_primary(g):
-                total = total + torch.linalg.vector_norm(
-                    g.to_local(), dtype=torch.float32) ** 2
-        dist.all_reduce(total)
-        return total.sqrt()
+        """sqrt of the sum of squares of every gradient leaf (laid out as
+        the params), the same value on every rank."""
+        return self.blockwise_norm(grads)([g.to_local() for g in grads])
 
 
 def _replicate():

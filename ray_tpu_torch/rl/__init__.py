@@ -4,10 +4,12 @@
 Modules are pure functions of parameter trees (dicts of tensors with the
 JAX package's keys and layouts), learners update them with optax's own
 ``clip_by_global_norm`` + ``adam`` (``ray_tpu_torch.optim``), and every
-algorithm runs in one process on ``config.resources(device=...)`` (None:
-the card).  Remote env runners, learner actors and IMPALA's async pipeline
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 6), and so do the
-parquet and ``Dataset`` inputs of offline RL (item 3(c)).
+algorithm runs on ``config.resources(device=...)`` (None: the card): in
+one process, or with remote env runners (``num_env_runners > 0``) and
+learner actors (``num_learners > 0``, DDP over a gloo allreduce) as process
+actors (``ray_tpu_torch._actor``); IMPALA/APPO run their async pipeline
+over remote runners.  The parquet and ``Dataset`` inputs of offline RL
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 3(c)).
 
 Quick start::
 

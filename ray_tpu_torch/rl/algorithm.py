@@ -1,11 +1,14 @@
 """Algorithm + AlgorithmConfig: the RL training loop and its config.
 
-A copy of ``ray_tpu/rl/algorithm.py`` with two changes for the port: the
+A copy of ``ray_tpu/rl/algorithm.py`` with three changes for the port: the
 config carries a ``device`` (``.resources(device=...)``; None is the card),
-which every algorithm builds its modules, learners and runners on; and
+which every algorithm builds its modules, learners and runners on;
 ``save``/``restore`` write and read numpy trees, so a checkpoint holds no
 tensors and the JAX package reads it as its own (and the port reads the
-JAX package's, whose arrays ``np.asarray`` takes).
+JAX package's, whose arrays ``np.asarray`` takes); and the env creator is
+``functools.partial(make_env, env_spec)``, not a lambda, so remote env
+runners (``num_env_runners > 0``, process actors) import it by reference.
+``stop()`` kills every actor the algorithm started.
 
 Reference: rllib/algorithms/algorithm.py:208 (Algorithm is a Trainable with
 ``step:1169`` orchestrating ``training_step:2420``) and
@@ -16,6 +19,7 @@ algorithm_config.py (fluent AlgorithmConfig: .environment(),
 from __future__ import annotations
 
 import copy
+import functools
 import os
 import pickle
 import time
@@ -165,7 +169,7 @@ class Algorithm:
         self.env_runner_group: Optional[EnvRunnerGroup] = None
         if self._use_env_runner_group:
             self.env_runner_group = EnvRunnerGroup(
-                lambda: make_env(config.env_spec),
+                functools.partial(make_env, config.env_spec),
                 num_env_runners=config.num_env_runners,
                 num_envs_per_runner=config.num_envs_per_runner,
                 module_spec=config.module_spec(), seed=config.seed,

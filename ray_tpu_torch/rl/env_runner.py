@@ -9,8 +9,13 @@ ONE transfer (``env_runner.py:148-171``; the JAX package's RT502 fix).
 Episode truncations add one read of V(final_obs), and a sample one read of
 the bootstrap values at its end.
 
-``EnvRunnerGroup`` keeps one local runner (``num_env_runners=0``); remote
-runners raise ``NotImplementedError`` (ROADMAP Queue 1 item 6).
+``EnvRunnerGroup`` keeps one local runner (``num_env_runners=0``) or runs
+``num_env_runners`` remote runners, each a process actor
+(``ray_tpu_torch._actor``) seeded ``seed + 1000 * (i + 1)`` as JAX's are,
+with its module on ``device`` (None: the card).  The env creator, module
+and connectors travel to the runners by pickle, so a custom env creator or
+module class must be defined at the top level of a module.  Weights go to
+the runners as numpy trees (one device -> host copy in this process).
 """
 
 from __future__ import annotations
@@ -20,11 +25,21 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import _actor
 from .._device import DeviceLike, make_generator, resolve_device
-from ._transfer import fetch, to_device
+from ._transfer import fetch, to_device, to_numpy
 from .env import VectorEnv
-from .learner import PROCESS_TIER
 from .rl_module import DiscretePolicyModule, RLModuleSpec, categorical, take
+
+
+def _pipeline(connectors):
+    """A connector, a list of them or a pipeline -> a pipeline (None stays
+    None)."""
+    from .connectors import Connector, ConnectorPipeline
+    if connectors is None or isinstance(connectors, ConnectorPipeline):
+        return connectors
+    return ConnectorPipeline([connectors] if isinstance(
+        connectors, Connector) else list(connectors))
 
 
 class EnvRunner:
@@ -43,16 +58,10 @@ class EnvRunner:
         # Env-to-module connector pipeline (reference: rllib ConnectorV2):
         # observations pass through it before every forward; its state
         # syncs with the weights via get_state/set_state.
-        from .connectors import Connector, ConnectorPipeline
-        if env_to_module is not None and \
-                not isinstance(env_to_module, ConnectorPipeline):
-            env_to_module = ConnectorPipeline(
-                [env_to_module] if isinstance(env_to_module, Connector)
-                else list(env_to_module))
-        self.env_to_module = env_to_module
+        self.env_to_module = _pipeline(env_to_module)
         obs_dim = self.vec.observation_dim
-        if env_to_module is not None:
-            obs_dim *= env_to_module.output_dim_factor
+        if self.env_to_module is not None:
+            obs_dim *= self.env_to_module.output_dim_factor
         self.spec = module_spec or RLModuleSpec(
             obs_dim, self.vec.num_actions)
         # Custom module hook (e.g. models.CNNPolicyModule): anything with
@@ -80,6 +89,16 @@ class EnvRunner:
 
     def _connect(self, obs: np.ndarray) -> np.ndarray:
         return obs if self.env_to_module is None else self.env_to_module(obs)
+
+    def get_connector_state(self) -> Dict[str, Any]:
+        """Connector stats only: sync_weights must not ship the params
+        tree back just to read these."""
+        return {} if self.env_to_module is None \
+            else self.env_to_module.get_state()
+
+    def set_connector_state(self, state: Dict[str, Any]) -> None:
+        if self.env_to_module is not None:
+            self.env_to_module.set_state(state)
 
     # -- weights --------------------------------------------------------- #
 
@@ -216,40 +235,105 @@ class EnvRunner:
             "num_episodes": len(self._finished_returns),
         }
 
+    def ping(self) -> str:
+        return "ok"
+
 
 class EnvRunnerGroup:
-    """The local runner (reference: env_runner_group.py:70 with
-    ``num_env_runners=0``, the rllib debugging convention)."""
+    """Local-or-remote set of EnvRunners (reference:
+    env_runner_group.py:70).
+
+    ``num_env_runners=0`` keeps one local runner (the rllib convention for
+    debugging); otherwise runners are actors sampled in parallel.
+    ``runner_resources``: extra actor options for each runner (JAX: the
+    actors' ``resources``), e.g. ``{"device": "cuda:1"}``.
+    """
 
     def __init__(self, env_creator: Callable, *, num_env_runners: int = 0,
                  num_envs_per_runner: int = 4,
                  module_spec: Optional[RLModuleSpec] = None, seed: int = 0,
+                 runner_resources: Optional[Dict[str, Any]] = None,
                  env_to_module_fn=None, module_fn=None,
                  device: DeviceLike = None):
-        if num_env_runners != 0:
-            raise NotImplementedError(
-                f"num_env_runners={num_env_runners}: remote env runners "
-                f"are not ported yet; see {PROCESS_TIER}.  Use "
-                f"num_env_runners=0.")
-        self.num_env_runners = 0
-        self.local = EnvRunner(
-            env_creator, num_envs=num_envs_per_runner,
-            module_spec=module_spec, seed=seed,
-            env_to_module=env_to_module_fn and env_to_module_fn(),
-            module=module_fn and module_fn(), device=device)
-        self.remotes: list = []
+        self.num_env_runners = num_env_runners
+        # Prototype pipeline used only for merge_states on gathered
+        # per-runner connector states (its own state is never consulted);
+        # a pipeline as each runner's is (JAX's merges a bare connector's
+        # state shape against the runners' pipeline states).
+        self._connector_proto = _pipeline(
+            env_to_module_fn() if env_to_module_fn else None)
+        if num_env_runners == 0:
+            self.local = EnvRunner(
+                env_creator, num_envs=num_envs_per_runner,
+                module_spec=module_spec, seed=seed,
+                env_to_module=env_to_module_fn and env_to_module_fn(),
+                module=module_fn and module_fn(), device=device)
+            self.remotes: list = []
+            return
+        self.local = None
+        cls = _actor.remote(EnvRunner)
+        opts = dict({"num_cpus": 1}, **(runner_resources or {}))
+        self.remotes = [
+            cls.options(**opts).remote(
+                env_creator, num_envs=num_envs_per_runner,
+                module_spec=module_spec, seed=seed + 1000 * (i + 1),
+                env_to_module=env_to_module_fn and env_to_module_fn(),
+                module=module_fn and module_fn(), device=device)
+            for i in range(num_env_runners)]
 
     def sample(self, num_steps: int = 256) -> List[Dict[str, np.ndarray]]:
-        return [self.local.sample(num_steps)]
+        if self.local is not None:
+            return [self.local.sample(num_steps)]
+        return _actor.get([r.sample.remote(num_steps)
+                           for r in self.remotes])
 
     def sync_weights(self, params) -> None:
-        self.local.set_state({"params": params})
+        """Broadcast learner params to all runners; with stateful
+        connectors, also merge per-runner connector stats into one
+        canonical state and broadcast it back (reference:
+        env_runner_group.py sync_weights + rllib's distributed
+        MeanStdFilter aggregation).
+
+        ``params`` may be an ObjectRef (from
+        ``LearnerGroup.get_weights_ref``): each runner's call resolves
+        it."""
+        if self.local is not None:
+            if isinstance(params, _actor.ObjectRef):
+                params = _actor.get(params)
+            self.local.set_state({"params": params})
+            return
+        if not isinstance(params, _actor.ObjectRef):
+            params = to_numpy(params)
+        _actor.get([r.set_weights.remote(params) for r in self.remotes])
+        if self._connector_proto is not None:
+            merged = self._connector_proto.merge_states(_actor.get(
+                [r.get_connector_state.remote() for r in self.remotes]))
+            _actor.get([r.set_connector_state.remote(merged)
+                        for r in self.remotes])
 
     def connector_state(self):
-        return self.local.get_state().get("connectors")
+        """Canonical connector state for evaluation/inference consumers."""
+        if self.local is not None:
+            return self.local.get_state().get("connectors")
+        if self._connector_proto is None:
+            return None
+        return self._connector_proto.merge_states(_actor.get(
+            [r.get_connector_state.remote() for r in self.remotes]))
 
     def aggregate_metrics(self) -> Dict[str, float]:
-        return self.local.metrics()
+        if self.local is not None:
+            return self.local.metrics()
+        all_m = _actor.get([r.metrics.remote() for r in self.remotes])
+        rets = [m["episode_return_mean"] for m in all_m
+                if not np.isnan(m["episode_return_mean"])]
+        lens = [m["episode_len_mean"] for m in all_m
+                if not np.isnan(m["episode_len_mean"])]
+        return {
+            "episode_return_mean": float(np.mean(rets)) if rets else np.nan,
+            "episode_len_mean": float(np.mean(lens)) if lens else np.nan,
+            "num_episodes": int(sum(m["num_episodes"] for m in all_m)),
+        }
 
     def stop(self) -> None:
-        pass
+        for r in self.remotes:
+            _actor.kill(r)

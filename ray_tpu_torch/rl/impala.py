@@ -1,12 +1,12 @@
-"""IMPALA and APPO with V-trace off-policy correction, synchronous.
+"""IMPALA and APPO with V-trace off-policy correction.
 
 Counterpart of ``ray_tpu/rl/impala.py``.  ``vtrace`` is numpy and copied;
-the losses are PyTorch.  The port runs IMPALA/APPO with the local runner
-(``num_env_runners=0``: the JAX package's synchronous A2C-with-V-trace
-mode).  The asynchronous pipeline over remote runners
-(``impala.py:150-201``) needs the port's process tier: the JAX default of 2
-remote runners (``impala.py:112``) is kept, so a default config raises
-``NotImplementedError`` (ROADMAP Queue 1 item 6) when it is built.
+the losses are PyTorch.  With remote runners (the default config's 2,
+``impala.py:112``) sampling overlaps learning: one sample is in flight per
+runner, the learner takes whichever finishes first (``wait``), and the
+stale rollouts are V-trace-corrected (``impala.py:185-251``).  With
+``num_env_runners=0`` it is the JAX package's synchronous
+A2C-with-V-trace mode.
 
 The learner's forward over a rollout (current-policy log-probs and values
 for V-trace) comes back to the host in one transfer.
@@ -19,7 +19,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ._transfer import fetch, to_device
+from .. import _actor
+from ._transfer import fetch, to_device, to_numpy
 from .algorithm import Algorithm, AlgorithmConfig
 from .learner import TorchLearner
 from .rl_module import DiscretePolicyModule, take
@@ -106,9 +107,7 @@ def appo_loss(module: DiscretePolicyModule, params, batch):
 class IMPALAConfig(AlgorithmConfig):
     def __init__(self):
         super().__init__(IMPALA)
-        # The JAX default (async needs remote runners): the port refuses
-        # it; set env_runners(num_env_runners=0).
-        self.num_env_runners = 2
+        self.num_env_runners = 2       # async needs remote runners
         self.vf_loss_coeff = 0.5
         self.entropy_coeff = 0.01
         self.rho_clip = 1.0
@@ -129,8 +128,12 @@ class IMPALAConfig(AlgorithmConfig):
 
 
 class IMPALA(Algorithm):
-    """Synchronous actor-critic with V-trace (reference:
-    rllib/algorithms/impala with ``num_env_runners=0``)."""
+    """Async actor-critic (reference: rllib/algorithms/impala).
+
+    With ``num_env_runners=0`` it degrades to synchronous A2C-with-vtrace
+    (useful for deterministic tests); with remote runners, sampling
+    overlaps learning and stale rollouts are V-trace-corrected.
+    """
 
     _loss_fn = staticmethod(impala_loss)
 
@@ -141,6 +144,8 @@ class IMPALA(Algorithm):
                                     learning_rate=config.lr,
                                     seed=config.seed, device=self.device)
         self.env_runner_group.sync_weights(self.learner.params)
+        # In-flight sample refs per remote runner (async pipeline).
+        self._inflight: Dict[Any, Any] = {}
         self._steps_sampled = 0
 
     def _correct_and_update(self, rollout: Dict[str, np.ndarray]
@@ -178,10 +183,36 @@ class IMPALA(Algorithm):
         cfg: IMPALAConfig = self.config
         group = self.env_runner_group
         metrics: Dict[str, float] = {}
-        for _ in range(cfg.batches_per_iteration):
-            rollout = group.sample(cfg.rollout_fragment_length)[0]
-            metrics = self._correct_and_update(rollout)
-            group.sync_weights(self.learner.params)
+        if not group.remotes:
+            # Synchronous fallback: local runner, still vtrace-corrected.
+            for _ in range(cfg.batches_per_iteration):
+                rollout = group.sample(cfg.rollout_fragment_length)[0]
+                metrics = self._correct_and_update(rollout)
+                group.sync_weights(self.learner.params)
+            return {"learner": metrics,
+                    "num_env_steps_sampled": self._steps_sampled}
+        # Async: keep one sample in flight per runner; consume as ready.
+        for r in group.remotes:
+            if r not in self._inflight:
+                self._inflight[r] = r.sample.remote(
+                    cfg.rollout_fragment_length)
+        consumed = 0
+        while consumed < cfg.batches_per_iteration:
+            refs = list(self._inflight.values())
+            ready, _ = _actor.wait(refs, num_returns=1, timeout=60)
+            if not ready:
+                break
+            runner = next(r for r, ref in self._inflight.items()
+                          if ref is ready[0])
+            metrics = self._correct_and_update(_actor.get(ready[0]))
+            # Fresh weights to the runner that just finished, then relaunch
+            # (the other runners keep sampling with slightly stale policy:
+            # that lag is exactly what V-trace corrects).
+            _actor.get(runner.set_state.remote(
+                {"params": to_numpy(self.learner.params)}))
+            self._inflight[runner] = runner.sample.remote(
+                cfg.rollout_fragment_length)
+            consumed += 1
         return {"learner": metrics,
                 "num_env_steps_sampled": self._steps_sampled}
 
@@ -191,6 +222,10 @@ class IMPALA(Algorithm):
     def set_weights(self, params) -> None:
         self.learner.set_weights(params)
         self.env_runner_group.sync_weights(self.learner.params)
+
+    def stop(self) -> None:
+        self._inflight.clear()
+        super().stop()
 
 
 class APPOConfig(IMPALAConfig):

@@ -8,27 +8,30 @@ and new params; the metrics dict comes back to the host in ONE transfer
 (``ray_tpu/rl/learner.py:74-83``).  Params are never written in place: a
 tree handed out by ``get_weights`` stays a snapshot, as a JAX array does.
 
-``LearnerGroup`` runs one in-process learner (``num_learners=0``).
-Learner actors with a gradient allreduce (``num_learners >= 1``) need the
-port's process tier and raise ``NotImplementedError`` (ROADMAP Queue 1
-item 6).
+``LearnerGroup`` runs one in-process learner (``num_learners=0``) or
+``num_learners`` learner actors (``ray_tpu_torch._actor``), each holding
+its learner on the actor's device.  With two or more they form a gloo
+collective group and update DDP-style: each computes its shard's gradients,
+the flat gradients are summed by ``collective.allreduce`` over host arrays
+and divided by the world size, and every replica applies the same mean, so
+the replicas stay bit-identical (one card: NCCL refuses two ranks on one
+device, so the host allreduce is JAX's too).  If the group does not form,
+this process averages the gradients instead.  The learner factory travels to
+the actors by pickle: a module-level function or a ``functools.partial``
+of one.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import optim
+from .. import _actor, optim
 from .._device import DeviceLike, make_generator, resolve_device
-from .._tree import tree_map
-from ._transfer import fetch_metrics, to_device
-
-PROCESS_TIER = ("ROADMAP Queue 1 item 6 (the process tier: remote env "
-                "runners, learner actors with an allreduce, IMPALA's async "
-                "pipeline)")
+from .._tree import tree_leaves, tree_map, tree_unflatten
+from ._transfer import fetch_metrics, to_device, to_numpy
 
 
 def value_and_grad(fn: Callable, params: Any) -> Tuple[Any, Any]:
@@ -90,6 +93,27 @@ class TorchLearner:
             self.params = optim.apply_updates(self.params, updates)
         return fetch_metrics(metrics)
 
+    # -- distributed path ------------------------------------------------- #
+
+    def compute_gradients(self, batch) -> Tuple[Any, Dict[str, float]]:
+        """The gradients of ``batch``'s loss (no update) and its metrics,
+        the metrics in one transfer."""
+        batch = to_device(batch, self.device)
+        (loss, metrics), grads = value_and_grad(
+            lambda p: self.loss_fn(self.module, p, batch), self.params)
+        metrics = _detach(dict(metrics))
+        metrics["loss"] = loss.detach()
+        return grads, fetch_metrics(metrics)
+
+    def apply_gradients(self, grads) -> bool:
+        """One optimizer step with ``grads`` (tensors or numpy)."""
+        grads = to_device(grads, self.device)
+        with torch.no_grad():
+            updates, self.opt_state = self.optimizer.update(
+                grads, self.opt_state, self.params)
+            self.params = optim.apply_updates(self.params, updates)
+        return True
+
     def get_weights(self):
         return self.params
 
@@ -98,29 +122,167 @@ class TorchLearner:
         return True
 
 
-class LearnerGroup:
-    """One in-process learner (reference: learner_group.py:100 with
-    ``num_learners=0``).  ``num_learners >= 1`` raises."""
+class LearnerActor:
+    """One learner in its own process (JAX: ``LearnerGroup``'s nested
+    ``LearnerActor``).  Trees leave it as numpy."""
 
-    def __init__(self, learner_factory: Callable[[], TorchLearner], *,
-                 num_learners: int = 0):
-        if num_learners != 0:
-            raise NotImplementedError(
-                f"num_learners={num_learners}: learner actors with a "
-                f"gradient allreduce are not ported yet; see "
-                f"{PROCESS_TIER}.  Use num_learners=0.")
-        self.num_learners = 0
-        self.local: TorchLearner = learner_factory()
-        self.remotes: list = []
+    def __init__(self, factory: Callable[[], TorchLearner]):
+        self._factory = factory
+        self.learner = None
+        self._ddp_group = None
 
-    def update(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
-        return self.local.update(batch)
+    def setup_ddp(self, world_size: int, rank: int, group_name: str,
+                  backend: str = "xla") -> bool:
+        """Join the learner allreduce group (reference:
+        learner_group.py:187 DDP setup), before the learner builds as
+        JAX's does."""
+        from .. import collective
+        collective.init_collective_group(world_size, rank, backend=backend,
+                                         group_name=group_name)
+        self._ddp_group = group_name
+        return True
+
+    def build(self) -> bool:
+        if self.learner is None:
+            self.learner = self._factory()
+        return True
+
+    def update_ddp(self, batch) -> Dict[str, float]:
+        """Grad step with gradients averaged across the learner group by
+        allreduce: gradients never leave the actors."""
+        from .. import collective
+        grads, metrics = self.learner.compute_gradients(batch)
+        leaves = tree_leaves(grads)
+        flat = torch.cat([g.reshape(-1) for g in leaves]).cpu().numpy()
+        summed = collective.allreduce(flat, group_name=self._ddp_group)
+        world = collective.get_collective_group_size(self._ddp_group)
+        mean = torch.from_numpy(summed / np.float32(world))
+        parts = torch.split(mean, [g.numel() for g in leaves])
+        self.learner.apply_gradients(tree_unflatten(grads, [
+            p.reshape(g.shape).to(g.dtype) for p, g in zip(parts, leaves)]))
+        return metrics
+
+    def compute_gradients(self, batch):
+        grads, metrics = self.learner.compute_gradients(batch)
+        return to_numpy(grads), metrics
+
+    def apply_gradients(self, grads) -> bool:
+        return self.learner.apply_gradients(grads)
+
+    def update(self, batch) -> Dict[str, float]:
+        return self.learner.update(batch)
 
     def get_weights(self):
-        return self.local.get_weights()
+        return to_numpy(self.learner.get_weights())
+
+    def set_weights(self, params) -> bool:
+        return self.learner.set_weights(params)
+
+
+class LearnerGroup:
+    """1..N data-parallel learners (reference: learner_group.py:100).
+
+    ``num_learners=0``: a single in-process learner (fast path / tests).
+    ``num_learners>=1``: learner actors; each computes gradients on its
+    shard, the group averages and applies everywhere, keeping replicas
+    bit-identical (the reference's DDP contract).  ``learner_resources``:
+    extra actor options for each learner (JAX: the actors' ``resources``),
+    e.g. ``{"device": "cuda:1"}``.
+    """
+
+    def __init__(self, learner_factory: Callable[[], TorchLearner], *,
+                 num_learners: int = 0,
+                 learner_resources: Optional[Dict[str, Any]] = None):
+        self.num_learners = num_learners
+        self._ddp = False
+        if num_learners == 0:
+            self.local: Optional[TorchLearner] = learner_factory()
+            self.remotes: list = []
+            return
+        self.local = None
+        cls = _actor.remote(LearnerActor)
+        opts = dict({"num_cpus": 1}, **(learner_resources or {}))
+        self.remotes = [cls.options(**opts).remote(learner_factory)
+                        for _ in range(num_learners)]
+        if num_learners >= 2:
+            import os
+            group = f"learner_ddp_{os.getpid()}_{id(self):x}"
+            try:
+                _actor.get([r.setup_ddp.remote(num_learners, i, group)
+                            for i, r in enumerate(self.remotes)],
+                           timeout=120)
+                self._ddp = True
+            except Exception:  # noqa: BLE001 - JAX's fallback, kept
+                # The collective group could not form: this process averages
+                # the gradients instead.
+                pass
+        _actor.get([r.build.remote() for r in self.remotes])
+        # Align initial weights to replica 0 so gradient averaging keeps
+        # them identical forever after.
+        w0 = _actor.get(self.remotes[0].get_weights.remote())
+        _actor.get([r.set_weights.remote(w0) for r in self.remotes[1:]])
+
+    def update(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
+        if self.local is not None:
+            return self.local.update(batch)
+        shards = _split_batch(batch, len(self.remotes))
+        if self._ddp:
+            # Gradients allreduce among the learner actors; this process
+            # only sees metrics (reference: DDP across learner workers).
+            metrics_list = _actor.get([
+                r.update_ddp.remote(s)
+                for r, s in zip(self.remotes, shards)])
+        else:
+            outs = _actor.get([r.compute_gradients.remote(s)
+                               for r, s in zip(self.remotes, shards)])
+            grads = [g for g, _ in outs]
+            mean_grads = tree_map(lambda *gs: sum(gs) / len(gs), *grads)
+            _actor.get([r.apply_gradients.remote(mean_grads)
+                        for r in self.remotes])
+            metrics_list = [m for _, m in outs]
+        return {k: float(np.mean([m[k] for m in metrics_list]))
+                for k in metrics_list[0]}
+
+    def get_weights(self):
+        if self.local is not None:
+            return self.local.get_weights()
+        return _actor.get(self.remotes[0].get_weights.remote())
+
+    def get_weights_ref(self):
+        """Remote mode: replica 0's weights as an ObjectRef, which the env
+        runners' calls resolve; local mode: the weights."""
+        if self.local is not None:
+            return self.local.get_weights()
+        return self.remotes[0].get_weights.remote()
 
     def set_weights(self, params) -> None:
-        self.local.set_weights(params)
+        if self.local is not None:
+            self.local.set_weights(params)
+            return
+        params = to_numpy(params)
+        _actor.get([r.set_weights.remote(params) for r in self.remotes])
 
     def stop(self) -> None:
-        pass
+        for r in self.remotes:
+            _actor.kill(r)
+
+
+def _split_batch(batch: Dict[str, Any], n: int
+                 ) -> List[Dict[str, np.ndarray]]:
+    shards: List[Dict[str, np.ndarray]] = [{} for _ in range(n)]
+    for k, v in batch.items():
+        v = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        if len(v) == 1:
+            # Broadcast scalars/constants (e.g. loss coefficients) to every
+            # learner instead of splitting them.
+            for i in range(n):
+                shards[i][k] = v
+            continue
+        parts = np.array_split(v, n)
+        if min(len(p) for p in parts) == 0:
+            raise ValueError(
+                f"batch axis of {k!r} ({len(v)}) too small to split across "
+                f"{n} learners")
+        for i, p in enumerate(parts):
+            shards[i][k] = p
+    return shards

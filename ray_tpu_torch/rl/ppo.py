@@ -4,11 +4,15 @@ Counterpart of ``ray_tpu/rl/ppo.py``.  ``compute_gae`` is numpy and
 copied; the losses are PyTorch.  ``PPO.training_step`` moves the batch to
 the device once and slices its minibatches there, by the same numpy
 permutation as the JAX package's (``ppo.py:187-193``), so both packages
-given the same rollouts train on the same minibatches.
+given the same rollouts train on the same minibatches.  With learner
+actors (``num_learners > 0``) the minibatches are sliced on the host and
+split across the learners, as JAX's are, and the env runners take the
+learners' weights by ref (``get_weights_ref``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import numpy as np
@@ -145,24 +149,34 @@ def minibatch_epochs(update, batch: Dict[str, np.ndarray], consts, rng,
     return metrics
 
 
+def ppo_learner(spec, lr: float, seed: int, device,
+                module_factory=None) -> TorchLearner:
+    """PPO's learner (JAX: the ``factory`` closure of ``PPO.setup``), a
+    module-level function so learner actors import it by reference."""
+    module = module_factory() if module_factory \
+        else DiscretePolicyModule(spec)
+    loss = ppo_loss_recurrent \
+        if hasattr(module, "initial_state") else ppo_loss
+    return TorchLearner(module, loss, learning_rate=lr, seed=seed,
+                        device=device)
+
+
 class PPO(Algorithm):
     def setup(self, config: PPOConfig) -> None:
-        spec = config.module_spec()
-        lr, seed, device = config.lr, config.seed, self.device
-        module_factory = config.module_factory
-
-        def factory():
-            module = module_factory() if module_factory \
-                else DiscretePolicyModule(spec)
-            loss = ppo_loss_recurrent \
-                if hasattr(module, "initial_state") else ppo_loss
-            return TorchLearner(module, loss, learning_rate=lr, seed=seed,
-                                device=device)
-
+        # Learner actors put their learner on the actor's card: the device
+        # they are given is "cuda" (the actor's current card) or the CPU.
+        device = self.device if config.num_learners == 0 \
+            or self.device.type == "cpu" else "cuda"
         self.learner_group = LearnerGroup(
-            factory, num_learners=config.num_learners)
+            functools.partial(ppo_learner, config.module_spec(), config.lr,
+                              config.seed, device, config.module_factory),
+            num_learners=config.num_learners)
+        # Minibatches go to the learners from the host when they are actors.
+        self._batch_device = self.device \
+            if self.learner_group.local is not None else torch.device("cpu")
         self._rng = np.random.default_rng(config.seed)
-        self.env_runner_group.sync_weights(self.learner_group.get_weights())
+        self.env_runner_group.sync_weights(
+            self.learner_group.get_weights_ref())
 
     def training_step(self) -> Dict[str, Any]:
         cfg: PPOConfig = self.config
@@ -189,8 +203,9 @@ class PPO(Algorithm):
         n = len(batch["actions"])
         metrics = minibatch_epochs(
             self.learner_group.update, batch, ppo_consts(cfg), self._rng,
-            cfg.num_epochs, min(cfg.minibatch_size, n), self.device)
-        self.env_runner_group.sync_weights(self.learner_group.get_weights())
+            cfg.num_epochs, min(cfg.minibatch_size, n), self._batch_device)
+        self.env_runner_group.sync_weights(
+            self.learner_group.get_weights_ref())
         return {"learner": metrics,
                 "num_env_steps_sampled": n}
 
@@ -225,8 +240,9 @@ class PPO(Algorithm):
         mb_rows = max(1, min(n_rows, cfg.minibatch_size // max(T, 1)))
         metrics = minibatch_epochs(
             self.learner_group.update, batch, ppo_consts(cfg), self._rng,
-            cfg.num_epochs, mb_rows, self.device)
-        self.env_runner_group.sync_weights(self.learner_group.get_weights())
+            cfg.num_epochs, mb_rows, self._batch_device)
+        self.env_runner_group.sync_weights(
+            self.learner_group.get_weights_ref())
         return {"learner": metrics,
                 "num_env_steps_sampled": n_rows * T}
 

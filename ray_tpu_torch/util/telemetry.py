@@ -106,6 +106,19 @@ CATALOG: Dict[str, Dict[str, Any]] = {
                      "(source=disk|replica)."),
     "ray_tpu_ckpt_replica_restores_total": _c(
         (), "Restores that used in-memory emergency replica shards."),
+    # -- serve: deployments (serve/api) -----------------------------------
+    "ray_tpu_serve_requests_total": _c(
+        ("deployment",), "Requests routed to a deployment replica."),
+    "ray_tpu_serve_request_errors_total": _c(
+        ("deployment",), "Requests that raised at the ingress/handle "
+                         "layer."),
+    "ray_tpu_serve_request_latency_seconds": _h(
+        ("deployment",), "End-to-end handle request latency (route -> "
+                         "result materialized).", _LATENCY_BUCKETS),
+    "ray_tpu_serve_shed_total": _c(
+        ("deployment",), "Handle-path requests rejected by the "
+                         "max_queued_requests admission bound (retriable "
+                         "OverloadError)."),
     # -- serve: decode fleet (llm/fleet) ----------------------------------
     "ray_tpu_serve_replica_count": _g(
         ("fleet",), "Accepting decode replicas in a serving fleet "

@@ -4,6 +4,7 @@
     python3 sharded_smoke.py           # every visible card, 2 or more
     python3 sharded_smoke.py --cpu     # rehearsal: 4 gloo ranks on the CPU
     python3 sharded_smoke.py --fit     # only the trainer run (4 cards)
+    python3 sharded_smoke.py --collective   # only the NCCL collective group
 
 Run from the root of a checkout on a machine with two or more CUDA cards
 and nvcc.  It builds the kernels, then for each run of ``RUNS`` trains 4
@@ -35,6 +36,13 @@ group restarts and resumes from it; a second ``fit`` resumes the last save
 onto dp2 x fsdp2 (a mesh reshape, each rank reading only its blocks).
 Every step's loss is held to ``TOL`` of the same steps run on one card in
 this process.
+
+``--collective`` runs only the collective group of ``ray_tpu_torch.
+collective`` over NCCL: one process actor a card, each joining
+``init_collective_group(backend="nccl")``; allreduce, allgather, broadcast,
+reducescatter and send/recv (rank pairs) held to numpy, and 10 allreduces
+of 4 MiB timed on the host clock (each op copies its numpy array to the
+card and back).  ``--cpu --collective`` runs it on 4 CPU actors over gloo.
 
 One JSON line a run; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, with fewer than two cards (two cards:
@@ -378,9 +386,35 @@ def _fit_runs(cpu: bool, smi):
     return out, ok
 
 
+def _collective_run(cpu: bool, smi):
+    """``--collective``: the group over every card (NCCL), or over 4 CPU
+    actors (gloo); its results held to numpy (``chip_smoke``'s member and
+    check)."""
+    import torch
+    from chip_smoke import CollectiveMember, check_collective
+    from ray_tpu_torch import _actor
+    world = 4 if cpu else torch.cuda.device_count()
+    t0 = time.perf_counter()
+    members = [_actor.remote(CollectiveMember).options(
+        device="cpu" if cpu else f"cuda:{r}", num_cpus=1).remote(r, world)
+        for r in range(world)]
+    try:
+        results = _actor.get([m.run.remote("sharded", "gloo" if cpu
+                                           else "nccl") for m in members],
+                             timeout=600)
+    finally:
+        _actor.shutdown()
+    ok = check_collective(results, world)
+    return {"run": "collective", "backend": "gloo" if cpu else "nccl",
+            "world": world, "correct": ok, "card": smi,
+            "allreduce_4mib_ms": [r["allreduce_4mib_ms"] for r in results],
+            "seconds": time.perf_counter() - t0}, ok
+
+
 def main(argv) -> int:
     cpu = "--cpu" in argv
     fit_only = "--fit" in argv
+    collective_only = "--collective" in argv
     import torch
     from ray_tpu_torch._device import card_power_line
     from ray_tpu_torch.parallel import build_mesh
@@ -399,12 +433,19 @@ def main(argv) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         smi = card_power_line(0)
         print(smi, flush=True)
-        t0 = time.perf_counter()
-        _build.build()
-        emit({"phase": "build", "seconds": time.perf_counter() - t0})
+        if not collective_only:    # the collective group runs no kernel
+            t0 = time.perf_counter()
+            _build.build()
+            emit({"phase": "build", "seconds": time.perf_counter() - t0})
     refs = {}
     failed = []
-    runs = () if fit_only else RUNS[4 if world >= 4 else 2]
+    if collective_only:
+        row, ok = _collective_run(cpu, smi)
+        emit(row)
+        if not ok:
+            failed.append("collective")
+    runs = () if fit_only or collective_only else RUNS[4 if world >= 4
+                                                       else 2]
     for name, kind, spec_kw, changes in runs:
         if kind not in refs:
             if not cpu:
@@ -441,7 +482,7 @@ def main(argv) -> int:
         if not (row["same_on_every_rank"] and launched
                 and all(errs[k] <= TOL[k] for k in held)):
             failed.append(name)
-    if world >= 4:
+    if world >= 4 and not collective_only:
         if not cpu:
             refs.clear()
             torch.cuda.empty_cache()

@@ -405,8 +405,11 @@ class TestDisaggServer:
         tracing._reset_for_tests()
 
     def test_refusals_name_item_6(self, params):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            build_disagg_deployment(lambda: (params, CFG))
+        # The deployment runs (tests/test_torch_serve.py); its autoscaling
+        # and the object-store transport wait for item 6b.
+        with pytest.raises(NotImplementedError, match="item 6b"):
+            build_disagg_deployment(lambda: (params, CFG),
+                                    autoscaling_config=object())
         with pytest.raises(NotImplementedError, match="item 6"):
             DisaggServer(lambda: (params, CFG), mode="disagg",
                          engine_options=dict(ENGINE_OPTS, device="cpu"),

@@ -396,5 +396,17 @@ class TestServer:
         assert server.engine.pool.num_free == ENGINE["num_pages"] - 1
 
     def test_deployment_needs_the_serve_runtime(self, params):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            build_llm_deployment(lambda: (params, CFG))
+        """The deployment is JAX's (LLMServer, 64 ongoing requests a
+        replica); the serve runtime sends ``build_params`` to a replica
+        process by reference, so a lambda is refused at ``run`` (the
+        deployment's tokens: tests/test_torch_serve.py)."""
+        from ray_tpu_torch import serve
+        app = build_llm_deployment(lambda: (params, CFG))
+        dep = app.deployment
+        assert dep.cls_or_fn is LLMServer and dep.name == "llm"
+        assert (dep.num_replicas, dep.max_ongoing_requests) == (1, 64)
+        with pytest.raises(ValueError, match="top level of a module"):
+            serve.run(app)
+        with pytest.raises(NotImplementedError, match="item 6b"):
+            build_llm_deployment(lambda: (params, CFG),
+                                 autoscaling_config=object())

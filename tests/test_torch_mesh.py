@@ -277,3 +277,95 @@ def test_sharded_step_matches_one_device_and_jax(tmp_path, reference,
                               // (spec_kw.get("dp", 1)
                                   // spec_kw.get("num_slices", 1)))
     assert [r["bytes"] for r in ranks] == j_bytes
+
+
+# -- optax-shaped optimizers on the mesh ---------------------------------------
+
+OPT_LR = 1e-4       # Adam's lr-sized steps: see tests/test_torch_train.py
+WARMUP = 2
+CLIP = 0.5          # below the steps' grad norms (1.7-2.1): the clip scales
+
+
+def _t_warmup(count):
+    return OPT_LR / 4 + (OPT_LR - OPT_LR / 4) * min(count, WARMUP) / WARMUP
+
+
+def _port_optimizer(name):
+    from ray_tpu_torch import optim
+    if name == "adam":
+        return optim.adam(OPT_LR)
+    if name == "clip_adam":
+        return optim.chain(optim.clip_by_global_norm(CLIP),
+                           optim.adam(OPT_LR))
+    return optim.adamw(_t_warmup, b1=0.9, b2=0.95, weight_decay=0.1)
+
+
+def _jax_optimizer(name):
+    import optax
+    if name == "adam":
+        return optax.adam(OPT_LR)
+    if name == "clip_adam":
+        return optax.chain(optax.clip_by_global_norm(CLIP),
+                           optax.adam(OPT_LR))
+    return optax.adamw(optax.linear_schedule(OPT_LR / 4, OPT_LR, WARMUP),
+                       b1=0.9, b2=0.95, weight_decay=0.1)
+
+
+def _optax_worker(rank, world, spec_kw, name, params_np, batches):
+    """One rank: the sharded trajectory under ``name``'s optimizer; the
+    metrics and the whole params after it (numpy)."""
+    from ray_tpu_torch._tree import tree_map
+    from ray_tpu_torch.train.mesh import runtime
+    mesh = build_mesh(MeshSpec(**spec_kw))
+    cfg = t_llama.llama_tiny().replace(dtype=torch.float32, remat=False)
+    opt = _port_optimizer(name)
+    _init, step_fn, place = make_lm_train_step(cfg, mesh, optimizer=opt)
+    params = runtime.shard_tree(params_np, t_llama.param_logical_axes(cfg),
+                                mesh)
+    state = opt.init(params)
+    metrics = []
+    for b in batches:
+        params, state, m = step_fn(params, state, place(b))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return {"metrics": metrics,
+            "params": tree_map(lambda p: p.full_tensor().detach().numpy(),
+                               params)}
+
+
+@pytest.mark.parametrize("name", ["adam", "adamw_warmup", "clip_adam"])
+def test_sharded_step_takes_optax_optimizers_as_jax(tmp_path, reference,
+                                                    name):
+    """fsdp2 over gloo with ``optim.adam``, adamw on a warmup schedule and
+    ``chain(clip_by_global_norm, adam)`` (whose norm sums the ranks'
+    blocks):
+    the losses and grad norms within 1e-5 of JAX's sharded step given
+    ``optax.adam`` / ``optax.adamw(schedule)`` on the same mesh, the params
+    within 1e-5 of the whole tree's scale (tests/test_torch_train.py)."""
+    params_np, batches, _one = reference
+    spec_kw = {"fsdp": 2}
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(run_local, _optax_worker, 2, str(tmp_path),
+                            spec_kw, name, params_np, batches, timeout=150)
+        J = _jax()
+        cfg = J.j_llama.llama_tiny().replace(dtype=J.jnp.float32,
+                                             remat=False)
+        mesh = J.j_mesh.build_mesh(J.j_mesh.MeshSpec(**spec_kw),
+                                   devices=J.jax.devices()[:2])
+        j_opt = _jax_optimizer(name)
+        _i, step_fn, place = J.j_spmd.make_lm_train_step(cfg, mesh,
+                                                         optimizer=j_opt)
+        params = J.j_runtime.shard_tree(
+            params_np, J.j_llama.param_logical_axes(cfg), mesh)
+        opt = j_opt.init(params)
+        want = []
+        for b in batches:
+            params, opt, m = step_fn(params, opt, place(b))
+            want.append((float(m["loss"]), float(m["grad_norm"])))
+        j_leaves = J.jax.tree.leaves(J.jax.tree.map(np.asarray, params))
+        ranks = ranks.result()
+    from ray_tpu_torch._tree import tree_leaves
+    scale = max(np.abs(w).max() for w in j_leaves)
+    for r in ranks:
+        np.testing.assert_allclose(r["metrics"], want, rtol=1e-5)
+        for got, w in zip(tree_leaves(r["params"]), j_leaves):
+            assert np.abs(got - w).max() / scale <= 1e-5

@@ -269,10 +269,13 @@ def test_impala_appo_correct_and_update(name):
 
 
 def test_impala_default_config_refuses():
-    """The JAX default is 2 remote runners (async): the port raises."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        trl.IMPALAConfig().environment("StatelessGuess").resources(
-            device=CPU).build_algo()
+    """The JAX default is 2 remote runners (async), which the port runs
+    (tests/test_torch_rl_remote.py); it refuses an env given as a lambda,
+    as JAX's tests give it (tests/test_rl.py:171), naming the
+    by-reference rule."""
+    with pytest.raises(ValueError, match="top level of a module"):
+        trl.IMPALAConfig().environment(
+            lambda: trl.StatelessGuess(2)).resources(device=CPU).build_algo()
 
 
 # ---------------------------------------------------------------- offline

@@ -406,3 +406,48 @@ def test_manager_commit_protocol_matches_jax(tmp_path):
     assert seen["port"]["dirs"] == ["checkpoint_000002",
                                     "checkpoint_000003"]
     assert seen["port"]["best"] == "checkpoint_000002"
+
+
+# -- Checkpoint.to_directory (twin of tests/test_checkpoint.py) ----------------
+
+
+@pytest.mark.parametrize("side", ["jax", "port"])
+def test_to_directory_replaces_existing_dest_atomically(tmp_path, side):
+    """A committed checkpoint written by the port, copied over a stale
+    ``dest`` by each package's ``Checkpoint.to_directory``: the same files
+    land, the stale one is gone, no staging or retired tree is left beside
+    ``dest``, and the copy restores to the saved tree."""
+    from ray_tpu_torch.checkpoint.manager import step_dir
+    if side == "jax":
+        from ray_tpu.train import Checkpoint
+    else:
+        from ray_tpu_torch.train import Checkpoint
+    tree = {"params": {"w": torch.arange(32.0).reshape(8, 4),
+                       "emb": torch.arange(12, dtype=torch.int32)},
+            "step": 7, "name": "run-a"}
+    d = step_dir(str(tmp_path / "run"), 0)
+    snap = F.snapshot_tree(tree)
+    index, blob = F.build_shard(snap, 0, 1, 0)
+    F.write_shard(d, index, blob, skeleton_pkl=snap.skeleton_pkl)
+    F.commit_manifest(d, F.build_manifest(d, 0, 1))
+    dest = str(tmp_path / "copy")
+    os.makedirs(dest)
+    with open(os.path.join(dest, "stale_garbage"), "w") as f:
+        f.write("from an interrupted previous copy")
+    assert Checkpoint(d).to_directory(dest) == dest
+    assert sorted(os.listdir(dest)) == sorted(os.listdir(d))
+    assert not os.path.exists(os.path.join(dest, "stale_garbage"))
+    got = F.restore_tree(dest)
+    for k, v in tree["params"].items():
+        assert torch.equal(got["params"][k], v)
+    assert got["step"] == 7 and got["name"] == "run-a"
+    assert [n for n in os.listdir(str(tmp_path))
+            if ".tmp" in n or ".old" in n] == []
+    # No dest: a fresh directory; dest == the checkpoint itself: no copy.
+    fresh = Checkpoint(d).to_directory()
+    try:
+        assert sorted(os.listdir(fresh)) == sorted(os.listdir(d))
+    finally:
+        import shutil
+        shutil.rmtree(fresh, ignore_errors=True)
+    assert Checkpoint(d).to_directory(d) == d
