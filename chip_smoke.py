@@ -30,10 +30,18 @@ with its host syncs counted, a 4,096 x 128 device rollout and one
 ``train()`` of every other algorithm (``rl_train``).  The process tier:
 ``build_llm_deployment`` at ``llama_1b`` in a replica process, its greedy
 tokens against the in-process ``LLMServer`` and its kernels' launches
-counted inside the replica (``serve_deployment``); PPO with 2 remote env
-runners and 2 DDP learners, then IMPALA at its default config
-(``rl_remote``); a 2-process gloo collective group against numpy
-(``collective``).
+counted inside the replica (``serve_deployment``); a 960-token llama_1b
+handoff exported here and opened in a replica process through CUDA IPC,
+its K/V sums equal, a planted change after the export seen there, its
+tokens equal an in-process import's (``handoff_ipc``); ``FleetServer``
+with ``RemoteReplica`` processes, its streams against the in-process
+fleet's, the prefix-heavy mix on 1 and 2 of them and a replica process
+killed (``fleet_remote``); the llama_1b deployment under an
+``AutoscalingConfig`` scaled up by a burst and back down, a killed replica
+replaced, and the HTTP ingress against the handle (``serve_controller``);
+PPO with 2 remote env runners and 2 DDP learners, then IMPALA at its
+default config (``rl_remote``); a 2-process gloo collective group against
+numpy (``collective``).
 The kernels' launch counts, set to 0 just before each path and
 read just after, show that every path ran through them.  Each phase prints one JSON line; any failed
 check raises and the script exits non-zero.  The last line is
@@ -2261,6 +2269,7 @@ def phase_fleet(smi, params, cfg):
         for k in totals:
             totals[k] += launches[k]
         out[f"replicas_{n}"] = row
+        FLEET_IN_PROCESS[n] = row
         emit({"phase": "fleet", "replicas": n, **row})
         check(r["unfinished"] == 0 and r["errors"] == 0,
               f"fleet x{n}: {row}")
@@ -2284,6 +2293,10 @@ def phase_fleet(smi, params, cfg):
     emit({k: v for k, v in out.items()
           if k not in ("replicas_1", "replicas_2")})
     return totals
+
+
+#: phase_fleet's rows by replica count, reported beside fleet_remote's.
+FLEET_IN_PROCESS = {}
 
 
 def _time_router_calls(srv):
@@ -3820,6 +3833,620 @@ def phase_serve_deployment(smi, device: str = "cuda",
     return res["launches"]
 
 
+# ------------------------------------------- the process tier's serving
+
+#: handoff_ipc: a llama_1b handoff of 960 prompt tokens (its K/V trimmed to
+#: 1,024 rows: 2 x 16 layers x 1,024 x 8 heads x 128 x 2 B = 64 MiB) from
+#: this process to a replica process on the same card, which decodes
+#: IPC_NEW tokens from it.
+IPC_PROMPT, IPC_NEW = 960, 8
+#: fleet_remote's exactness requests: (prompt length, new tokens), sent one
+#: at a time; the last repeats the first (a full prefix hit).
+REMOTE_EXACT = ((960, 16), (500, 16), (64, 16), (960, 16))
+#: serve_controller: the burst's concurrent requests (256-token prompts,
+#: AUTO_NEW new tokens: ~3 s of decode on one replica), and the
+#: deployment's autoscaling: 16 in flight over a target of 4 a replica
+#: asks for 4 replicas, clamped to 2.
+AUTO_BURST, AUTO_NEW = 16, 128
+#: The most bursts the deployment gets for its new replica to serve.
+AUTO_WAVES = 4
+AUTO_CONFIG = dict(min_replicas=1, max_replicas=2,
+                   target_ongoing_requests=4.0, upscale_delay_s=0.5,
+                   downscale_delay_s=2.0)
+
+
+def _kv_sums(ks, vs):
+    """Float64 sums of a handoff's K and V, computed where they lie."""
+    import torch
+    return (float(torch.sum(ks, dtype=torch.float64)),
+            float(torch.sum(vs, dtype=torch.float64)))
+
+
+class SmokeReplicaHost:
+    """The fleet replicas' actor body in these phases: a ``ReplicaHost``,
+    to which it hands every call, plus the replica's own kernel launch
+    counts and the handoff checks of ``handoff_ipc``.  Module level: the
+    replica imports it from this file."""
+
+    def __init__(self, *args):
+        from ray_tpu_torch.llm.fleet import ReplicaHost
+        self.host = ReplicaHost(*args)
+
+    def __getattr__(self, name):
+        return getattr(self.host, name)
+
+    def reset_launches(self) -> bool:
+        _reset_launches()
+        return True
+
+    def read_launches(self):
+        return _read_launches()
+
+    def sums(self, desc):
+        """Open a handoff by descriptor and sum its K/V on the card:
+        (sums, ms to open the handles)."""
+        from ray_tpu_torch.llm.disagg import import_handoff
+        t0 = time.perf_counter()
+        h, keep = import_handoff(desc)
+        open_ms = (time.perf_counter() - t0) * 1e3
+        out = _kv_sums(h.ks, h.vs)
+        del h, keep
+        return out, open_ms
+
+    def sums_by_value(self, handoff):
+        """The same sums of a handoff sent by value (pickled through the
+        host)."""
+        return _kv_sums(handoff.ks, handoff.vs)
+
+    def import_timed(self, desc):
+        """The replica's import of a descriptor, timed: (engine rid, ms
+        to open the handles, device ms of the scatter on the engine's
+        stream)."""
+        import torch
+        from ray_tpu_torch.llm.disagg import import_handoff
+        rep = self.host._replica
+        stream = rep.engine.stream
+        t0 = time.perf_counter()
+        h, keep = import_handoff(desc)
+        t1 = time.perf_counter()
+        if stream is None:                    # the CPU rehearsal
+            rid = rep.import_prefill(h, retain=False)
+            return rid, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # Under the engine's (reentrant) lock: no decode step of the drive
+        # thread lands between the two events.
+        with rep.engine._lock:
+            start.record(stream)
+            rid = rep.import_prefill(h, retain=False)
+            end.record(stream)
+        end.synchronize()
+        del h, keep
+        return rid, (t1 - t0) * 1e3, start.elapsed_time(end)
+
+    def wait_finished(self, rid, timeout_s: float = 120.0):
+        """The finish record of ``rid`` (no poller drains this host)."""
+        deadline = time.perf_counter() + timeout_s
+        kept = []
+        while time.perf_counter() < deadline:
+            for rec in self.host.drain_finished():
+                if rec["rid"] == rid:
+                    return rec
+                kept.append(rec)
+            time.sleep(0.005)
+        raise TimeoutError(f"request {rid} did not finish")
+
+
+def _replica_build(device: str = "cuda", model: str = "llama_1b"):
+    import functools
+    return functools.partial(deployment_params, 0, device, model)
+
+
+def phase_handoff_ipc(smi, device: str = "cuda", model: str = "llama_1b"):
+    """A llama_1b handoff of IPC_PROMPT tokens exported in this process
+    and imported by a ReplicaHost process on the same card through CUDA
+    IPC: the K/V sums the replica reads equal this process's; one element
+    changed here after the export changes the replica's sums (it reads the
+    shared bytes, not a copy); its greedy tokens equal an in-process
+    import's.  Times the export, the open and the scatter beside a
+    by-value transport (``_actor.put``) of the same handoff."""
+    import dataclasses
+
+    import torch
+    from ray_tpu_torch import _actor
+    from ray_tpu_torch import _object_store as store_mod
+    from ray_tpu_torch.llm import InferenceEngine, SamplingParams
+    from ray_tpu_torch.llm.disagg import PrefillWorker, export_handoff
+    t0 = time.perf_counter()
+    build = _replica_build(device, model)
+    params, cfg = build()
+    eo = dict(SERVE_OPTS, device=device)
+    prompt = np.random.default_rng(31).integers(
+        1, cfg.vocab_size, IPC_PROMPT).tolist()
+    sp = SamplingParams(max_tokens=IPC_NEW)
+    pw = PrefillWorker(params, cfg, device=device,
+                       prefill_buckets=eo["prefill_buckets"],
+                       page_size=eo["page_size"])
+    h = pw.prefill(prompt, sp)
+    # The reference: the same handoff imported in this process.
+    eng = InferenceEngine(params, cfg, **eo)
+    rid = eng.import_prefill(h)
+    want = None
+    while want is None:
+        for r in eng.step():
+            if r.request_id == rid:
+                want = list(r.output_tokens)
+    del eng
+    gc.collect()
+    host = _actor.remote(SmokeReplicaHost).options(
+        max_concurrency=4, device=None if device == "cuda" else device
+    ).remote(build, "ipc", eo, 1 << 20, False)
+    store = store_mod.SharedMemoryStore()
+    try:
+        t1 = time.perf_counter()
+        _actor.get(host.ping.remote(), timeout=600)
+        host_start_s = time.perf_counter() - t1
+        mine = _kv_sums(h.ks, h.vs)
+        exports, opens, calls, scatters = [], [], [], []
+        got = None
+        for i in range(4):
+            oid = store_mod.new_object_id()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            desc = export_handoff(store, oid, h)
+            exports.append((time.perf_counter() - t1) * 1e3)
+            check(desc is not None and desc[0] == (
+                "cuda_ipc" if device == "cuda" else "shm"),
+                f"handoff_ipc: descriptor {desc and desc[0]}")
+            t1 = time.perf_counter()
+            theirs, open_ms = _actor.get(host.sums.remote(desc), timeout=120)
+            calls.append((time.perf_counter() - t1) * 1e3)
+            opens.append(open_ms)
+            check(theirs == mine, f"handoff_ipc: the replica's K/V sums "
+                  f"{theirs} differ from the producer's {mine}")
+            if i == 0:
+                # The real path: the replica imports and decodes.
+                rid2, _o, _s = _actor.get(host.import_timed.remote(desc),
+                                          timeout=120)
+                got = _actor.get(host.wait_finished.remote(rid2),
+                                 timeout=180)["output_tokens"]
+            else:
+                _r, _o, scatter_ms = _actor.get(
+                    host.import_timed.remote(desc), timeout=120)
+                scatters.append(scatter_ms)
+                host.cancel.remote(_r)
+            store_mod.release_page_blob(store, oid)
+        check(store.stats()["num_objects"] == 0,
+              f"handoff_ipc: store not empty {store.stats()}")
+        check(got == want, f"handoff_ipc: the replica's tokens {got} differ "
+              f"from the in-process import's {want}")
+        # By value: the same handoff pickled through the host.
+        plain = dataclasses.replace(h, ready=None)
+        by_value = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            theirs = _actor.get(host.sums_by_value.remote(
+                _actor.put(plain)), timeout=300)
+            by_value.append((time.perf_counter() - t1) * 1e3)
+            check(theirs == mine, "handoff_ipc: by-value sums differ")
+        # The planted fault: one element changed after the export.
+        oid = store_mod.new_object_id()
+        desc = export_handoff(store, oid, h)
+        before, _ = _actor.get(host.sums.remote(desc), timeout=120)
+        with torch.no_grad():
+            h.ks[0, 0, 0, 0] += 1.0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        mine_after = _kv_sums(h.ks, h.vs)
+        after, _ = _actor.get(host.sums.remote(desc), timeout=120)
+        store_mod.release_page_blob(store, oid)
+        caught = after != before and after == mine_after
+    finally:
+        _actor.kill(host)
+        store.shutdown()
+    res = {"phase": "handoff_ipc", "model": model, "card": smi,
+           "prompt_tokens": IPC_PROMPT, "handoff_bytes": h.nbytes,
+           "transport": "cuda_ipc" if device == "cuda" else "shm",
+           "export_ms": exports, "open_ms": opens, "sums_call_ms": calls,
+           "scatter_ms": scatters, "by_value_call_ms": by_value,
+           "export_ms_min": min(exports), "open_ms_min": min(opens),
+           "scatter_ms_min": min(scatters),
+           "ipc_call_ms_min": min(calls),
+           "by_value_call_ms_min": min(by_value),
+           "replica_start_s": host_start_s, "tokens_equal": got == want,
+           "planted_fault_caught": caught,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    # Through CUDA IPC the replica reads the producer's memory, so the
+    # change shows; a host transport (the CPU rehearsal) copied at export.
+    check(caught == (device == "cuda"),
+          f"handoff_ipc: a change to the producer's K after the export: "
+          f"replica {before} -> {after}, producer {mine_after}")
+
+
+def _remote_factory(build, eo, cache_bytes):
+    from ray_tpu_torch.llm.fleet import RemoteReplica
+
+    def factory(name, on_finish):
+        return RemoteReplica(build, name=name, engine_options=eo,
+                             cache_capacity_bytes=cache_bytes,
+                             record_token_times=True, on_finish=on_finish,
+                             host_cls=SmokeReplicaHost)
+    return factory
+
+
+def _time_remote_calls(srv):
+    """Time, on the host clock, every call the router and the load
+    generator make into a remote replica's handle: ``load_stats`` (a
+    snapshot read), ``import_prefill`` and ``try_serve_cached`` (each one
+    call to the replica process).  Returns {call: [ms, ...]}."""
+    waits = {"load_stats": [], "import_prefill": [], "try_serve_cached": []}
+    for rep in srv._replicas.values():
+        for name, ms in waits.items():
+            inner = getattr(rep, name)
+
+            def timed(*a, _inner=inner, _ms=ms, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _inner(*a, **k)
+                finally:
+                    _ms.append((time.perf_counter() - t0) * 1e3)
+            setattr(rep, name, timed)
+    return waits
+
+
+def phase_fleet_remote(smi, device: str = "cuda", model: str = "llama_1b"):
+    """FleetServer with RemoteReplica processes: the prefill tier in this
+    process, each decode replica in a process of its own on the card,
+    every handoff crossing as CUDA IPC handles.  Greedy streams (one
+    request at a time) equal an in-process FleetServer's on the same
+    weights; the fleet's prefix-heavy traffic (as phase_fleet) on 1 and 2
+    remote replicas, with the router's calls timed; a replica process
+    killed while it holds requests (they shed as replica_lost, the
+    manager backfills).  Launches: the flash forward counted in this
+    process (the dispatcher's thread), the paged decode inside each
+    replica."""
+    import torch
+    from ray_tpu_torch import _actor
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.llm.disagg import (PrefillWorker, ServeLoadSpec,
+                                          run_open_loop)
+    from ray_tpu_torch.llm.fleet import FleetConfig, FleetServer
+    t0 = time.perf_counter()
+    build = _replica_build(device, model)
+    eo = dict(SERVE_OPTS, device=device)
+    params, cfg = build()
+    entry = PrefillWorker(params, cfg, device=device,
+                          prefill_buckets=eo["prefill_buckets"],
+                          page_size=eo["page_size"]).prefill(
+        list(range(1, FLEET_PROMPT + 1)),
+        SamplingParams(max_tokens=FLEET_MAX_TOKENS)).nbytes
+    cache_bytes = int(entry * (FLEET_POOL // 2) + entry // 2)
+    out = {"phase": "fleet_remote", "model": model, "card": smi,
+           "pool": FLEET_POOL, "rps": FLEET_RPS,
+           "duration_s": FLEET_DURATION_S,
+           "cache_capacity_bytes": cache_bytes}
+    rng = np.random.default_rng(41)
+    exact = [rng.integers(1, cfg.vocab_size, n).tolist()
+             for n, _ in REMOTE_EXACT[:-1]]
+    exact.append(exact[0])
+    bodies = [{"prompt_tokens": p, "max_tokens": m, "timeout_s": 300}
+              for p, (_n, m) in zip(exact, REMOTE_EXACT)]
+    # The reference: an in-process fleet on the same weights.
+    ref_srv = FleetServer(lambda: (params, cfg), name="ref",
+                          admission=_open_admission(),
+                          config=FleetConfig(num_replicas=2,
+                                             engine_options=eo,
+                                             cache_capacity_bytes=cache_bytes))
+    try:
+        want = [ref_srv(b) for b in bodies]
+    finally:
+        ref_srv.close()
+    del ref_srv
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    spec = dict(rps=FLEET_RPS, duration_s=FLEET_DURATION_S,
+                long_fraction=1.0, long_prompt=FLEET_PROMPT,
+                long_max_tokens=FLEET_MAX_TOKENS, short_prompt=32,
+                short_max_tokens=FLEET_MAX_TOKENS, prompt_pool=FLEET_POOL,
+                drain_timeout_s=120.0)
+    totals = {"flash_fwd": 0, "paged_decode": 0}
+    for n in (2, 1):
+        name = f"remote{n}"
+        t1 = time.perf_counter()
+        srv = FleetServer(lambda: (params, cfg), name=name,
+                          admission=_open_admission(),
+                          config=FleetConfig(num_replicas=n,
+                                             engine_options=eo,
+                                             cache_capacity_bytes=cache_bytes,
+                                             manager_interval_s=0.1),
+                          record_token_times=True,
+                          replica_factory=_remote_factory(build, eo,
+                                                          cache_bytes))
+        start_s = time.perf_counter() - t1
+        try:
+            if n == 2:
+                got = [srv(b) for b in bodies]
+                out["exact"] = {
+                    "requests": len(bodies),
+                    "tokens_equal": [g.get("output_tokens")
+                                     for g in got]
+                    == [w.get("output_tokens") for w in want],
+                    "prefix_outcomes": [g.get("prefix_outcome")
+                                        for g in got]}
+                check(out["exact"]["tokens_equal"],
+                      f"fleet_remote: streams differ from the in-process "
+                      f"fleet's: {got} vs {want}")
+            pubs = [srv.submit({"prompt_tokens": [1] * (FLEET_PROMPT - i),
+                                "max_tokens": 2, "timeout_s": 300})
+                    for i in range(2 * n)]
+            for x in pubs:
+                srv.result(x, timeout_s=300)
+            reps = list(srv._replicas.values())
+            waits = _time_remote_calls(srv)
+            _actor.get([r.actor.reset_launches.remote() for r in reps],
+                       timeout=60)
+            # -- the main path: launch counts read from this window only,
+            # in this process and in each replica's.
+            _reset_launches()
+            r = run_open_loop(srv, ServeLoadSpec(**spec), cfg.vocab_size)
+            here = _launches_by_thread()
+            remote = _actor.get([rep.actor.read_launches.remote()
+                                 for rep in reps], timeout=60)
+            # -- end of the main path.
+            for rep in reps:
+                for k in waits:
+                    rep.__dict__.pop(k, None)
+            st = srv.status()
+            row = _load_row(r)
+            launches = {
+                "flash_fwd": here.get("flash_fwd", {}).get(
+                    f"fleet-dispatch-{name}", 0),
+                "paged_decode": sum(x["paged_decode"] for x in remote)}
+            row.update(start_s=start_s, launches=launches,
+                       paged_decode_by_replica=[x["paged_decode"]
+                                                for x in remote],
+                       prefix=st["prefix"], rebalances=st["rebalances"],
+                       router_calls=_summarize_waits(waits),
+                       in_process=FLEET_IN_PROCESS.get(n))
+            for k in totals:
+                totals[k] += launches[k]
+            out[f"replicas_{n}"] = row
+            emit({"phase": "fleet_remote", "replicas": n, **row})
+            check(r["unfinished"] == 0 and r["errors"] == 0,
+                  f"fleet_remote x{n}: {row}")
+            check(device == "cpu" or (
+                launches["flash_fwd"] > 0
+                and all(x["paged_decode"] > 0 for x in remote)),
+                  f"fleet_remote x{n}: launches {launches} by replica "
+                  f"{remote}")
+            if n == 2:
+                out["kill"] = _remote_kill(srv, cfg)
+        finally:
+            srv.close()
+    f1, f2 = out["replicas_1"], out["replicas_2"]
+    out["scaling_2x"] = f2["sustained_rps"] / f1["sustained_rps"]
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = totals
+    emit({k: v for k, v in out.items()
+          if k not in ("replicas_1", "replicas_2")})
+    return totals
+
+
+def _remote_kill(srv, cfg):
+    """A replica's process killed while it holds mapped requests: those
+    shed retriably as replica_lost, the rest finish, the manager
+    backfills a new process, and the fleet serves again."""
+    from ray_tpu_torch import _actor
+    rng = np.random.default_rng(21)
+    pubs = [srv.submit({"prompt_tokens": rng.integers(
+        0, cfg.vocab_size, 32).tolist(), "max_tokens": 50,
+        "timeout_s": 300}) for _ in range(16)]
+    deadline = time.perf_counter() + 60
+    victim = None
+    while victim is None and time.perf_counter() < deadline:
+        with srv._lock:
+            victim = next((name for name, _rid in srv._rid_map
+                           if name in srv._replicas), None)
+        time.sleep(0.005)
+    check(victim is not None, "fleet_remote kill: no mapped request")
+    t_kill = time.perf_counter()
+    _actor.kill(srv._replicas[victim].actor)
+    results = [srv.result(x, timeout_s=300) for x in pubs]
+    deadline = time.perf_counter() + 300
+    while time.perf_counter() < deadline:
+        st = srv.status()
+        names = [r["name"] for r in st["replicas"]]
+        if len(names) == 2 and victim not in names:
+            break
+        time.sleep(0.05)
+    backfill_s = time.perf_counter() - t_kill
+    after = srv({"prompt_tokens": [9, 8, 7], "max_tokens": 3,
+                 "timeout_s": 120})
+    shed = [r for r in results if r.get("finish_reason") == "shed"]
+    done = [r for r in results if r.get("finish_reason") == "length"]
+    row = {"requests": len(results), "shed": len(shed),
+           "replica_lost": sum(r.get("reason") == "replica_lost"
+                               for r in shed),
+           "finished": len(done), "replicas_after": len(names),
+           "backfill_s": backfill_s, "served_after": "error" not in after}
+    check(row["replica_lost"] > 0 and all(r.get("retriable") for r in shed)
+          and len(shed) + len(done) == len(results)
+          and row["replicas_after"] == 2 and row["served_after"],
+          f"fleet_remote kill: {row}")
+    return row
+
+
+def _http_json(port, path, body):
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        raw = resp.read()
+        if resp.headers["Content-Type"] == "application/x-ndjson":
+            return [json.loads(x) for x in raw.splitlines() if x]
+        return json.loads(raw)
+
+
+def phase_serve_controller(smi, device: str = "cuda",
+                           model: str = "llama_1b"):
+    """build_llm_deployment at llama_1b with an AutoscalingConfig (1 to 2
+    replicas): a burst of AUTO_BURST concurrent requests scales it to 2,
+    and bursts go on until the new replica has served; idle scales it
+    back to 1; the last replica's process killed, the controller
+    backfills and requests are served again; one request through the HTTP
+    ingress returns the handle's tokens, and a streamed one the handle's
+    stream's items.  Launches counted inside each replica, zeroed just
+    before the burst (the new replica's as it is published) and read just
+    after; each replica must have launched both kernels."""
+    from ray_tpu_torch import _actor, serve
+    from ray_tpu_torch.llm import build_llm_deployment
+    t0 = time.perf_counter()
+    build = _replica_build(device, model)
+    opts = dict(DEPLOY_OPTS, device=device)
+    auto = serve.AutoscalingConfig(**AUTO_CONFIG)
+    name = "auto"
+    app = build_llm_deployment(build, name=name, engine_options=opts,
+                               autoscaling_config=auto)
+    app = serve.Application(app.deployment.options(cls_or_fn=SmokeLLMServer))
+    bodies, stream_body = _deployment_bodies(build()[1].vocab_size)
+    gc.collect()
+
+    def n_replicas():
+        return serve.status()[name]["num_replicas"]
+
+    def on_replicas(method, replicas=None):
+        if replicas is None:
+            replicas = list(serve.api._state(name).replicas)
+        return _actor.get([r.handle_request.remote(method, (), {})
+                           for r in replicas], timeout=120)
+
+    def wait_for(cond, timeout_s, what):
+        deadline = time.perf_counter() + timeout_s
+        while not cond():
+            check(time.perf_counter() < deadline,
+                  f"serve_controller: {what} within {timeout_s} s")
+            time.sleep(0.05)
+
+    t1 = time.perf_counter()
+    handle = serve.run(app, http_port=0)
+    start_s = time.perf_counter() - t1
+    try:
+        port = serve.api.http_address()[1]
+        _actor.get(handle.remote(dict(bodies[0], max_tokens=2)), timeout=300)
+        first = list(serve.api._state(name).replicas)
+        on_replicas("reset_launches")
+        # -- the main path: the burst.
+
+        def burst():
+            results = [None] * AUTO_BURST
+
+            def one(i):
+                results[i] = _actor.get(handle.remote(dict(
+                    bodies[i % len(bodies)], max_tokens=AUTO_NEW)),
+                    timeout=600)
+
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(AUTO_BURST)]
+            for t in threads:
+                t.start()
+
+            def join():
+                for t in threads:
+                    t.join(timeout=600)
+                check(all(r is not None
+                          and len(r["output_tokens"]) == AUTO_NEW
+                          for r in results), "serve_controller: burst outputs")
+            return join
+
+        t_burst = time.perf_counter()
+        join = burst()
+        wait_for(lambda: serve.api._state(name).target_replicas == 2,
+                 60, "the decision to scale up")
+        decide_s = time.perf_counter() - t_burst
+        wait_for(lambda: n_replicas() == 2, 600, "scale up to 2")
+        scale_up_s = time.perf_counter() - t_burst
+        new = [r for r in serve.api._state(name).replicas if r not in first]
+        check(len(new) == 1, f"serve_controller: new replicas {new}")
+        on_replicas("reset_launches", new)
+        # The bursts go on until the new replica has launched both kernels
+        # (a replica starts in longer than one burst decodes).
+        waves = 1
+        while True:
+            join()
+            seen = on_replicas("read_launches", new)[0]
+            if device == "cpu" or (seen["flash_fwd"] > 0
+                                   and seen["paged_decode"] > 0):
+                break
+            check(waves < AUTO_WAVES, f"serve_controller: the new replica "
+                  f"served none of {waves} bursts")
+            join = burst()
+            waves += 1
+        new_served_s = time.perf_counter() - t_burst
+        launches_by_replica = on_replicas("read_launches")
+        # -- end of the main path.
+        t1 = time.perf_counter()
+        wait_for(lambda: n_replicas() == 1, 120, "scale down to 1")
+        scale_down_s = time.perf_counter() - t1
+        # The HTTP ingress against the handle.
+        body = dict(bodies[1], max_tokens=DEPLOY_NEW)
+        via_handle = _actor.get(handle.remote(body), timeout=300)
+        via_http = _http_json(port, f"/{name}", body)["result"]
+        streamer = handle.options(stream=True, method_name="stream")
+        items = [_actor.get(r, timeout=300)
+                 for r in streamer.remote(stream_body)]
+        http_items = [x["result"] for x in _http_json(
+            port, f"/{name}/stream", dict(stream_body, stream=True))]
+        http_equal = via_http["output_tokens"] == \
+            via_handle["output_tokens"]
+        stream_equal = http_items == items
+        # Recovery: the last replica's process dies.
+        victim = serve.api._state(name).replicas[0]
+        t_kill = time.perf_counter()
+        _actor.kill(victim)
+        recovered = None
+        while recovered is None:
+            check(time.perf_counter() - t_kill < 600,
+                  "serve_controller: no answer after the kill")
+            try:
+                recovered = _actor.get(handle.remote(
+                    dict(bodies[2], max_tokens=4)), timeout=600)
+            except (_actor.RayTpuError, RuntimeError):
+                time.sleep(0.05)
+        recover_s = time.perf_counter() - t_kill
+        replaced = victim not in serve.api._state(name).replicas
+    finally:
+        serve.shutdown()
+    launches = {k: sum(x[k] for x in launches_by_replica)
+                for k in ("flash_fwd", "paged_decode")}
+    res = {"phase": "serve_controller", "model": model, "card": smi,
+           "autoscaling": AUTO_CONFIG,
+           "burst": AUTO_BURST, "new_tokens": AUTO_NEW,
+           "replica_start_s": start_s, "scale_up_decided_s": decide_s,
+           "scale_up_s": scale_up_s, "bursts": waves,
+           "new_replica_served_s": new_served_s,
+           "scale_down_s": scale_down_s, "recover_s": recover_s,
+           "replaced": replaced, "http_equal": http_equal,
+           "http_stream_equal": stream_equal, "launches": launches,
+           "launches_by_replica": launches_by_replica,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    check(http_equal and stream_equal,
+          f"serve_controller: HTTP {via_http} vs handle {via_handle}; "
+          f"stream {http_items} vs {items}")
+    check(replaced and len(recovered["output_tokens"]) == 4,
+          f"serve_controller: recovery {recovered}")
+    check(len(launches_by_replica) == 2 and (device == "cpu" or all(
+        x["flash_fwd"] > 0 and x["paged_decode"] > 0
+        for x in launches_by_replica)),
+          f"serve_controller: kernels not launched in every replica "
+          f"{launches_by_replica}")
+    return launches
+
+
 def phase_rl_remote(smi, device: str = "cuda"):
     """PPO with 2 remote env runners and 2 DDP learners on the card, 2
     iterations, the learner replicas bit-identical after; then IMPALA at
@@ -3980,6 +4607,14 @@ def main() -> int:
     paths["disagg_load"], paths["fleet"] = phase_serving_tiers(smi)
     torch.cuda.empty_cache()
     paths["serve_deployment"] = phase_serve_deployment(smi)
+    torch.cuda.empty_cache()
+    phase_handoff_ipc(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["fleet_remote"] = phase_fleet_remote(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["serve_controller"] = phase_serve_controller(smi)
     torch.cuda.empty_cache()
     phase_train_exact()
     paths["train_tiny"] = phase_train_tiny()

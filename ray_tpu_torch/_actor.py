@@ -621,6 +621,17 @@ def kill(actor: ActorHandle, *, no_restart: bool = True) -> None:
     _channel(actor._actor_id).close()
 
 
+def is_dead(actor: ActorHandle) -> bool:
+    """True once the actor's process has exited (where this process
+    started it) or its connection has failed."""
+    proc = _started_proc(actor._actor_id)
+    if proc is not None and proc.exitcode is not None:
+        return True
+    with _channels_lock:
+        ch = _channels.get(actor._actor_id)
+    return ch is not None and ch.dead is not None
+
+
 def shutdown() -> None:
     """Kill every actor this process started and drop its store."""
     global _session

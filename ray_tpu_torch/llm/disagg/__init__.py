@@ -6,8 +6,9 @@ stream) to a decode engine on the same card, SLO-aware admission control
 (per-class token budgets, bounded queues with deadline shedding, KV
 occupancy backpressure), and the open-loop load generator.  The same
 exports as the JAX package; ``build_disagg_deployment`` serves one
-``DisaggServer`` a replica process, and the object-store transport raises
-until ROADMAP Queue 1 item 6b.
+``DisaggServer`` a replica process; ``export_handoff``/``import_handoff``
+carry a handoff between processes through the port's object store (CUDA
+IPC on the card).
 """
 
 from .handoff import KVHandoff, export_handoff, import_handoff

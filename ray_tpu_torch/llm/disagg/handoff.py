@@ -8,23 +8,26 @@ card: its ``ks``/``vs`` are the prefill's tensors, and the import is one
 device-to-device scatter (``_model.write_prefill``) on the decode engine's
 stream, ordered after the prefill by the handoff's ``ready`` event.
 
-The JAX package also seals a handoff into its shared-memory object store
-(``export_handoff``/``import_handoff``) so a decode worker in another
-process maps it; that transport comes with the process tier's part 2
-(ROADMAP Queue 1 item 6b).
+Across processes on one host a handoff is sealed into the port's object
+store (``export_handoff``) and opened by descriptor (``import_handoff``):
+host K/V travel through shared memory, K/V on the card through CUDA IPC
+handles, so the decode process reads the prefill's memory in place, and
+the ``ready`` event goes along as an interprocess event.  The exporter
+releases the blob (``ray_tpu_torch._object_store.release_page_blob``) only
+after the importer's scatter has finished on the device.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, replace
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ...util import telemetry
 from ..engine import SamplingParams
-
-from ...serve.api import PART_2
 
 
 def _nbytes(x) -> int:
@@ -74,18 +77,43 @@ class KVHandoff:
         return replace(self, ks=host(self.ks), vs=host(self.vs), ready=None)
 
 
-def export_handoff(store, object_id, handoff: KVHandoff):
-    """Sealing a handoff into a shared-memory object store, for a decode
-    worker in another process, is not ported yet."""
-    raise NotImplementedError(
-        f"export_handoff (the object-store transport of a KV handoff "
-        f"across processes) comes with {PART_2}; in one process pass the "
-        f"KVHandoff to import_prefill directly")
+def export_handoff(store, object_id, handoff: KVHandoff
+                   ) -> Optional[tuple]:
+    """Seal ``handoff`` into ``store`` (a
+    ``ray_tpu_torch._object_store.SharedMemoryStore``) and return the
+    descriptor a process on this host imports it by; None when the store
+    cannot hold it (the caller then hands the object off directly).
+
+    K/V on the card stay where they are: the descriptor carries their IPC
+    handles, and ``ready`` is replaced by an interprocess event recorded
+    after it, which the importer's stream waits on."""
+    from ..._object_store import export_page_blob
+    t0 = time.perf_counter()
+    if isinstance(handoff.ks, torch.Tensor) and handoff.ks.is_cuda:
+        device = handoff.ks.device
+        stream = torch.cuda.current_stream(device)
+        if handoff.ready is not None:
+            stream.wait_event(handoff.ready)
+        ready = torch.cuda.Event(interprocess=True)
+        ready.record(stream)
+        handoff = replace(handoff, ready=ready)
+    desc = export_page_blob(store, object_id, handoff)
+    if desc is not None:
+        telemetry.observe("ray_tpu_llm_kv_transfer_seconds",
+                          time.perf_counter() - t0, tags={"op": "export"})
+        telemetry.inc("ray_tpu_llm_kv_transfer_bytes_total", handoff.nbytes)
+    return desc
 
 
-def import_handoff(desc):
-    """Mapping an exported handoff by descriptor is not ported yet."""
-    raise NotImplementedError(
-        f"import_handoff (the object-store transport of a KV handoff "
-        f"across processes) comes with {PART_2}; in one process pass the "
-        f"KVHandoff to import_prefill directly")
+def import_handoff(desc: tuple) -> Tuple[KVHandoff, Any]:
+    """Open an exported handoff by descriptor.  Returns (handoff,
+    keepalive): host K/V are views of the shared mapping while the
+    keepalive is held; K/V on the card are the exporter's memory, opened
+    through its IPC handles (in the exporting process, its own tensors).
+    The importer needs them until its ``write_prefill`` scatter has run."""
+    from ..._object_store import import_page_blob
+    t0 = time.perf_counter()
+    handoff, keepalive = import_page_blob(desc)
+    telemetry.observe("ray_tpu_llm_kv_transfer_seconds",
+                      time.perf_counter() - t0, tags={"op": "import"})
+    return handoff, keepalive

@@ -18,9 +18,9 @@ timeout storms.
   decode steps); ``mode="inline"`` is the stall-everything baseline, kept
   for A/B runs.
 * :func:`build_disagg_deployment`: the plane as a serve deployment; each
-  replica process hosts one whole :class:`DisaggServer`, so its handoffs
-  stay inside that process (the cross-process handoff, ``store=``, raises
-  naming ROADMAP Queue 1 item 6b).
+  replica process hosts one whole :class:`DisaggServer`; with ``store=``
+  its handoffs go through the object store (export, import, release), as
+  JAX's do.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from typing import Any, Dict, List, Optional
 from ...serve.api import OverloadError
 from ...util import telemetry, tracing
 from ..engine import InferenceEngine, SamplingParams
-from ...serve.api import PART_2
+from .handoff import export_handoff, import_handoff
 from .prefill import PrefillWorker
 
 
@@ -182,9 +182,10 @@ class DisaggServer:
     running prefill and the KV handoff in disagg mode, and the DRIVER steps
     the decode engine and publishes finished results.  ``engine_options``
     go to :class:`InferenceEngine` (``device`` among them); the prefill
-    worker shares the engine's weights.  ``store`` (the JAX package's
-    shared-memory handoff transport) must be None: see
-    :func:`~ray_tpu_torch.llm.disagg.export_handoff`.
+    worker shares the engine's weights.  ``store`` (a
+    ``ray_tpu_torch._object_store.SharedMemoryStore``) routes each disagg
+    handoff through it (:func:`~ray_tpu_torch.llm.disagg.export_handoff`);
+    None hands it over directly.
     """
 
     def __init__(self, build_params, *, mode: str = "disagg",
@@ -194,11 +195,6 @@ class DisaggServer:
                  poll_interval_s: float = 0.002):
         if mode not in ("disagg", "chunked", "inline"):
             raise ValueError(f"unknown mode {mode!r}")
-        if store is not None:
-            raise NotImplementedError(
-                f"DisaggServer(store=...): the object-store handoff "
-                f"transport comes with {PART_2}; in one process handoffs "
-                f"pass directly (store=None)")
         params, cfg = build_params() if callable(build_params) \
             else build_params
         eo = dict(engine_options or {})
@@ -208,6 +204,7 @@ class DisaggServer:
         else:
             eo.pop("prefill_chunk", None)
         self.mode = mode
+        self._store = store
         self.engine = InferenceEngine(
             params, cfg, record_token_times=record_token_times, **eo)
         self.prefill_worker = PrefillWorker(
@@ -484,28 +481,50 @@ class DisaggServer:
 
     def _dispatch_disagg(self, item: _Pending) -> None:
         """Disagg mode: prefill on the prefill tier, hand the KV to the
-        decode engine on the card, retry import under decode
-        backpressure."""
+        decode engine (through the object store when the server has one),
+        retry import under decode backpressure."""
         t_pf = time.time()
         handoff = self.prefill_worker.prefill(
             item.prompt, item.params, t_submit=item.t_submit)
         self._trace_phase(item, "prefill", t_pf,
                           {"prompt_tokens": len(item.prompt)})
-        self._trace_phase(item, "kv_transfer", time.time(),
-                          {"transport": "inline", "bytes": handoff.nbytes})
+        t_kv = time.time()
+        oid = None
+        keepalive = None
+        if self._store is not None:
+            from ..._object_store import new_object_id
+            oid = new_object_id()
+            desc = export_handoff(self._store, oid, handoff)
+            if desc is not None:
+                handoff, keepalive = import_handoff(desc)
+            else:
+                oid = None  # store full: direct in-process handoff
+        self._trace_phase(
+            item, "kv_transfer", t_kv,
+            {"transport": "shm_store" if oid is not None else "inline",
+             "bytes": handoff.nbytes})
         t_adm = time.time()
         rid = None
         gone = False
-        while not self._stop.is_set():
-            gone = self._gone(item)
-            if gone:
-                break
-            rid = self.engine.import_prefill(handoff)
-            if rid is not None:
-                break
-            if time.perf_counter() > item.deadline:
-                break
-            time.sleep(self._poll)
+        try:
+            while not self._stop.is_set():
+                gone = self._gone(item)
+                if gone:
+                    break
+                rid = self.engine.import_prefill(handoff)
+                if rid is not None:
+                    break
+                if time.perf_counter() > item.deadline:
+                    break
+                time.sleep(self._poll)
+        finally:
+            # In this process the import is the exported value itself (its
+            # tensors marked as used by the engine's stream) or host views
+            # the scatter has copied: the staged blob can go.
+            if oid is not None:
+                del handoff, keepalive
+                from ..._object_store import release_page_blob
+                release_page_blob(self._store, oid)
         if gone:
             self.admission.note_dequeued(item.clazz)
             return

@@ -7,15 +7,16 @@ load-imbalance override), a shared prefill tier whose KV handoffs stay on
 the card, and SLO-driven replica autoscaling over a windowed series store
 (queue depth / shed rate / ITL p99).  On one card each replica and the
 prefill tier run on their own CUDA streams and share one copy of the
-weights.  ``RemoteReplica``/``ReplicaHost`` raise until ROADMAP Queue 1
-item 6b.
+weights.  ``RemoteReplica`` puts a replica in a process of its own
+(a ``ReplicaHost`` actor), its handoffs crossing as CUDA IPC handles.
 """
 
 from .autoscale import (FleetScaleDecision, ServeAutoscalePolicy,
                         ServeScaleConfig)
 from .prefix import (DEFAULT_BLOCK, PrefixCache, full_hash, prefix_chain,
                      score_summary)
-from .replica import DecodeReplica, RemoteReplica, ReplicaHost
+from .remote import RemoteReplica, ReplicaHost
+from .replica import DecodeReplica
 from .router import FleetRouter, RouteDecision, RoutingConfig
 from .server import FLEET_KV_PREFIX, FleetConfig, FleetServer
 

@@ -187,19 +187,3 @@ class DecodeReplica:
         return lost
 
     close = kill
-
-
-class RemoteReplica:
-    """A decode replica on another host (the JAX package's
-    ``fleet/remote.py``): it comes with the process tier's part 2."""
-
-    def __init__(self, *_args, **_kwargs):
-        from ...serve.api import PART_2
-        raise NotImplementedError(
-            f"RemoteReplica (a decode replica in another process or on "
-            f"another host) comes with {PART_2}; use the local "
-            f"DecodeReplica, one stream each on the card")
-
-
-class ReplicaHost(RemoteReplica):
-    """The actor body of a :class:`RemoteReplica`; see there."""

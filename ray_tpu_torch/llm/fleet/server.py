@@ -19,9 +19,10 @@ of ray_tpu/llm/fleet/server.py, whose host logic is copied).
 A replica loss sheds exactly the requests that were mid-flight on it
 (retriable results, never a hang) and the fleet keeps serving on the
 survivors.  On one card every replica, and the prefill tier, has its own
-stream and shares one copy of the weights.  Replicas on other hosts
-(``RemoteReplica``) and the object-store handoff come with ROADMAP Queue 1
-item 6b.
+stream and shares one copy of the weights.  With ``store=`` each handoff
+goes through the object store (export, import, release), as JAX's does;
+a ``replica_factory`` building :class:`~ray_tpu_torch.llm.fleet.remote.
+RemoteReplica` puts every replica in a process of its own.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from ... import _control
 from ..._device import resolve_device
 from ...serve.api import OverloadError
 from ...util import telemetry, tracing
-from ...serve.api import PART_2
+from ..disagg.handoff import export_handoff, import_handoff
 from ..disagg.prefill import PrefillWorker
 from ..disagg.router import (_EARLY_TTL_S, AdmissionConfig,
                              AdmissionController, _Pending)
@@ -75,9 +76,10 @@ class FleetServer:
     :class:`~ray_tpu_torch.llm.disagg.DisaggServer` (``submit``/``result``/
     ``__call__``/``load``/``close``), so the open-loop loadgen drives it
     unchanged.  ``config.engine_options`` go to every replica's engine
-    (``device`` among them).  ``store`` must be None (see
-    :func:`~ray_tpu_torch.llm.disagg.export_handoff`); a
-    ``replica_factory`` ``(name, on_finish) -> replica`` replaces the
+    (``device`` among them).  ``store`` (a
+    ``ray_tpu_torch._object_store.SharedMemoryStore``) routes each
+    handoff through it (:func:`~ray_tpu_torch.llm.disagg.export_handoff`);
+    a ``replica_factory`` ``(name, on_finish) -> replica`` replaces the
     local :class:`DecodeReplica`.
     """
 
@@ -87,12 +89,8 @@ class FleetServer:
                  store=None, record_token_times: bool = False,
                  replica_factory: Optional[Callable[..., Any]] = None,
                  poll_interval_s: float = 0.002):
-        if store is not None:
-            raise NotImplementedError(
-                f"FleetServer(store=...): the object-store handoff transport "
-                f"comes with {PART_2}; in one process handoffs pass "
-                f"directly (store=None)")
         self.name = name
+        self._store = store
         self.config = config or FleetConfig()
         params, cfg = build_params() if callable(build_params) \
             else build_params
@@ -146,8 +144,16 @@ class FleetServer:
 
         self._stop = threading.Event()
         self._work = threading.Event()
-        for _ in range(self._target):
-            self._add_replica()
+        if replica_factory is None:
+            for _ in range(self._target):
+                self._add_replica()
+        else:
+            # A factory's replicas (processes, for RemoteReplica) start
+            # together.
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(self._target) as pool:
+                list(pool.map(lambda _: self._add_replica(),
+                              range(self._target)))
         self._dispatcher = threading.Thread(
             target=self._dispatch_loop, name=f"fleet-dispatch-{name}",
             daemon=True)
@@ -506,81 +512,100 @@ class FleetServer:
         fh = full_hash(item.prompt)
         handoff = None
         rebalance_seen = False
-        while not self._stop.is_set():
-            if self._gone(item):
-                self.admission.note_dequeued(item.clazz)
-                return
-            if time.perf_counter() > item.deadline:
-                self._finish_shed(item, "deadline")
-                return
-            views = self._views()
-            if not views:
-                time.sleep(self._poll)
-                continue
-            decision = self.router.route(views, chain, fh)
-            with self._lock:
-                rep = self._replicas.get(decision.replica)
-            if rep is None or not rep.accepting:
-                continue
-            if decision.rebalanced and not rebalance_seen:
-                rebalance_seen = True
-                with self._lock:
-                    self._rebalances += 1
-                telemetry.inc("ray_tpu_serve_rebalance_total")
-            if handoff is None and decision.outcome == "full" \
-                    and params.temperature <= 0.0:
-                rid = rep.try_serve_cached(
-                    item.prompt, params, item.t_submit)
-                if rid is not None:
-                    self._trace_phase(
-                        item, "prefix_replay", time.time(),
-                        {"replica": decision.replica,
-                         "shared_blocks": decision.shared_blocks})
-                    self._map(item, decision.replica, rid, "full",
-                              rep)
+        oid = None
+        keepalive = None
+        try:
+            while not self._stop.is_set():
+                if self._gone(item):
+                    self.admission.note_dequeued(item.clazz)
                     return
-                # Cache raced away (eviction) or momentary engine
-                # backpressure: fall through to the cold path.
-            if handoff is None:
-                t_pf = time.time()
-                handoff = self.prefill.prefill(
-                    item.prompt, params, t_submit=item.t_submit)
-                self._trace_phase(item, "prefill", t_pf,
-                                  {"prompt_tokens": len(item.prompt)})
-            # Bounded import retries on THIS target, then re-route:
-            # a draining/killed target must not eat the deadline.
-            outcome = "miss" if decision.outcome == "full" \
-                else decision.outcome
-            with self._lock:
-                self._assigned[decision.replica] = \
-                    self._assigned.get(decision.replica, 0) + 1
-            rid = None
-            retarget_at = time.perf_counter() + 0.05
-            try:
-                t_adm = time.time()
-                while not self._stop.is_set():
-                    if not rep.accepting or self._gone(item):
-                        break
-                    rid = rep.import_prefill(handoff)
-                    if rid is not None:
-                        break
-                    if time.perf_counter() > min(item.deadline,
-                                                 retarget_at):
-                        break
+                if time.perf_counter() > item.deadline:
+                    self._finish_shed(item, "deadline")
+                    return
+                views = self._views()
+                if not views:
                     time.sleep(self._poll)
-            finally:
+                    continue
+                decision = self.router.route(views, chain, fh)
                 with self._lock:
-                    if decision.replica in self._assigned:
-                        self._assigned[decision.replica] = max(
-                            0, self._assigned[decision.replica] - 1)
-            if rid is not None:
-                self._trace_phase(item, "decode_admission", t_adm,
-                                  {"replica": decision.replica,
-                                   "engine_rid": rid})
-                self._map(item, decision.replica, rid, outcome, rep)
-                return
-            # else: loop re-evaluates (deadline, gone, re-route).
-        self._finish_shed(item, "deadline")
+                    rep = self._replicas.get(decision.replica)
+                if rep is None or not rep.accepting:
+                    continue
+                if decision.rebalanced and not rebalance_seen:
+                    rebalance_seen = True
+                    with self._lock:
+                        self._rebalances += 1
+                    telemetry.inc("ray_tpu_serve_rebalance_total")
+                if handoff is None and decision.outcome == "full" \
+                        and params.temperature <= 0.0:
+                    rid = rep.try_serve_cached(
+                        item.prompt, params, item.t_submit)
+                    if rid is not None:
+                        self._trace_phase(
+                            item, "prefix_replay", time.time(),
+                            {"replica": decision.replica,
+                             "shared_blocks": decision.shared_blocks})
+                        self._map(item, decision.replica, rid, "full",
+                                  rep)
+                        return
+                    # Cache raced away (eviction) or momentary engine
+                    # backpressure: fall through to the cold path.
+                if handoff is None:
+                    t_pf = time.time()
+                    handoff = self.prefill.prefill(
+                        item.prompt, params, t_submit=item.t_submit)
+                    self._trace_phase(item, "prefill", t_pf,
+                                      {"prompt_tokens": len(item.prompt)})
+                    if self._store is not None:
+                        from ..._object_store import new_object_id
+                        oid = new_object_id()
+                        desc = export_handoff(self._store, oid, handoff)
+                        if desc is not None:
+                            handoff, keepalive = import_handoff(desc)
+                        else:
+                            oid = None  # store full: direct handoff
+                # Bounded import retries on THIS target, then re-route:
+                # a draining/killed target must not eat the deadline.
+                outcome = "miss" if decision.outcome == "full" \
+                    else decision.outcome
+                with self._lock:
+                    self._assigned[decision.replica] = \
+                        self._assigned.get(decision.replica, 0) + 1
+                rid = None
+                retarget_at = time.perf_counter() + 0.05
+                try:
+                    t_adm = time.time()
+                    while not self._stop.is_set():
+                        if not rep.accepting or self._gone(item):
+                            break
+                        rid = rep.import_prefill(handoff)
+                        if rid is not None:
+                            break
+                        if time.perf_counter() > min(item.deadline,
+                                                     retarget_at):
+                            break
+                        time.sleep(self._poll)
+                finally:
+                    with self._lock:
+                        if decision.replica in self._assigned:
+                            self._assigned[decision.replica] = max(
+                                0, self._assigned[decision.replica] - 1)
+                if rid is not None:
+                    self._trace_phase(item, "decode_admission", t_adm,
+                                      {"replica": decision.replica,
+                                       "engine_rid": rid})
+                    self._map(item, decision.replica, rid, outcome, rep)
+                    return
+                # else: loop re-evaluates (deadline, gone, re-route).
+            self._finish_shed(item, "deadline")
+        finally:
+            # Every import of the staged blob has run (a remote replica
+            # answers once its scatter has finished on the device), so
+            # it can go.
+            del handoff, keepalive
+            if oid is not None:
+                from ..._object_store import release_page_blob
+                release_page_blob(self._store, oid)
 
     # -- replica finish callback (runs on replica drive threads) ------------
 

@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 
 _LATENCY_BUCKETS = [0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5,
                     1.0, 2.5, 5.0, 10.0, 30.0, 60.0]
+_SIZE_BUCKETS = [1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0]
 _STEP_BUCKETS = [0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 30.0, 60.0,
                  120.0, 300.0, 600.0]
 
@@ -115,6 +116,19 @@ CATALOG: Dict[str, Dict[str, Any]] = {
     "ray_tpu_serve_request_latency_seconds": _h(
         ("deployment",), "End-to-end handle request latency (route -> "
                          "result materialized).", _LATENCY_BUCKETS),
+    "ray_tpu_serve_queue_wait_seconds": _h(
+        ("method",), "Time a @serve.batch item waited in the queue "
+                     "before its batch started executing.",
+        _LATENCY_BUCKETS),
+    "ray_tpu_serve_batch_size": _h(
+        ("method",), "Items per executed @serve.batch batch.",
+        _SIZE_BUCKETS),
+    "ray_tpu_serve_replicas": _g(
+        ("deployment",), "Live replica count per deployment (controller "
+                         "view)."),
+    "ray_tpu_serve_ongoing_requests": _g(
+        ("deployment",), "This process's in-flight requests per "
+                         "deployment (router view)."),
     "ray_tpu_serve_shed_total": _c(
         ("deployment",), "Handle-path requests rejected by the "
                          "max_queued_requests admission bound (retriable "

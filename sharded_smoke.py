@@ -5,6 +5,7 @@
     python3 sharded_smoke.py --cpu     # rehearsal: 4 gloo ranks on the CPU
     python3 sharded_smoke.py --fit     # only the trainer run (4 cards)
     python3 sharded_smoke.py --collective   # only the NCCL collective group
+    python3 sharded_smoke.py --fleet   # only the serving fleet, a replica a card
 
 Run from the root of a checkout on a machine with two or more CUDA cards
 and nvcc.  It builds the kernels, then for each run of ``RUNS`` trains 4
@@ -43,6 +44,18 @@ collective`` over NCCL: one process actor a card, each joining
 reducescatter and send/recv (rank pairs) held to numpy, and 10 allreduces
 of 4 MiB timed on the host clock (each op copies its numpy array to the
 card and back).  ``--cpu --collective`` runs it on 4 CPU actors over gloo.
+
+``--fleet`` runs only the serving fleet across the cards: the prefill tier
+in this process on card 0 and one ``RemoteReplica`` process a card, each
+seeing its own card first and the others after it
+(``CUDA_VISIBLE_DEVICES``), so a handoff's IPC handles open on the peer
+card and its ``write_prefill`` scatter reads card 0's memory over NVLink.
+``chip_smoke.py``'s exactness prompts (``REMOTE_EXACT``), each prefilled
+once and imported by every card's replica alone, must give every card the
+tokens of card 0's replica; then ``chip_smoke.py``'s prefix-heavy fleet
+mix on 1, 2 and 4 replicas (sustained rps, TTFT, ITL, the router's call
+times).  ``--cpu --fleet`` rehearses it with 4 CPU replicas at
+llama_tiny's size.
 
 One JSON line a run; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, with fewer than two cards (two cards:
@@ -411,10 +424,140 @@ def _collective_run(cpu: bool, smi):
             "seconds": time.perf_counter() - t0}, ok
 
 
+def _fleet_card_env(k: int, world: int):
+    """The environment of card ``k``'s replica: its card first (its
+    ``"cuda"``), every other card visible after it (to open peers'
+    IPC handles)."""
+    import os
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = visible.split(",") if visible else [str(i) for i in range(world)]
+    order = [cards[k]] + [c for i, c in enumerate(cards) if i != k]
+    return {"CUDA_VISIBLE_DEVICES": ",".join(order)}
+
+
+def _fleet_run(cpu: bool, smi):
+    """``--fleet``: see the module docstring."""
+    import threading
+
+    import torch
+
+    import chip_smoke as cs
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.llm.disagg import (PrefillWorker, ServeLoadSpec,
+                                          run_open_loop)
+    from ray_tpu_torch.llm.fleet import (FleetConfig, FleetServer,
+                                         RemoteReplica)
+    device = "cpu" if cpu else "cuda"
+    world = 4 if cpu else torch.cuda.device_count()
+    if cpu:      # the rehearsal's sizes (llama_tiny's 256 positions)
+        cs.SERVE_OPTS = dict(max_slots=4, page_size=16,
+                             prefill_buckets=(64, 128), num_pages=96)
+        cs.FLEET_PROMPT, cs.FLEET_POOL = 100, 4
+        cs.FLEET_RPS, cs.FLEET_DURATION_S = 10.0, 1.0
+        cs.REMOTE_EXACT = ((100, 4), (50, 4), (20, 4), (100, 4))
+    build = cs._replica_build(device, "llama_tiny" if cpu else "llama_1b")
+    eo = dict(cs.SERVE_OPTS, device=device)
+    params, cfg = build()
+    t0 = time.perf_counter()
+
+    def replica(name, k, on_finish, cache_bytes=1 << 20):
+        env = {"OMP_NUM_THREADS": "1"} if cpu else _fleet_card_env(k, world)
+        return RemoteReplica(build, name=name, engine_options=eo,
+                             cache_capacity_bytes=cache_bytes,
+                             record_token_times=True, on_finish=on_finish,
+                             actor_options={"env_vars": env})
+
+    # Exactness: every card's replica imports the same handoffs alone.
+    done = {}
+
+    def on_finish(rep, req):
+        done[(rep.name, req.request_id)] = list(req.output_tokens)
+
+    reps = [None] * world
+
+    def start(k):
+        reps[k] = replica(f"card{k}", k, on_finish)
+    threads = [threading.Thread(target=start, args=(k,))
+               for k in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    start_s = time.perf_counter() - t0
+    pw = PrefillWorker(params, cfg, device=device,
+                       prefill_buckets=eo["prefill_buckets"],
+                       page_size=eo["page_size"])
+    rng = np.random.default_rng(41)
+    by_card = [[] for _ in range(world)]
+    try:
+        for n, new in cs.REMOTE_EXACT:
+            prompt = rng.integers(1, cfg.vocab_size, n).tolist()
+            h = pw.prefill(prompt, SamplingParams(max_tokens=new))
+            rids = [rep.import_prefill(h) for rep in reps]
+            deadline = time.perf_counter() + 300
+            while not all((rep.name, rid) in done
+                          for rep, rid in zip(reps, rids)):
+                assert time.perf_counter() < deadline, "exactness stalled"
+                time.sleep(0.01)
+            for k, (rep, rid) in enumerate(zip(reps, rids)):
+                by_card[k].append(done[(rep.name, rid)])
+    finally:
+        for rep in reps:
+            rep.kill()
+    equal = all(toks == by_card[0] for toks in by_card[1:])
+    out = {"run": "fleet", "card": smi, "world": world,
+           "model": "llama_tiny" if cpu else "llama_1b",
+           "replica_start_s": start_s,
+           "exact": {"requests": len(cs.REMOTE_EXACT),
+                     "tokens_equal_to_card0": equal}}
+    entry = pw.prefill(list(range(1, cs.FLEET_PROMPT + 1)),
+                       SamplingParams(max_tokens=cs.FLEET_MAX_TOKENS)).nbytes
+    cache_bytes = int(entry * (cs.FLEET_POOL // 2) + entry // 2)
+    spec = dict(rps=cs.FLEET_RPS, duration_s=cs.FLEET_DURATION_S,
+                long_fraction=1.0, long_prompt=cs.FLEET_PROMPT,
+                long_max_tokens=cs.FLEET_MAX_TOKENS, short_prompt=32,
+                short_max_tokens=cs.FLEET_MAX_TOKENS,
+                prompt_pool=cs.FLEET_POOL, drain_timeout_s=120.0)
+    ok = equal
+    for n in sorted({1, 2, world}):
+        def factory(name, on_fin, _n=n):
+            k = int(name.rsplit("-r", 1)[1]) % world
+            return replica(name, k, on_fin, cache_bytes)
+        t1 = time.perf_counter()
+        srv = FleetServer(lambda: (params, cfg), name=f"cards{n}",
+                          admission=cs._open_admission(),
+                          config=FleetConfig(num_replicas=n,
+                                             engine_options=eo,
+                                             cache_capacity_bytes=cache_bytes),
+                          record_token_times=True, replica_factory=factory)
+        fleet_start_s = time.perf_counter() - t1
+        try:
+            pubs = [srv.submit({"prompt_tokens": [1] * (cs.FLEET_PROMPT - i),
+                                "max_tokens": 2, "timeout_s": 300})
+                    for i in range(2 * n)]
+            for x in pubs:
+                srv.result(x, timeout_s=300)
+            waits = cs._time_remote_calls(srv)
+            r = run_open_loop(srv, ServeLoadSpec(**spec), cfg.vocab_size)
+            st = srv.status()
+        finally:
+            srv.close()
+        row = cs._load_row(r)
+        row.update(replicas=n, start_s=fleet_start_s, prefix=st["prefix"],
+                   router_calls=cs._summarize_waits(waits))
+        out[f"replicas_{n}"] = row
+        ok = ok and r["unfinished"] == 0 and r["errors"] == 0
+    out["sustained_rps"] = {n: out[f"replicas_{n}"]["sustained_rps"]
+                            for n in sorted({1, 2, world})}
+    out["seconds"] = time.perf_counter() - t0
+    return out, ok
+
+
 def main(argv) -> int:
     cpu = "--cpu" in argv
     fit_only = "--fit" in argv
     collective_only = "--collective" in argv
+    fleet_only = "--fleet" in argv
     import torch
     from ray_tpu_torch._device import card_power_line
     from ray_tpu_torch.parallel import build_mesh
@@ -444,8 +587,13 @@ def main(argv) -> int:
         emit(row)
         if not ok:
             failed.append("collective")
-    runs = () if fit_only or collective_only else RUNS[4 if world >= 4
-                                                       else 2]
+    if fleet_only:
+        row, ok = _fleet_run(cpu, smi)
+        emit(row)
+        if not ok:
+            failed.append("fleet")
+    only = fit_only or collective_only or fleet_only
+    runs = () if only else RUNS[4 if world >= 4 else 2]
     for name, kind, spec_kw, changes in runs:
         if kind not in refs:
             if not cpu:
@@ -482,7 +630,7 @@ def main(argv) -> int:
         if not (row["same_on_every_rank"] and launched
                 and all(errs[k] <= TOL[k] for k in held)):
             failed.append(name)
-    if world >= 4 and not collective_only:
+    if world >= 4 and not (collective_only or fleet_only):
         if not cpu:
             refs.clear()
             torch.cuda.empty_cache()

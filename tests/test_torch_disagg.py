@@ -15,7 +15,9 @@ with JAX's weights carried over by ``models/convert.params_from_numpy``:
 - the admission logic (``TestDeadlineFeasibility``) and
   ``decode_full_returns_none``, parametrised over both packages;
 - the port's shed, class budget and saturation cases with the JAX tests'
-  own bounds, and the refusals that name ROADMAP item 6.
+  own bounds; the object-store transport in one process (across
+  processes, and ``store=`` against JAX's servers:
+  tests/test_torch_remote.py), and the deployment's autoscaling option.
 """
 
 from __future__ import annotations
@@ -190,13 +192,37 @@ class TestKVHandoff:
         assert eng.import_prefill(h2) is not None
 
     def test_object_store_transport_is_item_6(self, params):
-        h = KVHandoff([1], 2, torch.zeros(2, 8, 2, 8), torch.zeros(2, 8, 2, 8),
-                      SamplingParams())
-        assert h.nbytes == 2 * 2 * 8 * 2 * 8 * 4
-        for call in (lambda: export_handoff(None, None, h),
-                     lambda: import_handoff(None)):
-            with pytest.raises(NotImplementedError, match="item 6"):
-                call()
+        """Item 6 brought the object-store transport: a handoff exported
+        and imported in one process keeps its K/V bit for bit (views of
+        the shared segment), and continues with the greedy stream of
+        local admission; the release empties the store."""
+        from ray_tpu_torch._object_store import (SharedMemoryStore,
+                                                 new_object_id,
+                                                 release_page_blob)
+        pw = PrefillWorker(params, CFG, prefill_buckets=(16,), page_size=8,
+                           device="cpu")
+        h = pw.prefill([7, 9, 23, 6], SamplingParams(max_tokens=6))
+        assert h.nbytes == 2 * h.ks.numel() * 4
+        store = SharedMemoryStore(capacity_bytes=32 << 20)
+        try:
+            oid = new_object_id()
+            desc = export_handoff(store, oid, h)
+            assert desc[0] == "shm"
+            h2, keepalive = import_handoff(desc)
+            assert torch.equal(h2.ks, h.ks) and torch.equal(h2.vs, h.vs)
+            assert (h2.prompt_tokens, h2.first_token) == \
+                (h.prompt_tokens, h.first_token)
+            eng = InferenceEngine(params, CFG, max_slots=2, page_size=8,
+                                  num_pages=64, prefill_buckets=(16,),
+                                  device="cpu")
+            rid = eng.import_prefill(h2)
+            del h2, keepalive
+            release_page_blob(store, oid)
+            assert store.stats()["num_objects"] == 0
+            assert _drain(eng)[rid] == naive_greedy(params, [7, 9, 23, 6],
+                                                    6)
+        finally:
+            store.shutdown()
 
 
 class TestDeadlineFeasibility:
@@ -405,15 +431,17 @@ class TestDisaggServer:
         tracing._reset_for_tests()
 
     def test_refusals_name_item_6(self, params):
-        # The deployment runs (tests/test_torch_serve.py); its autoscaling
-        # and the object-store transport wait for item 6b.
-        with pytest.raises(NotImplementedError, match="item 6b"):
+        """The deployment's autoscaling (item 6b) is ported: a serve
+        ``AutoscalingConfig`` rides the deployment, anything else is a
+        type error."""
+        from ray_tpu_torch.serve import AutoscalingConfig
+        cfg = AutoscalingConfig(min_replicas=1, max_replicas=2)
+        app = build_disagg_deployment(lambda: (params, CFG),
+                                      autoscaling_config=cfg)
+        assert app.deployment.autoscaling_config is cfg
+        with pytest.raises(TypeError, match="AutoscalingConfig"):
             build_disagg_deployment(lambda: (params, CFG),
                                     autoscaling_config=object())
-        with pytest.raises(NotImplementedError, match="item 6"):
-            DisaggServer(lambda: (params, CFG), mode="disagg",
-                         engine_options=dict(ENGINE_OPTS, device="cpu"),
-                         store=object())
 
 
 class TestEngineTelemetry:

@@ -13,7 +13,8 @@ with JAX's weights carried over by ``models/convert.params_from_numpy``:
   replayed, the status surface, a kill that sheds ``replica_lost`` and
   backfills, a drain that sheds nothing, the manager scaling up and back
   down), the snapshot published to the control plane, replicas sharing
-  one copy of the weights, and the refusals that name ROADMAP item 6.
+  one copy of the weights, and the remote replica classes (their fleets:
+  tests/test_torch_remote.py).
 Every server is closed in a ``finally``; close joins its threads.
 """
 
@@ -472,13 +473,26 @@ class TestFleetServer:
             _control.set_current(None)
 
     def test_refusals_name_item_6(self, params):
-        for cls in (RemoteReplica, ReplicaHost):
-            with pytest.raises(NotImplementedError, match="item 6"):
-                cls(lambda: (params, CFG), name="r")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            FleetServer(lambda: (params, CFG), store=object(),
-                        config=FleetConfig(engine_options=dict(
-                            ENGINE_OPTS, device="cpu")))
+        """Item 6b brought them: the remote replica classes are the
+        process tier's (a handle over a ``ReplicaHost`` actor), and
+        ``store=`` is accepted and kept."""
+        from ray_tpu_torch._object_store import SharedMemoryStore
+        from ray_tpu_torch.llm.fleet import remote
+        assert RemoteReplica is remote.RemoteReplica
+        assert ReplicaHost is remote.ReplicaHost
+        store = SharedMemoryStore(capacity_bytes=1 << 20)
+        srv = FleetServer(lambda: (params, CFG), store=store,
+                          config=FleetConfig(engine_options=dict(
+                              ENGINE_OPTS, device="cpu")))
+        try:
+            assert srv._store is store
+            out = srv({"prompt_tokens": [4, 5, 6], "max_tokens": 2,
+                       "timeout_s": 60})
+            assert len(out["output_tokens"]) == 2
+            assert store.stats()["num_objects"] == 0
+        finally:
+            srv.close()
+            store.shutdown()
 
 
 class TestEarlyFinish:

@@ -407,6 +407,6 @@ class TestServer:
         assert (dep.num_replicas, dep.max_ongoing_requests) == (1, 64)
         with pytest.raises(ValueError, match="top level of a module"):
             serve.run(app)
-        with pytest.raises(NotImplementedError, match="item 6b"):
+        with pytest.raises(TypeError, match="AutoscalingConfig"):
             build_llm_deployment(lambda: (params, CFG),
                                  autoscaling_config=object())

@@ -513,13 +513,16 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
               REPO / "sharded_smoke.py"]
     assert len(files) > 10
     assert {"moe.py", "ring_attention.py", "ulysses.py", "pipeline.py",
-            "_actor.py", "backends.py"} <= {f.name for f in files}
+            "_actor.py", "backends.py", "_object_store.py", "remote.py",
+            "controller.py", "batching.py", "multiplex.py"} <= \
+        {f.name for f in files}
     for f in files:
         # Whole-word roots: ray_tpu_torch is the port itself.  optax, chex
         # and flax each import JAX; the port reads bf16 without ml_dtypes;
         # the card's machine has no cloudpickle (actors pickle by
-        # reference).
+        # reference), no aiohttp (the HTTP ingress is the standard
+        # library's) and no grpcio.
         bad = {r for r in _imported_roots(f)
                if r in ("jax", "jaxlib", "ray_tpu", "optax", "chex", "flax",
-                        "ml_dtypes", "cloudpickle")}
+                        "ml_dtypes", "cloudpickle", "aiohttp", "grpc")}
         assert not bad, f"{f.relative_to(REPO)} imports {bad}"

@@ -10,8 +10,10 @@ re-run per token (the gold of tests/test_llm.py's
 same check, one ``DisaggServer`` a replica.  A small deployment then holds
 the handle's routing: least requests in flight, the ``max_queued_requests``
 shed as ``OverloadError``, ``status``, ``get_deployment_handle``, replacing
-a deployment, and ``shutdown`` ending the replica processes; the
-refusals name ROADMAP Queue 1 item 6b.
+a deployment, and ``shutdown`` ending the replica processes; what is
+still refused (gRPC, per-node proxies, node-drain evacuation) names
+ROADMAP items 6c and 3(c).  The serve controller, batching, multiplexing
+and the HTTP ingress: tests/test_torch_serve_ctl.py.
 
 Replicas run torch on one thread; every ``get`` has a timeout.  JAX is
 imported inside functions: each replica imports this file to find
@@ -165,18 +167,19 @@ def test_routing_shed_status_and_shutdown():
 
 
 def test_refusals_name_item_6b(gold):
+    """Item 6b is done; what it left refused names items 6c and 3(c)."""
     from ray_tpu_torch.llm import build_llm_deployment
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    from ray_tpu_torch.serve import proxy
+    from ray_tpu_torch.serve.controller import ServeController
+    with pytest.raises(TypeError, match="AutoscalingConfig"):
         build_llm_deployment(_tiny_params, autoscaling_config=object())
-    app = serve.deployment(Sleeper).bind("x")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        serve.run(app, http_port=0)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        serve.multiplexed(max_num_models_per_replica=2)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        serve.add_grpc_service("svc")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        serve.DeploymentHandle("x", multiplexed_model_id="m")
+    for call in (lambda: serve.add_grpc_service("svc"),
+                 lambda: serve.remove_grpc_service("svc"),
+                 proxy.start_node_proxies, proxy.stop_node_proxies):
+        with pytest.raises(NotImplementedError, match="item 6c"):
+            call()
+    with pytest.raises(NotImplementedError, match=r"item 3\(c\)"):
+        ServeController._evacuate_draining(None, None, {"node"})
     # A lambda build_params cannot reach a replica process.
     with pytest.raises(ValueError, match="top level of a module"):
         serve.run(build_llm_deployment(lambda: None, name="lam"))
