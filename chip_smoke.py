@@ -41,7 +41,16 @@ killed (``fleet_remote``); the llama_1b deployment under an
 replaced, and the HTTP ingress against the handle (``serve_controller``);
 PPO with 2 remote env runners and 2 DDP learners, then IMPALA at its
 default config (``rl_remote``); a 2-process gloo collective group against
-numpy (``collective``).
+numpy (``collective``).  The developer tools: ``profiler.profile`` with a
+``torch.profiler`` window while the deployment's replica serves, the
+replica's kernels named in the merged trace (``profile``, inside
+``serve_deployment``); prefill and decode as a compiled DAG over two
+actor processes at llama_1b, its tokens against the in-process server's,
+beside the same graph interpreted, and an allreduce node over two more
+actors against numpy (``dag_disagg``); the host-sync tripwire over
+``serve``'s mix and a PPO iteration, with a planted per-token ``.item()``
+(``sync_tripwire``); kernel first launches per tracked site and a
+recompile at a new batch size (``recompile``).
 The kernels' launch counts, set to 0 just before each path and
 read just after, show that every path ran through them.  Each phase prints one JSON line; any failed
 check raises and the script exits non-zero.  The last line is
@@ -3716,6 +3725,9 @@ class SmokeLLMServer:
     def read_launches(self):
         return _read_launches()
 
+    def pid(self) -> int:
+        return os.getpid()
+
 
 def _deployment_bodies(vocab: int):
     rng = np.random.default_rng(11)
@@ -3801,6 +3813,9 @@ def phase_serve_deployment(smi, device: str = "cuda",
         launches = _actor.get(handle.options(
             method_name="read_launches").remote(), timeout=60)
         # -- end of the main path.
+        if device == "cuda":
+            _profile_serving(smi, handle, bodies, _actor.get(
+                handle.options(method_name="pid").remote(), timeout=60))
     finally:
         serve.shutdown()
     tokens = [r["output_tokens"] for r in got]
@@ -4573,6 +4588,675 @@ def phase_collective(smi):
     check(ok, "collective: a gloo op disagrees with numpy")
 
 
+# -------------------------------------- compiled DAGs and developer tools
+
+#: dag_disagg: DAG_REQUESTS requests of DAG_PROMPT prompt and DAG_NEW
+#: generated tokens through prefill -> decode actors, DAG_DEPTH executes in
+#: flight; the prefill actor keeps its last DAG_KEEP exported blobs (the
+#: decode side finished every older one before the driver submitted the
+#: next execute).
+DAG_REQUESTS, DAG_PROMPT, DAG_NEW, DAG_DEPTH, DAG_KEEP = 16, 256, 64, 2, 2
+DAG_OPTS = dict(max_slots=8, page_size=16, prefill_buckets=(256,),
+                num_pages=8 * math.ceil((256 + 64 + 1) / 16) + 1)
+#: The collective node: a 4 MiB fp32 tree from each of two actors,
+#: DAG_COLL_ITERS iterations per op and mode.
+DAG_COLL_SHAPES = {"w": (512, 1024), "b": [(256, 1024), (256, 1024)]}
+DAG_COLL_ITERS = 5
+
+
+class DagPrefill:
+    """dag_disagg's prefill stage: a PrefillWorker whose ``run`` returns
+    the export_handoff descriptor of one request (its K/V stay on the
+    card; the descriptor carries their IPC handles).  Module level: the
+    actor imports it from this file."""
+
+    def __init__(self, build, eo):
+        import collections
+
+        from ray_tpu_torch import _object_store as store_mod
+        from ray_tpu_torch.llm.disagg import PrefillWorker
+        params, cfg = build()
+        self.pw = PrefillWorker(params, cfg, device=eo["device"],
+                                prefill_buckets=eo["prefill_buckets"],
+                                page_size=eo["page_size"])
+        self.store_mod = store_mod
+        self.store = store_mod.SharedMemoryStore()
+        self.sent = collections.deque()
+
+    def run(self, req):
+        from ray_tpu_torch.llm import SamplingParams
+        from ray_tpu_torch.llm.disagg import export_handoff
+        self._release(DAG_KEEP)
+        h = self.pw.prefill(req["prompt_tokens"],
+                            SamplingParams(max_tokens=req["max_tokens"]))
+        oid = self.store_mod.new_object_id()
+        desc = export_handoff(self.store, oid, h)
+        check(desc is not None, "dag_disagg: the store refused a handoff")
+        self.sent.append((oid, desc))
+        return desc
+
+    def _release(self, keep: int) -> None:
+        while len(self.sent) > keep:
+            oid, desc = self.sent.popleft()
+            self.store_mod.settle_sends(desc, True)
+            self.store_mod.release_page_blob(self.store, oid)
+
+    def close(self) -> int:
+        self._release(0)
+        return self.store.stats()["num_objects"]
+
+    def ping(self):
+        return os.getpid()
+
+    def reset_launches(self) -> bool:
+        _reset_launches()
+        return True
+
+    def read_launches(self):
+        return _read_launches()
+
+
+class DagDecode:
+    """dag_disagg's decode stage: an InferenceEngine that imports the
+    handoff and generates greedily until the request finishes.  One run at
+    a time (the interpreted graph sends two at once, on two call threads):
+    a step on one thread would hand the other's finished request to the
+    wrong caller."""
+
+    def __init__(self, build, eo):
+        from ray_tpu_torch.llm import InferenceEngine
+        params, cfg = build()
+        self.eng = InferenceEngine(params, cfg, **eo)
+        self.lock = threading.Lock()
+        self.ms = []
+
+    def run(self, desc):
+        with self.lock:
+            t0 = time.perf_counter()
+            try:
+                return self._run(desc)
+            finally:
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+
+    def take_ms(self):
+        """The ms of each run since the last take (import to finish)."""
+        out, self.ms = self.ms, []
+        return out
+
+    def _run(self, desc):
+        from ray_tpu_torch.llm.disagg import import_handoff
+        h, keep = import_handoff(desc)
+        rid = self.eng.import_prefill(h)
+        check(rid is not None, "dag_disagg: no slot for the handoff")
+        out = None
+        while out is None:
+            for r in self.eng.step():
+                if r.request_id == rid:
+                    out = list(r.output_tokens)
+        # The scatter has run (the request decoded from it): let go.
+        del h, keep
+        return out
+
+    def ping(self):
+        return os.getpid()
+
+    def reset_launches(self) -> bool:
+        _reset_launches()
+        return True
+
+    def read_launches(self):
+        return _read_launches()
+
+
+class DagShard:
+    """One participant of dag_disagg's collective node: a 4 MiB fp32 tree
+    made on its card from (seed, rank)."""
+
+    def __init__(self, rank, device="cuda"):
+        self.rank = rank
+        self.device = device
+
+    def make(self, seed):
+        import torch
+        g = torch.Generator(device=self.device).manual_seed(
+            int(seed) * 101 + self.rank)
+
+        def leaf(shape):
+            return torch.randn(shape, generator=g, device=self.device)
+        return {"w": leaf(DAG_COLL_SHAPES["w"]),
+                "b": [leaf(s) for s in DAG_COLL_SHAPES["b"]]}
+
+    def host(self, seed):
+        from ray_tpu_torch._tree import tree_map
+        return tree_map(lambda t: t.cpu().numpy(), self.make(seed))
+
+    def out(self, red):
+        from ray_tpu_torch._tree import tree_map
+        return tree_map(lambda t: (t.device.type, t.cpu().numpy()), red)
+
+    def ping(self):
+        return os.getpid()
+
+
+def _dag_bodies(vocab):
+    rng = np.random.default_rng(13)
+    return [{"prompt_tokens": rng.integers(1, vocab, DAG_PROMPT).tolist(),
+             "max_tokens": DAG_NEW} for _ in range(DAG_REQUESTS)]
+
+
+def _run_pipelined(execute, get, bodies):
+    """Each body one execute, DAG_DEPTH in flight: (outputs, ms per
+    execute)."""
+    import collections
+    inflight, outs = collections.deque(), []
+    t0 = time.perf_counter()
+    for body in bodies:
+        if len(inflight) == DAG_DEPTH:
+            outs.append(get(inflight.popleft()))
+        inflight.append(execute(body))
+    while inflight:
+        outs.append(get(inflight.popleft()))
+    return outs, (time.perf_counter() - t0) * 1e3 / len(bodies)
+
+
+def _dag_collective(smi, shards, device):
+    """allreduce_bind over the two DagShard actors for each op, compiled
+    and interpreted: every participant's reduced tree against numpy's
+    reduction of the two contributions."""
+    from ray_tpu_torch import _actor
+    from ray_tpu_torch._tree import tree_leaves, tree_map
+    from ray_tpu_torch.dag import InputNode, MultiOutputNode, allreduce_bind
+    np_ops = {"sum": lambda a, b: a + b, "mean": lambda a, b: (a + b) / 2,
+              "max": np.maximum, "min": np.minimum}
+    res = {"bytes_per_contribution": 4 * sum(
+        math.prod(s) for s in [DAG_COLL_SHAPES["w"]]
+        + DAG_COLL_SHAPES["b"]), "iterations": DAG_COLL_ITERS}
+    for op, np_op in np_ops.items():
+        with InputNode() as inp:
+            parts = [w.make.bind(inp) for w in shards]
+            red = allreduce_bind(parts, op=op)
+            node = MultiOutputNode([w.out.bind(r)
+                                    for w, r in zip(shards, red)])
+        row, errs = {}, []
+        for mode in ("compiled", "interpreted"):
+            if mode == "compiled":
+                dag = node.experimental_compile(buffer_size_bytes=8 << 20)
+                run = lambda seed: dag.execute(seed).get(timeout=120)  # noqa
+            else:
+                run = lambda seed: _actor.get(node.execute(seed),  # noqa
+                                              timeout=120)
+            try:
+                run(0)                                   # warm-up
+                t0 = time.perf_counter()
+                got = [run(seed) for seed in range(1, DAG_COLL_ITERS + 1)]
+                row[f"{mode}_ms_per_iter"] = (time.perf_counter() - t0) \
+                    * 1e3 / DAG_COLL_ITERS
+            finally:
+                if mode == "compiled":
+                    dag.teardown()
+            for seed, outs in zip(range(1, DAG_COLL_ITERS + 1), got):
+                a, b = _actor.get([w.host.remote(seed) for w in shards],
+                                  timeout=120)
+                want = tree_map(np_op, a, b)
+                for out in outs:
+                    leaves = _out_leaves(out)
+                    check(all(kind == device for kind, _ in leaves),
+                          f"dag collective {op}: the reduced tree is not "
+                          f"on the {device}")
+                    errs.append(max(float(np.max(np.abs(g - w)))
+                                    for (_kind, g), w in
+                                    zip(leaves, tree_leaves(want))))
+        row["max_abs_err"] = max(errs)
+        check(row["max_abs_err"] == 0.0,
+              f"dag collective {op}: differs from numpy by "
+              f"{row['max_abs_err']}")
+        res[op] = row
+    return res
+
+
+def _out_leaves(out):
+    """DagShard.out's (device kind, array) leaves, in tree order."""
+    if isinstance(out, dict):
+        return [x for k in sorted(out) for x in _out_leaves(out[k])]
+    if isinstance(out, list):
+        return [x for v in out for x in _out_leaves(v)]
+    return [out]
+
+
+def phase_dag_disagg(smi, device: str = "cuda", model: str = "llama_1b"):
+    """A compiled DAG over two actor processes on the card, prefill ->
+    decode at llama_1b full width and depth (seeded weights): each of
+    DAG_REQUESTS requests is one execute, DAG_DEPTH in flight; the tokens
+    equal the in-process LLMServer's; flash_fwd launches in the prefill
+    process and paged_decode in the decode process; after teardown both
+    actors answer calls.  The same graph interpreted (ordinary actor
+    calls) beside it.  Then the collective node over two more actors.
+    (``device="cpu"`` with ``llama_tiny`` and smaller DAG_* rehearses the
+    phase where there is no card.)"""
+    import functools
+
+    import torch
+    from ray_tpu_torch import _actor
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.llm import LLMServer
+    t_phase = time.perf_counter()
+    build = functools.partial(deployment_params, 0, device, model)
+    eo = dict(DAG_OPTS, device=device)
+    # A call thread beside the loop; None: the caller's card.
+    opts = dict(max_concurrency=2, device=None if device == "cuda" else
+                device)
+    prefill = _actor.remote(DagPrefill).options(**opts).remote(build, eo)
+    decode = _actor.remote(DagDecode).options(**opts).remote(build, eo)
+    shards = [_actor.remote(DagShard).options(**opts).remote(r, device)
+              for r in range(2)]
+    try:
+        t0 = time.perf_counter()
+        pids = _actor.get([a.ping.remote() for a in
+                           (prefill, decode, *shards)], timeout=600)
+        start_s = time.perf_counter() - t0
+        cfg = build()[1]
+        bodies = _dag_bodies(cfg.vocab_size)
+        # The reference: the in-process server on the same weights.
+        server = LLMServer(build, eo)
+        try:
+            ref, _items, _ttft, ref_wall = _serve_all(
+                server, lambda b: iter(()), bodies, None)
+        finally:
+            server.close()
+        del server
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        ref_tokens = [r["output_tokens"] for r in ref]
+        with InputNode() as inp:
+            h = prefill.run.bind(inp)
+            out = decode.run.bind(h)
+        # Warm both stages through the interpreted graph (a whole request:
+        # every decode step's shapes meet the libraries once here).
+        _actor.get(out.execute(bodies[0]), timeout=300)
+        _actor.get([prefill.reset_launches.remote(),
+                    decode.reset_launches.remote(),
+                    decode.take_ms.remote()], timeout=60)
+        # -- the main path: launches counted in each actor.
+        # Compiled and interpreted take turns, twice, the second pair on
+        # half the requests (host-bound times move between runs; a single
+        # pair put the first mode 19% behind); the first compiled round is
+        # the counted path.
+        rounds = {"compiled": [], "interpreted": []}
+        outs, after = [], None
+        for i, mode in enumerate(("compiled", "interpreted") * 2):
+            batch = bodies if i < 2 else bodies[:DAG_REQUESTS // 2]
+            if mode == "interpreted":
+                got, ms = _run_pipelined(
+                    out.execute, lambda r: _actor.get(r, timeout=300),
+                    batch)
+            else:
+                dag = out.experimental_compile()
+                try:
+                    got, ms = _run_pipelined(
+                        dag.execute, lambda r: r.get(timeout=300), batch)
+                    if i == 0:
+                        launches = {
+                            "prefill": _actor.get(
+                                prefill.read_launches.remote(), timeout=60),
+                            "decode": _actor.get(
+                                decode.read_launches.remote(), timeout=60)}
+                        # -- end of the main path.
+                finally:
+                    dag.teardown()
+                if i == 0:
+                    after = _actor.get([prefill.ping.remote(),
+                                        decode.ping.remote()], timeout=60)
+            outs.append(got)
+            runs = _actor.get(decode.take_ms.remote(), timeout=60)
+            # The decode stage runs one request at a time, so an execute
+            # costs its decode plus the time the stage waited for input:
+            # the graph's own share (transport, planning, a prefill not
+            # hidden) is what is left past the decode.
+            rounds[mode].append({
+                "ms_per_execute": ms, "decode_run_ms_p50": pct(runs, 50),
+                "beyond_decode_ms": ms - sum(runs) / len(runs)})
+        left = _actor.get(prefill.close.remote(), timeout=60)
+        coll = _dag_collective(smi, shards, device)
+    finally:
+        for a in (prefill, decode, *shards):
+            _actor.kill(a)
+    res = {"phase": "dag_disagg", "model": model, "card": smi,
+           "requests": DAG_REQUESTS, "prompt_tokens": DAG_PROMPT,
+           "new_tokens": DAG_NEW, "in_flight": DAG_DEPTH,
+           "actors_start_s": start_s,
+           # Each round's ms an execute, the decode stage's own ms a
+           # request (import to finish, p50), and the ms an execute
+           # costs past the mean decode: the graph's own.
+           "compiled": rounds["compiled"],
+           "interpreted": rounds["interpreted"],
+           "in_process_ms_per_request": ref_wall * 1e3 / DAG_REQUESTS,
+           "tokens_equal": all(o == ref_tokens[:len(o)] for o in outs),
+           "answering_after_teardown": after == pids[:2],
+           "blobs_left": left,
+           "launches_by_process": {
+               k: {n: v[n] for n in ("flash_fwd", "paged_decode")}
+               for k, v in launches.items()},
+           "collective": coll,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    check(all(len(t) == DAG_NEW for t in outs[0]),
+          f"dag_disagg: short outputs {[len(t) for t in outs[0]]}")
+    check(res["tokens_equal"],
+          "dag_disagg: the DAG's greedy tokens differ from the in-process "
+          "server's on the same weights")
+    check(device == "cpu" or (launches["prefill"]["flash_fwd"] > 0
+                              and launches["decode"]["paged_decode"] > 0),
+          f"dag_disagg: kernels not launched in their stages {launches}")
+    check(res["answering_after_teardown"] and left == 0,
+          f"dag_disagg: after teardown {after} vs {pids[:2]}, {left} "
+          f"blobs left")
+    return {"flash_fwd": launches["prefill"]["flash_fwd"],
+            "paged_decode": launches["decode"]["paged_decode"]}
+
+
+#: sync_tripwire: serve's llama_1b mix (run_pipelined(32)).
+TRIP_REQUESTS, TRIP_PROMPT, TRIP_NEW = 32, 256, 128
+
+
+def _planted_item_loop(n):
+    """A per-token ``.item()`` (the defect RT502 names), planted: returns
+    (the values, the line of the coercion)."""
+    import torch
+    toks = torch.arange(n, dtype=torch.int32, device="cuda")
+    vals = [toks[i].item() for i in range(n)]
+    return vals, sys._getframe().f_lineno - 1
+
+
+def phase_sync_tripwire(smi):
+    """syncdebug.install() around serve's llama_1b mix (32 x (256 + 128)
+    through run_pipelined(32)) and one default PPO iteration: 0 syncs per
+    decode chunk (and its agreement with torch's sync debug mode on one
+    chunk, _chunk_syncs), RL's syncs per env step and per update, and a
+    planted per-token .item() reported at its own line.  gen_tok_s with
+    and without the tripwire, in this process."""
+    import torch
+    from ray_tpu_torch.devtools import syncdebug
+    from ray_tpu_torch.llm import InferenceEngine, SamplingParams
+    from ray_tpu_torch.models.llama import init_params, llama_1b
+    from ray_tpu_torch.rl import PPOConfig
+    t_phase = time.perf_counter()
+    cfg = llama_1b()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         param_dtype=torch.bfloat16, device="cuda")
+    page = 16
+    opts = dict(device="cuda", max_slots=32, page_size=page,
+                prefill_buckets=(256,),
+                num_pages=TRIP_REQUESTS * math.ceil(
+                    (TRIP_PROMPT + TRIP_NEW + 1) / page) + 1)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=TRIP_PROMPT).tolist()
+               for _ in range(TRIP_REQUESTS)]
+    eng = InferenceEngine(params, cfg, **opts)
+    eng.generate([prompts[0][:32]], SamplingParams(max_tokens=2))
+
+    def serve_mix():
+        for p in prompts:
+            eng.add_request(p, SamplingParams(max_tokens=TRIP_NEW))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run_pipelined(32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(len(done) == TRIP_REQUESTS and all(
+            len(r.output_tokens) == TRIP_NEW for r in done),
+            "sync_tripwire: run_pipelined did not finish every request")
+        return TRIP_REQUESTS * TRIP_NEW / wall
+
+    # Without and with the tripwire, taking turns (host-bound throughput
+    # moves between runs): the first run with it is the counted path.
+    without, with_tw = [serve_mix()], []
+    syncdebug.clear()
+    syncdebug.install()
+    try:
+        # -- the main path: launch counts read from this window only.
+        _reset_launches()
+        with_tw.append(serve_mix())
+        launches = _read_launches()
+        # -- end of the main path.
+        serve_rep = syncdebug.report()
+        syncdebug.uninstall()
+        without.append(serve_mix())
+        syncdebug.install()
+        syncdebug.clear()
+        with_tw.append(serve_mix())
+        check(syncdebug.report()["total_syncs"] == 0,
+              f"sync_tripwire: syncs in a second run {syncdebug.report()}")
+        serve_rep["total_syncs"] += syncdebug.report()["total_syncs"]
+        # One decode chunk alone, under both instruments.
+        syncdebug.clear()
+        chunk = _chunk_syncs(params, cfg, prompts[2], page)
+        chunk_tw = syncdebug.report()["total_syncs"]
+        # One default PPO iteration, then a sample and an update with
+        # torch's sync debug mode beside the tripwire.
+        algo = PPOConfig().environment("CartPole-v1").resources(
+            device="cuda").build()
+        algo.train()
+        syncdebug.clear()
+        algo.train()
+        ppo_rep = syncdebug.report()
+        rcfg = algo.config
+        runner = algo.env_runner_group.local
+        syncdebug.clear()
+        batch, sample_syncs = _rl_syncs(lambda: runner.sample(
+            rcfg.rollout_fragment_length))
+        sample_tw = syncdebug.report()["total_syncs"]
+        mb = {k: v.reshape(-1, *v.shape[2:])[:rcfg.minibatch_size]
+              for k, v in batch.items() if k in ("obs", "actions")}
+        n = len(mb["actions"])
+        import ray_tpu_torch.rl.ppo as ppo_mod
+        mb.update(logp_old=batch["logp"].reshape(-1)[:n],
+                  advantages=np.ones(n, np.float32),
+                  value_targets=np.zeros(n, np.float32),
+                  **ppo_mod.ppo_consts(rcfg))
+        syncdebug.clear()
+        _m, update_syncs = _rl_syncs(
+            lambda: algo.learner_group.update(mb))
+        update_tw = syncdebug.report()["total_syncs"]
+        # The planted per-token .item().
+        syncdebug.clear()
+        vals, line = _planted_item_loop(64)
+        planted = syncdebug.report()
+    finally:
+        syncdebug.uninstall()
+        syncdebug.clear()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    site = f"chip_smoke.py:{line}"
+    hit = [r for r in planted["sites"] if r["site"] == site]
+    res = {"phase": "sync_tripwire", "model": "llama_1b", "card": smi,
+           "requests": TRIP_REQUESTS, "prompt_tokens": TRIP_PROMPT,
+           "new_tokens": TRIP_NEW,
+           "gen_tok_s_without": without, "gen_tok_s_with": with_tw,
+           "with_over_without": sum(with_tw) / sum(without),
+           "serve_syncs": serve_rep["total_syncs"],
+           "serve_sites": serve_rep["sites"][:5],
+           "decode_chunk": {"tripwire": chunk_tw,
+                            "sync_debug_mode": chunk["inside_chunk"],
+                            "sync_debug_mode_with_readback":
+                                chunk["with_readback"]},
+           "ppo_iteration": {"tripwire": ppo_rep["total_syncs"],
+                             "sites": ppo_rep["sites"][:5]},
+           "rl_sample": {"env_steps": rcfg.rollout_fragment_length,
+                         "sync_debug_mode": sample_syncs,
+                         "tripwire": sample_tw},
+           "rl_update": {"sync_debug_mode": update_syncs,
+                         "tripwire": update_tw},
+           "planted": {"site": site, "found": hit[:1],
+                       "sites": [r["site"] for r in planted["sites"]]},
+           "launches": {k: launches[k] for k in ("flash_fwd",
+                                                 "paged_decode")},
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    check(serve_rep["total_syncs"] == 0 and chunk_tw == 0
+          and chunk["inside_chunk"] == 0,
+          f"sync_tripwire: syncs in the decode path: tripwire "
+          f"{serve_rep['total_syncs']} over the mix, {chunk_tw} in a chunk; "
+          f"sync debug mode {chunk['inside_chunk']} in a chunk")
+    check(sample_syncs == rcfg.rollout_fragment_length + 1
+          and update_syncs == 1,
+          f"sync_tripwire: RL syncs {sample_syncs} a sample of "
+          f"{rcfg.rollout_fragment_length} steps, {update_syncs} an update")
+    check(sample_tw <= sample_syncs and update_tw <= update_syncs,
+          "sync_tripwire: the tripwire counts more than the syncs")
+    check(len(hit) == 1 and hit[0]["count"] == 64 and hit[0]["kind"]
+          == "item" and vals == list(range(64)),
+          f"sync_tripwire: the planted .item() was not reported at {site}: "
+          f"{planted['sites']}")
+    check(launches["flash_fwd"] > 0 and launches["paged_decode"] > 0,
+          f"sync_tripwire: kernels not launched {launches}")
+    return res["launches"]
+
+
+#: recompile: llama_tiny decode chunks at these batch sizes (the second a
+#: new launch shape for the warm site).
+RECOMPILE_BATCHES = (3, 7)
+
+
+def phase_recompile(smi):
+    """profiler.recompile on the serve_tiny configuration (llama_tiny,
+    bf16): a tracked decode site counts its builds and first launches on
+    the first pass and none on a warm pass; a new batch size then bumps
+    ray_tpu_profiler_recompiles_total by one and logs one warning naming
+    the shape."""
+    import logging
+
+    import torch
+    from ray_tpu_torch.llm import _model
+    from ray_tpu_torch.models.llama import init_params, llama_tiny
+    from ray_tpu_torch.profiler import recompile
+    from ray_tpu_torch.util import telemetry
+    cfg = llama_tiny().replace(dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         param_dtype=torch.bfloat16, device="cuda")
+    page, P, steps = 16, 3, 8
+
+    def inputs(B):
+        kv = tuple(torch.zeros((B * P + 1, page, 2 * cfg.kv_heads,
+                                cfg.head_dim), dtype=cfg.dtype,
+                               device="cuda") for _ in range(cfg.layers))
+        bt = (torch.arange(B * P, dtype=torch.int32, device="cuda")
+              .view(B, P) + 1)
+        tok = torch.full((B,), 5, dtype=torch.int32, device="cuda")
+        pos = torch.full((B,), 20, dtype=torch.int32, device="cuda")
+        active = torch.ones(B, dtype=torch.bool, device="cuda")
+        return kv, tok, pos, bt, active
+
+    warnings_seen = []
+
+    class _Catch(logging.Handler):
+        def emit(self, record):
+            warnings_seen.append(record.getMessage())
+
+    handler = _Catch(level=logging.WARNING)
+    logging.getLogger("ray_tpu_torch.profiler").addHandler(handler)
+    recompile._reset_for_tests()
+    before = sum(v[1] for v in telemetry.samples(
+        "ray_tpu_profiler_recompiles_total").values())
+    site = recompile.track(_model.decode_chunk, name="serve_tiny.decode")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    passes = []
+    try:
+        # -- the main path: launch counts read from this window only.
+        _reset_launches()
+        for B in (RECOMPILE_BATCHES[0], RECOMPILE_BATCHES[0],
+                  RECOMPILE_BATCHES[1]):
+            kv, tok, pos, bt, active = inputs(B)
+            c0 = recompile.report().get("serve_tiny.decode",
+                                        {"compiles": 0})["compiles"]
+            site(params, kv, tok, pos, bt, active, gen, cfg, page, steps,
+                 0.0, 0)
+            torch.cuda.synchronize()
+            passes.append(recompile.report()["serve_tiny.decode"]
+                          ["compiles"] - c0)
+        launches = _read_launches()
+        # -- end of the main path.
+        rep = recompile.report()["serve_tiny.decode"]
+    finally:
+        logging.getLogger("ray_tpu_torch.profiler").removeHandler(handler)
+        recompile.uninstall()
+    bumped = sum(v[1] for v in telemetry.samples(
+        "ray_tpu_profiler_recompiles_total").values()) - before
+    warns = [w for w in warnings_seen if "post-warmup" in w]
+    shape = f"int32[{RECOMPILE_BATCHES[1]}]"
+    res = {"phase": "recompile", "model": "llama_tiny", "card": smi,
+           "batches": list(RECOMPILE_BATCHES),
+           "events_by_pass": passes, "events": rep["events"],
+           "compile_seconds": rep["compile_seconds"],
+           "recompiles_total_bumped": bumped, "warnings": warns,
+           "launches": {"paged_decode": launches["paged_decode"]}}
+    emit(res)
+    check(passes[0] >= 1 and passes[1] == 0 and passes[2] >= 1,
+          f"recompile: events by pass {passes}")
+    check(bumped == 1 and len(warns) == 1 and shape in warns[0],
+          f"recompile: recompiles_total +{bumped}, warnings {warns}")
+    check(launches["paged_decode"] > 0,
+          f"recompile: paged_decode not launched {launches}")
+    return res["launches"]
+
+
+def _profile_serving(smi, handle, bodies, replica_pid):
+    """profiler.profile(duration_s=2.0, torch_profile=True) while the
+    serve_deployment replica serves a stream of requests: the merged
+    trace holds the driver and the replica process, the replica's CUDA
+    events name both kernels, and no process is unresponsive."""
+    from ray_tpu_torch import _actor, profiler
+    stop = threading.Event()
+    served = [0]
+
+    def client(i):
+        while not stop.is_set():
+            body = dict(bodies[i % len(bodies)], max_tokens=8)
+            _actor.get(handle.remote(body), timeout=300)
+            served[0] += 1
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(6)]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(1.0)
+        t0 = time.perf_counter()
+        res = profiler.profile(duration_s=2.0, torch_profile=True)
+        call_s = time.perf_counter() - t0
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+    procs = res["trace"]["otherData"]["processes"]
+    replica = f"pid={replica_pid}"
+    kernel_names = sorted({e["name"] for e in res["trace"]["traceEvents"]
+                           if e.get("cat") == "kernel"
+                           and str(e.get("pid", "")).endswith(replica)})
+    out = {"phase": "profile", "card": smi, "duration_s": 2.0,
+           "call_s": call_s, "call_seconds": res["seconds"],
+           "requests_served": served[0],
+           "events": res["num_events"],
+           "trace_bytes": os.path.getsize(res["path"]),
+           "workers": res["workers"], "unresponsive": res["unresponsive"],
+           "processes": [{k: p.get(k) for k in
+                          ("pid", "is_driver", "clock_offset_s",
+                           "num_samples", "torch_profile")}
+                         for p in procs],
+           "replica_kernel_names": [n[:80] for n in kernel_names[:12]]}
+    emit(out)
+    pids = {p["pid"] for p in procs}
+    check(os.getpid() in pids and replica_pid in pids,
+          f"profile: processes {pids}, want the driver and {replica_pid}")
+    check(any("flash_fwd" in n for n in kernel_names)
+          and any("paged_decode" in n for n in kernel_names),
+          f"profile: the replica's kernels {kernel_names[:20]}")
+    check(res["unresponsive"] == [],
+          f"profile: unresponsive {res['unresponsive']}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4599,7 +5283,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["serve_sampled"] = phase_serve_sampled(smi)
     torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    paths["sync_tripwire"] = phase_sync_tripwire(smi)
+    torch.cuda.empty_cache()
     paths["serve_tiny"] = phase_serve_tiny()
+    paths["recompile"] = phase_recompile(smi)
     paths["paged_streams"] = phase_paged_streams()
     torch.cuda.empty_cache()
     phase_disagg_exact()
@@ -4607,6 +5295,10 @@ def main() -> int:
     paths["disagg_load"], paths["fleet"] = phase_serving_tiers(smi)
     torch.cuda.empty_cache()
     paths["serve_deployment"] = phase_serve_deployment(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["dag_disagg"] = phase_dag_disagg(smi)
+    gc.collect()
     torch.cuda.empty_cache()
     phase_handoff_ipc(smi)
     gc.collect()

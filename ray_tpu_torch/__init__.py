@@ -26,12 +26,25 @@ device-resident CartPole), and the process tier (``_actor``: spawned
 process actors over the ``_control`` store; ``collective``: groups over
 ``torch.distributed``; RL's remote runners and DDP learners; ``serve``:
 deployments whose replicas are actors, under ``build_llm_deployment`` and
-``build_disagg_deployment``).
+``build_disagg_deployment``), compiled DAGs over those actors (``dag``),
+and the developer tools (``devtools``: the CUDA host-sync tripwire and the
+RT5xx lint rules; ``profiler``: cluster captures with ``torch.profiler``
+and the kernel-build/first-launch counts of ``recompile``).
 """
+
+import os as _os
 
 from ._actor import (ActorError, GetTimeoutError, ObjectRef,  # noqa: E402
                      ObjectRefGenerator, TaskError, get, kill, put, remote,
                      wait)
+
+# Opt-in implicit host-sync tripwire (devtools/syncdebug.py): patches
+# torch.Tensor's host coercions so every implicit sync of a CUDA tensor
+# (float()/.item()/.tolist()/np.asarray()) is timed and attributed to its
+# call site.
+if _os.environ.get("RAY_TPU_SYNC_DEBUG") == "1":
+    from .devtools import syncdebug as _syncdebug
+    _syncdebug.install()
 
 __all__ = ["remote", "get", "put", "wait", "kill", "ObjectRef",
            "ObjectRefGenerator", "TaskError", "ActorError",

@@ -35,6 +35,15 @@ when it is gone, and ``shutdown()`` (also run at exit) kills every actor
 this process started.  An ``ObjectRef`` passed as a top-level argument is
 resolved to its value before the call is sent (a pending one waits).
 
+``handle.__ray_call__.remote(fn, *args)`` runs ``fn(instance, *args)`` in
+the actor as an ordinary call (in its turn, on a call thread), as the JAX
+worker applies it; a compiled DAG's resident loop runs so.
+``side_call(handle, fn, *args)`` runs ``fn(instance, *args)`` on the actor's
+main thread, which takes no other calls, so it answers while every call
+thread is busy (a profile capture runs there: ``torch.profiler`` traces
+the card only when its first use in a process is on the thread that
+imported torch).
+
 Options: ``max_concurrency`` (threads taking calls, default 1),
 ``device``, ``num_cpus`` (torch's intra-op threads in the actor) and
 ``env_vars`` (set before the actor's interpreter starts).  ``device``
@@ -64,6 +73,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 CONNECT_TIMEOUT_S = 300.0
 _KNOWN_OPTIONS = frozenset(("max_concurrency", "device", "num_cpus",
                             "env_vars"))
+#: The method name that runs ``fn(instance, *args)`` (``__ray_call__``).
+_RAY_CALL = "__ray_call__"
 
 
 class RayTpuError(Exception):
@@ -285,7 +296,8 @@ class _Channel:
         threading.Thread(target=self._read, daemon=True,
                          name=f"actor-reader-{self.actor_id[:8]}").start()
 
-    def submit(self, method: str, blob: bytes, streaming: bool, name: str):
+    def submit(self, method: str, blob: bytes, streaming: bool, name: str,
+               kind: str = "call"):
         with self.lock:
             if self.dead is None and self.conn is None:
                 try:
@@ -307,7 +319,7 @@ class _Channel:
             self.pending[call_id] = out
             try:
                 self.conn.send_bytes(pickle.dumps(
-                    ("call", call_id, method, blob, streaming)))
+                    (kind, call_id, method, blob, streaming)))
             except (OSError, EOFError, BrokenPipeError) as e:
                 self.pending.pop(call_id, None)
                 self._fail_all(f"connection lost: {e!r}")
@@ -411,14 +423,22 @@ def _resolve_args(args: tuple, kwargs: dict) -> Tuple[tuple, dict]:
 
 class ActorMethod:
     def __init__(self, handle: "ActorHandle", name: str,
-                 num_returns: Any = 1):
+                 num_returns: Any = 1, kind: str = "call"):
         self._handle = handle
         self._name = name
         self._num_returns = num_returns
+        #: "call" (queued for the call threads) or "main" (the actor's main
+        #: thread: ``side_call``).
+        self._kind = kind
 
     def options(self, **opts) -> "ActorMethod":
         return ActorMethod(self._handle, self._name,
                            opts.get("num_returns", self._num_returns))
+
+    def bind(self, *args, **kwargs):
+        """A DAG node of this call (``ray_tpu_torch.dag``)."""
+        from .dag import ClassMethodNode
+        return ClassMethodNode(self._handle, self._name, args, kwargs)
 
     def remote(self, *args, **kwargs):
         if self._num_returns not in (1, "streaming"):
@@ -430,7 +450,8 @@ class ActorMethod:
         args, kwargs = _resolve_args(args, kwargs)
         blob = _dumps((args, kwargs), f"the arguments of {qual}")
         return _channel(self._handle._actor_id).submit(
-            self._name, blob, self._num_returns == "streaming", qual)
+            self._name, blob, self._num_returns == "streaming", qual,
+            self._kind)
 
 
 class ActorHandle:
@@ -449,6 +470,13 @@ class ActorHandle:
         m = ActorMethod(self, name)
         self.__dict__[name] = m
         return m
+
+    @property
+    def __ray_call__(self) -> ActorMethod:
+        """``__ray_call__.remote(fn, *args)``: ``fn(instance, *args)`` run
+        in the actor as an ordinary call (JAX: the worker's
+        ``__ray_call__``); ``fn`` pickles by reference."""
+        return ActorMethod(self, _RAY_CALL)
 
     def __reduce__(self):
         return (ActorHandle, (self._actor_id, self._class_name,
@@ -513,6 +541,27 @@ class ActorClass:
             _session.procs[actor_id] = proc
         return ActorHandle(actor_id, self._cls.__name__,
                            int(opts.get("max_concurrency") or 1))
+
+
+def side_call(actor: ActorHandle, fn, *args, **kwargs) -> ObjectRef:
+    """``fn(instance, *args, **kwargs)`` on the actor's main thread, beside
+    its call threads: it runs even while every call thread is busy (a long
+    call, a compiled DAG's loop); side calls run one at a time."""
+    return ActorMethod(actor, _RAY_CALL, kind="main").remote(fn, *args,
+                                                             **kwargs)
+
+
+def live_actors() -> List[ActorHandle]:
+    """Handles on the actors this process started that are still alive."""
+    if _session is None:
+        return []
+    with _session.lock:
+        procs = list(_session.procs.items())
+    out = []
+    for aid, p in procs:
+        if p.is_alive():
+            out.append(ActorHandle(aid, p.name[len("actor-"):]))
+    return out
 
 
 def _device_env(device) -> Dict[str, str]:
@@ -668,6 +717,8 @@ class _Actor:
     def __init__(self, spec: Dict[str, Any]):
         self.spec = spec
         self.calls: "queue.Queue" = queue.Queue()
+        #: Calls for the main thread (``side_call``).
+        self.main_calls: "queue.Queue" = queue.Queue()
         self.instance = None
         self.init_error: Optional[str] = None
 
@@ -689,12 +740,16 @@ class _Actor:
                 msg = pickle.loads(conn.recv_bytes())
             except (EOFError, OSError):
                 return
-            self.calls.put((conn, send_lock, msg))
+            if msg[0] == "main":
+                self.main_calls.put((conn, send_lock, msg))
+            else:
+                self.calls.put((conn, send_lock, msg))
 
-    def run_calls(self) -> None:
+    def run_calls(self, calls: Optional["queue.Queue"] = None) -> None:
+        calls = self.calls if calls is None else calls
         while True:
             conn, send_lock, (_kind, call_id, method, blob, streaming) = \
-                self.calls.get()
+                calls.get()
             self._run(conn, send_lock, call_id, method, blob, streaming)
 
     def _run(self, conn, send_lock, call_id, method, blob, streaming):
@@ -719,7 +774,10 @@ class _Actor:
             return
         try:
             args, kwargs = pickle.loads(blob)
-            result = getattr(self.instance, method)(*args, **kwargs)
+            if method == _RAY_CALL:
+                result = args[0](self.instance, *args[1:], **kwargs)
+            else:
+                result = getattr(self.instance, method)(*args, **kwargs)
             if streaming:
                 for item in result:
                     send(("item", call_id, item))
@@ -782,8 +840,9 @@ def _actor_main(spec: Dict[str, Any]) -> None:
                                 name=f"actor-call-{i}") for i in range(n)]
     for t in workers:
         t.start()
-    for t in workers:
-        t.join()
+    # The main thread takes side_call's calls, and nothing else, for the
+    # life of the process.
+    actor.run_calls(actor.main_calls)
 
 
 def _accept(listener, actor: _Actor) -> None:

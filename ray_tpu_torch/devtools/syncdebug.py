@@ -1,0 +1,278 @@
+"""Opt-in implicit host-sync tripwire for CUDA tensors
+(``RAY_TPU_SYNC_DEBUG=1``; counterpart of ray_tpu/devtools/syncdebug.py).
+
+The static half of the RT5xx family (:mod:`ray_tpu_torch.devtools.
+rules_torch`, RT502) flags host coercions it can *see*; this is the
+runtime half for the ones it cannot: any code path — framework or user —
+that forces a CUDA tensor onto the host through ``float()`` / ``int()`` /
+``bool()`` / ``.item()`` / ``.tolist()`` / ``.numpy()`` /
+``np.asarray()`` blocks the calling thread until the card catches up and
+the copy lands.  One of those per decode *chunk* is the batched pattern;
+one per token, per metric, or per element is why a step is mysteriously
+slow with the card idle.
+
+Mechanics (as the JAX module):
+
+* :func:`install` patches ``torch.Tensor``'s host coercions
+  (``item``/``tolist``/``__float__``/``__int__``/``__bool__``/
+  ``__index__``/``__complex__``/``__array__``/``numpy``).  Only CUDA
+  tensors are counted: a CPU tensor passes through after one attribute
+  check (``is_cuda``).  A CUDA tensor has no host cache, so there is no
+  cached fast path (JAX's ``_npy_value`` shortcut): every counted
+  coercion is a real device round trip, timed and attributed to the first
+  caller frame outside this module and outside torch/numpy internals —
+  the line that forced the transfer.
+* What it cannot see: syncs inside torch ops themselves — ``.cpu()``,
+  ``.to("cpu")``, ``nonzero``, boolean-mask indexing, ``torch.equal``,
+  a ``.numpy()`` of a tensor already copied with ``.cpu()`` — never pass
+  through a patched Python method.  ``torch.cuda.set_sync_debug_mode``
+  sees those (it hooks the synchronizing CUDA calls), and the two are
+  read side by side.
+* Per-site stats: count, total/max seconds, and a decade-bucket latency
+  histogram (1µs..1s + overflow).
+* Every ``_PUBLISH_EVERY``-th sync of a site publishes one sampled
+  observation to the ``ray_tpu_jax_host_sync_total`` /
+  ``ray_tpu_jax_host_sync_seconds{site}`` catalog series (the JAX
+  package's names, so one query reads either package; thread-local guard
+  against telemetry re-entering an instrumented coercion).
+* :func:`report` snapshots everything (``cached_fastpath`` stays 0);
+  render a saved report with ``python -m ray_tpu_torch.devtools.lint
+  --sync-report <file>``.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import threading
+import time
+from typing import Any, Dict, List, Tuple
+
+#: Histogram bucket upper bounds (seconds) + one overflow bucket —
+#: decade buckets from 1µs, same shape as lockdebug's.
+_BOUNDS = (1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 1e-1, 1.0)
+
+#: Publish one sampled telemetry observation every N-th sync per site.
+_PUBLISH_EVERY = 64
+
+#: torch.Tensor methods that force a device->host transfer of a CUDA
+#: tensor (JAX's ArrayImpl list, plus ``numpy``).
+_COERCIONS = ("__array__", "__float__", "__int__", "__bool__",
+              "__index__", "__complex__", "item", "tolist", "numpy")
+
+from bisect import bisect_left as _bidx  # noqa: E402 (bucket index)
+
+
+class _SiteStats:
+    """Per-(site, kind) sync accounting; mutated under _mu."""
+
+    __slots__ = ("count", "total_s", "max_s", "hist")
+
+    def __init__(self):
+        self.count = 0
+        self.total_s = 0.0
+        self.max_s = 0.0
+        self.hist = [0] * (len(_BOUNDS) + 1)
+
+
+class _State:
+    def __init__(self):
+        self.mu = threading.Lock()
+        # (site, kind) -> _SiteStats
+        self.sites: Dict[Tuple[str, str], _SiteStats] = {}
+        #: JAX's cached fast path; a CUDA tensor has no host cache, so
+        #: this stays 0 (kept for the report's shape).
+        self.cached_fastpath = 0
+
+
+_state = _State()
+_tls = threading.local()
+_installed = False
+_originals: Dict[str, Any] = {}
+#: Package dirs whose frames are never the attribution site.
+_skip_prefixes: Tuple[str, ...] = ()
+
+
+def _caller_site() -> str:
+    """First frame outside this module and outside torch/numpy internals
+    — the user/framework line that forced the sync."""
+    try:
+        f = sys._getframe(2)
+        while f is not None:
+            fname = f.f_code.co_filename
+            if fname != __file__ and \
+                    not fname.startswith(_skip_prefixes):
+                return f"{os.path.basename(fname)}:{f.f_lineno}"
+            f = f.f_back
+        return "<unknown>"
+    except Exception:
+        return "<unknown>"
+
+
+def _record(kind: str, elapsed: float) -> None:
+    site = _caller_site()
+    with _state.mu:
+        st = _state.sites.get((site, kind))
+        if st is None:
+            st = _state.sites[(site, kind)] = _SiteStats()
+        st.count += 1
+        st.total_s += elapsed
+        if elapsed > st.max_s:
+            st.max_s = elapsed
+        st.hist[_bidx(_BOUNDS, elapsed)] += 1
+        publish = st.count % _PUBLISH_EVERY == 1
+    if publish:
+        _maybe_publish(site, elapsed)
+
+
+def _maybe_publish(site: str, elapsed: float) -> None:
+    """Sampled catalog publish; the TLS guard stops telemetry's own
+    machinery from re-entering an instrumented coercion."""
+    if getattr(_tls, "publishing", False):
+        return
+    _tls.publishing = True
+    try:
+        from ..util import telemetry
+        tags = {"site": site}
+        telemetry.inc("ray_tpu_jax_host_sync_total", _PUBLISH_EVERY,
+                      tags=tags)
+        telemetry.observe("ray_tpu_jax_host_sync_seconds", elapsed,
+                          tags=tags)
+    except Exception:
+        pass
+    finally:
+        _tls.publishing = False
+
+
+def _is_cuda(t) -> bool:
+    """Which tensors the tripwire counts (the test suite stubs this)."""
+    return t.is_cuda
+
+
+def _wrap(kind: str, orig):
+    def wrapper(self, *args, **kwargs):
+        if not _is_cuda(self) or getattr(_tls, "active", False):
+            # A CPU tensor: no device round trip.  A nested coercion
+            # (tolist -> __array__): the outer call already owns the
+            # timing; don't double count.
+            return orig(self, *args, **kwargs)
+        _tls.active = True
+        t0 = time.perf_counter()
+        try:
+            return orig(self, *args, **kwargs)
+        finally:
+            elapsed = time.perf_counter() - t0
+            _tls.active = False
+            _record(kind, elapsed)
+
+    wrapper.__name__ = getattr(orig, "__name__", kind)
+    wrapper.__qualname__ = getattr(orig, "__qualname__", kind)
+    wrapper._ray_tpu_sync_orig = orig
+    return wrapper
+
+
+def install() -> None:
+    """Patch ``torch.Tensor``'s host-coercion points (idempotent)."""
+    global _installed, _skip_prefixes
+    if _installed:
+        return
+    import numpy
+    import torch
+    _skip_prefixes = (os.path.dirname(os.path.abspath(torch.__file__)),
+                      os.path.dirname(os.path.abspath(numpy.__file__)))
+    for kind in _COERCIONS:
+        # The class's own attribute (not an inherited C slot wrapper seen
+        # through getattr), so uninstall puts back exactly what was there.
+        orig = torch.Tensor.__dict__.get(kind)
+        if orig is None:
+            orig = getattr(torch.Tensor, kind, None)
+        if orig is None or hasattr(orig, "_ray_tpu_sync_orig"):
+            continue
+        _originals[kind] = (orig, kind in torch.Tensor.__dict__)
+        setattr(torch.Tensor, kind, _wrap(kind, orig))
+    _installed = True
+
+
+def uninstall() -> None:
+    global _installed
+    if not _installed:
+        return
+    import torch
+    for kind, (orig, own) in _originals.items():
+        if own:
+            setattr(torch.Tensor, kind, orig)
+        else:
+            delattr(torch.Tensor, kind)
+    _originals.clear()
+    _installed = False
+
+
+def is_installed() -> bool:
+    return _installed
+
+
+def clear() -> None:
+    with _state.mu:
+        _state.sites.clear()
+        _state.cached_fastpath = 0
+
+
+def report(top: int = 50) -> Dict[str, Any]:
+    """Snapshot (the JAX flight recorder's ``sync_findings.json`` shape):
+    per-site sync counts and latency histograms, hottest (by total
+    blocked seconds) first."""
+    with _state.mu:
+        rows: List[Dict[str, Any]] = []
+        for (site, kind), st in _state.sites.items():
+            rows.append({
+                "site": site, "kind": kind, "count": st.count,
+                "total_s": st.total_s,
+                "mean_s": st.total_s / st.count if st.count else 0.0,
+                "max_s": st.max_s, "hist": list(st.hist),
+            })
+        cached = _state.cached_fastpath
+    rows.sort(key=lambda r: (-r["total_s"], -r["count"]))
+    return {
+        "installed": _installed,
+        "pid": os.getpid(),
+        "bucket_bounds_s": list(_BOUNDS),
+        "total_syncs": sum(r["count"] for r in rows),
+        "cached_fastpath": cached,
+        "total_sites": len(rows),
+        "truncated": max(0, len(rows) - top),
+        "sites": rows[:top],
+    }
+
+
+def _fmt_s(v: float) -> str:
+    if v >= 1.0:
+        return f"{v:.2f}s"
+    if v >= 1e-3:
+        return f"{v * 1e3:.2f}ms"
+    if v >= 1e-6:
+        return f"{v * 1e6:.0f}µs"
+    return "0"
+
+
+def format_sync(doc: Dict[str, Any]) -> str:
+    """Render a report() / sync_findings.json as the CLI table
+    (``python -m ray_tpu_torch.devtools.lint --sync-report <file>``)."""
+    rows = doc.get("sites", ())
+    if not rows:
+        return ("no host syncs recorded "
+                f"(installed={doc.get('installed', False)}, cached "
+                f"fast-path hits={doc.get('cached_fastpath', 0)})")
+    out = [f"{'site':<34} {'kind':<12} {'count':>8} {'total':>10} "
+           f"{'mean':>10} {'max':>10}"]
+    for r in rows:
+        out.append(f"{r['site']:<34} {r['kind']:<12} {r['count']:>8} "
+                   f"{_fmt_s(r['total_s']):>10} "
+                   f"{_fmt_s(r['mean_s']):>10} "
+                   f"{_fmt_s(r['max_s']):>10}")
+    tail = [f"{doc.get('total_syncs', 0)} sync(s) over "
+            f"{doc.get('total_sites', 0)} site(s), "
+            f"{doc.get('cached_fastpath', 0)} cached fast-path "
+            f"coercion(s)"]
+    if doc.get("truncated"):
+        tail.append(f"({doc['truncated']} colder site(s) truncated)")
+    return "\n".join(out + tail)

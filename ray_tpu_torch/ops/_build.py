@@ -43,6 +43,11 @@ _fns: Dict[tuple, object] = {}
 #: output lines, with ``-Xptxas -v``'s registers, shared memory and spills
 #: per kernel} for every library this process compiled.
 build_log: Dict[str, dict] = {}
+#: ``listener(kind, what, seconds)`` told of each library built or loaded
+#: here ("build", name) and of each first launch of a new launch key
+#: ("launch", kernel), or None: ``profiler.recompile`` installs it.  Each
+#: hook sits on a miss path and is this one check when nothing listens.
+compile_listener = None
 
 
 def nvcc_path() -> str:
@@ -121,8 +126,11 @@ def function(name: str, symbol: str, argtypes: Sequence,
         if fn is None:
             lib = _libs.get(name)
             if lib is None:
+                t0 = time.perf_counter()
                 build([name])
                 lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+                if compile_listener is not None:
+                    compile_listener("build", name, time.perf_counter() - t0)
             fn = getattr(lib, symbol)
             fn.argtypes = list(argtypes)
             fn.restype = restype

@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
+import time
 
 import torch
 
@@ -312,6 +313,7 @@ def _launch(device, stream, dtype, B, H, Hkv, D, P, page_size) -> int:
         hit = _LAUNCH.get(key)
         if hit is not None:
             return hit[1]
+        t0 = time.perf_counter()
         splits = _splits(device, B, Hkv, P)
         ws, blocks = _workspace(device, stream) if splits > 1 else (None, 0)
         launch = _Launch(None if ws is None else ws.data_ptr(), blocks,
@@ -322,6 +324,9 @@ def _launch(device, stream, dtype, B, H, Hkv, D, P, page_size) -> int:
         _build.check("paged_decode", prepare(ctypes.addressof(launch)),
                      "paged_decode prepare")
         hit = _LAUNCH[key] = (launch, ctypes.addressof(launch))
+        if _build.compile_listener is not None:
+            _build.compile_listener("launch", "paged_decode",
+                                    time.perf_counter() - t0)
         return hit[1]
 
 

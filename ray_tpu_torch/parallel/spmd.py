@@ -194,15 +194,21 @@ def make_lm_train_step(cfg, mesh: Mesh, *,
     token count, and sums their gradients in the params' dtype before one
     update.  ``rules``: the logical-axis table (default_rules).
     ``optimizer``: the port's ``optim.adamw`` (the default, in place) or
-    any optax-shaped ``GradientTransformation``."""
+    any optax-shaped ``GradientTransformation``.
+
+    Where the recompile detector is installed (train workers install it
+    by default), step_fn is tracked as site ``lm_train_step``."""
+    from ..profiler.recompile import track_if_installed
     optimizer = optimizer or adamw(learning_rate, b1=0.9, b2=0.95,
                                    weight_decay=0.1)
     L.check_supported(cfg)
     L.check_device_supported(cfg, mesh.device)
     set_global_mesh(mesh)
     if mesh.device_mesh is None:
-        return _one_device_step(cfg, mesh, optimizer, donate, param_dtype,
-                                grad_accum)
+        init_fn, step_fn, place_batch = _one_device_step(
+            cfg, mesh, optimizer, donate, param_dtype, grad_accum)
+        return init_fn, track_if_installed(step_fn, "lm_train_step"), \
+            place_batch
     plan = _ShardedPlan(cfg, mesh, rules or default_rules())
 
     def init_fn(generator: torch.Generator):
@@ -221,7 +227,8 @@ def make_lm_train_step(cfg, mesh: Mesh, *,
                                     plan)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
-    return init_fn, step_fn, plan.place_batch
+    return init_fn, track_if_installed(step_fn, "lm_train_step"), \
+        plan.place_batch
 
 
 def _one_device_step(cfg, mesh: Mesh, optimizer, donate, param_dtype,

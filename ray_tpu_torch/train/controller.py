@@ -27,6 +27,7 @@ import json
 import os
 import pickle
 import signal
+import threading
 import time
 import traceback
 import uuid
@@ -148,6 +149,34 @@ class TrainWorker:
             self._dist_initialized = False
 
 
+#: Seconds between a worker's looks for a profile request.
+PROFILE_POLL_S = 0.25
+
+
+def _profile_listener(plane: ControlPlane, run_id: str, generation: int,
+                      rank: int) -> None:
+    """A worker's answer to the watchdog's profile requests: on a thread of
+    its own (a hung train fn holds the main thread), it captures this
+    process for the requested window and puts the record back."""
+    from ..profiler.capture import capture_profile
+    seen = None
+    req_key = _key(run_id, "profile_req", generation, 0)
+    while True:
+        time.sleep(PROFILE_POLL_S)
+        try:
+            raw = plane.kv_get(req_key)
+        except Exception:  # noqa: BLE001 - the controller is gone
+            return
+        if raw is None or raw == seen:
+            continue
+        seen = raw
+        req = pickle.loads(raw)
+        rec = capture_profile(f"rank{rank}", req["duration_s"],
+                              driver_wall_s=req["driver_wall_s"])
+        plane.kv_put(_key(run_id, f"profile_rec/{req['seq']}", generation,
+                          rank), pickle.dumps(rec))
+
+
 def _worker_main(rank: int, world: int, run_id: str, host: str, port: int,
                  generation: int, spec: Dict[str, Any]) -> None:
     """Entry point of a spawned worker process."""
@@ -155,10 +184,20 @@ def _worker_main(rank: int, world: int, run_id: str, host: str, port: int,
     status: Dict[str, Any] = {"status": "ok", "pid": os.getpid()}
     plane = ControlPlane.connect(host, port)
     set_current(plane)
+    if spec["profile_listener"]:
+        threading.Thread(target=_profile_listener,
+                         args=(plane, run_id, generation, rank),
+                         daemon=True, name="train-profile-listener").start()
     os.makedirs(os.path.dirname(spec["stack_file"]), exist_ok=True)
     stacks = open(spec["stack_file"], "w")
     # The watchdog's bundle asks every worker for its stacks by SIGUSR1.
     faulthandler.register(signal.SIGUSR1, file=stacks, all_threads=True)
+    # Kernel builds and first launches charged to tracked sites, the
+    # port's train step among them (profiler/recompile.py), on by default
+    # in train workers as in JAX's (RAY_TPU_RECOMPILE_DETECT=0 opts out).
+    if os.environ.get("RAY_TPU_RECOMPILE_DETECT", "1") != "0":
+        from ..profiler import recompile
+        recompile.install()
     try:
         device = spec["device"]
         if device == "cpu":
@@ -249,6 +288,8 @@ class TrainController:
             self.run_id, getattr(run_config, "watchdog", None),
             dump=self._debug_dump)
         self._group: Optional[WorkerGroupState] = None
+        #: Sequence number of the last watchdog profile request.
+        self._profile_seq = 0
         # Monotonic stamp of the newest durable checkpoint: the failure
         # path books "lost" work from here, not from group start.
         self._last_ckpt_mono = 0.0
@@ -322,7 +363,11 @@ class TrainController:
         spec = {"fn": self.train_fn, "config": self.train_loop_config,
                 "device": self.device,
                 "formation_timeout_s": self.scaling.formation_timeout_s,
-                "distributed": n > 1 or self.scaling.force_distributed}
+                "distributed": n > 1 or self.scaling.force_distributed,
+                # Workers poll for the watchdog's profile requests only
+                # where its bundles ask for a profile.
+                "profile_listener":
+                    self.watchdog.config.bundle_profile_s > 0}
         t0 = time.monotonic()
         for rank in range(n):
             stack_file = os.path.join(
@@ -396,13 +441,24 @@ class TrainController:
     # -- diagnostics ---------------------------------------------------------
 
     def _debug_dump(self, name: str, extra: Dict[str, Any],
-                    capture_stacks: bool = False) -> str:
+                    capture_stacks: bool = False,
+                    profile_s: Optional[float] = None) -> str:
         """Write one diagnosis bundle (JSON) under ``<run>/diagnostics``;
         with ``capture_stacks``, every live worker's Python stacks (its
-        faulthandler answers SIGUSR1).  Returns its path."""
+        faulthandler answers SIGUSR1); with ``profile_s``, a profile of
+        that length of the driver and every live worker, merged into one
+        trace beside the bundle (JAX: ``debug_dump``'s profile).  Returns
+        its path."""
         bundle = {"name": name, "run_id": self.run_id, "time": time.time(),
                   **extra}
         group = self._group
+        where = os.path.join(self.run_root, "diagnostics")
+        os.makedirs(where, exist_ok=True)
+        stamp = time.time_ns()
+        if profile_s:
+            bundle["profile"] = self._bundle_profile(
+                group, float(profile_s),
+                os.path.join(where, f"{name}-{stamp}-profile.json"))
         if capture_stacks and group is not None:
             live = [(r, p) for r, p in enumerate(group.procs)
                     if p.is_alive()]
@@ -417,12 +473,50 @@ class TrainController:
                 except OSError as e:
                     stacks[str(r)] = f"unreadable: {e}"
             bundle["stacks"] = stacks
-        where = os.path.join(self.run_root, "diagnostics")
-        os.makedirs(where, exist_ok=True)
-        path = os.path.join(where, f"{name}-{time.time_ns()}.json")
+        path = os.path.join(where, f"{name}-{stamp}.json")
         with open(path, "w") as f:
             json.dump(bundle, f, indent=1, default=str)
         return path
+
+    def _bundle_profile(self, group: Optional[WorkerGroupState],
+                        duration_s: float, path: str) -> Dict[str, Any]:
+        """A ``duration_s`` capture of the driver and each live worker
+        (each answers on its profile-listener thread), merged and written
+        to ``path``: {"path", "workers", "unresponsive", "num_events"}."""
+        from ..profiler import COLLECT_TIMEOUT_S
+        from ..profiler.capture import capture_profile
+        from ..profiler.merge import merge_records, write_trace
+        self._profile_seq += 1
+        seq = self._profile_seq
+        live = [] if group is None else [
+            r for r, p in enumerate(group.procs) if p.is_alive()]
+        t0 = time.time()
+        if group is not None:
+            _control("kv_put", _key(self.run_id, "profile_req",
+                                    group.generation, 0),
+                     pickle.dumps({"seq": seq, "duration_s": duration_s,
+                                   "driver_wall_s": t0}))
+        records = [capture_profile("driver", duration_s,
+                                   driver_wall_s=t0, is_driver=True)]
+        deadline = time.monotonic() + COLLECT_TIMEOUT_S
+        pending = list(live)
+        while pending and time.monotonic() < deadline:
+            for r in list(pending):
+                raw = _control("kv_get", _key(
+                    self.run_id, f"profile_rec/{seq}", group.generation, r))
+                if raw is not None:
+                    records.append(pickle.loads(raw))
+                    pending.remove(r)
+            if pending:
+                time.sleep(0.1)
+        doc = merge_records(records, meta={
+            "duration_s": duration_s, "driver_t0_wall_s": t0,
+            "unresponsive": [f"rank{r}" for r in pending]})
+        write_trace(path, doc)
+        return {"path": path,
+                "workers": [rec.get("worker_id") for rec in records],
+                "unresponsive": [f"rank{r}" for r in pending],
+                "num_events": len(doc["traceEvents"])}
 
     # -- reports ------------------------------------------------------------
 

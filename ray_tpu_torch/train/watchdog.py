@@ -20,10 +20,10 @@ On a verdict it bumps the ``ray_tpu_train_straggler_total`` /
 ``EXPORT_TRAIN_WATCHDOG`` event on the control plane, publishes the
 verdict under ``VERDICT_KV_KEY``, and writes a verdict bundle file through
 the ``dump`` callable the controller passes (with every worker's stacks,
-which each worker's ``faulthandler`` writes on ``SIGUSR1``).  Verdicts are
-once-per-incident: a rank re-arms when it recovers.  On-demand profiles in
-the bundle (``bundle_profile_s`` > 0) are not ported: ROADMAP Queue 1 item
-3(c), "watchdog profiles".
+which each worker's ``faulthandler`` writes on ``SIGUSR1``, and with
+``bundle_profile_s`` > 0 a profile of that length of the driver and every
+live worker, merged into one trace beside it).  Verdicts are
+once-per-incident: a rank re-arms when it recovers.
 """
 
 from __future__ import annotations
@@ -58,8 +58,7 @@ class WatchdogConfig:
     capture_stacks: bool = True
     # Write a flight-recorder bundle on each verdict.
     write_bundle: bool = True
-    # On-demand profile of this duration in the trip bundle: not ported,
-    # anything but 0 raises at fit().
+    # On-demand profile of this duration in the trip bundle (0: none).
     bundle_profile_s: float = 0.0
 
 
@@ -98,12 +97,8 @@ class TrainWatchdog:
                  dump: Optional[Callable[..., Optional[str]]] = None):
         self.run_id = run_id
         self.config = config or WatchdogConfig()
-        if self.config.bundle_profile_s:
-            raise NotImplementedError(
-                "WatchdogConfig.bundle_profile_s > 0 is not ported: ROADMAP "
-                "Queue 1 item 3(c), \"watchdog profiles\"")
-        #: dump(name, extra, capture_stacks) -> bundle path (the
-        #: controller's; None: no bundles).
+        #: dump(name, extra, capture_stacks, profile_s) -> bundle path
+        #: (the controller's; None: no bundles).
         self._dump = dump
         self._lock = threading.Lock()
         self._ranks: Dict[int, _RankState] = {}
@@ -296,7 +291,8 @@ class TrainWatchdog:
                 try:
                     self._dump(f"watchdog_{kind}_rank{rank}",
                                {"verdict": verdict},
-                               self.config.capture_stacks)
+                               self.config.capture_stacks,
+                               self.config.bundle_profile_s or None)
                 except Exception as e:  # noqa: BLE001 — best-effort
                     from ..util import telemetry
                     telemetry.note_swallowed("train.watchdog.bundle", e)

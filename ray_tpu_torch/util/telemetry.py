@@ -5,7 +5,9 @@ tier and the fleet call, with its metric names).
 - ``CATALOG`` declares every metric the train runtime and the checkpoint
   subsystem record (``ray_tpu_train_*``, ``ray_tpu_ckpt_*``), those the
   engine, the disagg tier and the fleet record (``ray_tpu_llm_*``,
-  ``ray_tpu_serve_*``), and the swallowed-error counter.  ``inc``/``observe``/``set_gauge`` record into
+  ``ray_tpu_serve_*``), the host-sync tripwire's and the recompile
+  detector's (``ray_tpu_jax_host_sync_*``, ``ray_tpu_profiler_*``), and
+  the swallowed-error counter.  ``inc``/``observe``/``set_gauge`` record into
   this process's registry and never raise (an undeclared name records
   nothing, as JAX's helpers swallow it).
 - Worker processes ship ``snapshot()`` to the controller when their train
@@ -193,6 +195,30 @@ CATALOG: Dict[str, Dict[str, Any]] = {
     "ray_tpu_llm_prefill_chunks_total": _c(
         (), "Chunked-prefill chunks executed (single-engine disagg-off "
             "fallback: long prompts sliced across decode steps)."),
+    "ray_tpu_jax_host_sync_total": _c(
+        ("site",), "Implicit CUDA tensor device->host syncs by call site "
+                   "(float()/.item()/.tolist()/np.asarray() on a CUDA "
+                   "tensor), from the opt-in tripwire "
+                   "(RAY_TPU_SYNC_DEBUG=1; JAX's name, so one query reads "
+                   "either package).  Published in batches of 64 per "
+                   "site; a hot site in a step/decode loop is an RT502 to "
+                   "fix."),
+    "ray_tpu_jax_host_sync_seconds": _h(
+        ("site",), "Sampled blocked time of implicit CUDA tensor "
+                   "device->host syncs by call site (~1/64th of syncs), "
+                   "from the opt-in tripwire.", _LATENCY_BUCKETS),
+    "ray_tpu_profiler_compile_total": _c(
+        ("fn",), "Kernel builds/loads and first launches of a new launch "
+                 "shape attributed to a tracked call site (the port's "
+                 "counterpart of an XLA compile; fn=<site name>)."),
+    "ray_tpu_profiler_compile_seconds": _h(
+        ("fn",), "Seconds spent building/loading kernel libraries and "
+                 "preparing first launches per tracked call site."),
+    "ray_tpu_profiler_recompiles_total": _c(
+        ("fn",), "POST-WARMUP builds or first launches: a tracked site "
+                 "that had reached steady state met a new launch shape "
+                 "(shape churn).  Each also logs a once-per-site warning "
+                 "naming the offending shapes."),
     "ray_tpu_internal_swallowed_errors_total": _c(
         ("where",), "Control-plane exceptions intentionally swallowed "
                     "(best-effort paths), by call site."),

@@ -514,7 +514,9 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     assert len(files) > 10
     assert {"moe.py", "ring_attention.py", "ulysses.py", "pipeline.py",
             "_actor.py", "backends.py", "_object_store.py", "remote.py",
-            "controller.py", "batching.py", "multiplex.py"} <= \
+            "controller.py", "batching.py", "multiplex.py",
+            "compiled_dag.py", "syncdebug.py", "capture.py", "recompile.py",
+            "rules_torch.py"} <= \
         {f.name for f in files}
     for f in files:
         # Whole-word roots: ray_tpu_torch is the port itself.  optax, chex

@@ -82,6 +82,16 @@ def _port_mlp_train_fn(config):
             os._exit(1)
 
 
+def _hangs_once(config):
+    import time
+
+    import ray_tpu_torch.train as train
+    train.report({"step": 0})
+    train.report({"step": 1})
+    time.sleep(config["hang_s"])
+    train.report({"step": 2})
+
+
 def _always_dies(config):
     os._exit(1)
 
@@ -273,12 +283,30 @@ class TestRefusals:
                 device="cpu"), run_config=run).fit()
 
     def test_watchdog_profile_raises(self, tmp_path):
+        """Watchdog profiles are ported: ``bundle_profile_s`` > 0 no longer
+        raises, and the hang bundle carries a capture of that length of
+        the driver and the hung worker (answering on its own thread)."""
+        import json
         from ray_tpu_torch.train import WatchdogConfig
-        run = RunConfig(storage_path=str(tmp_path),
-                        watchdog=WatchdogConfig(bundle_profile_s=2.0))
-        with pytest.raises(NotImplementedError, match="watchdog profiles"):
-            TorchTrainer(_always_dies, scaling_config=ScalingConfig(
-                device="cpu"), run_config=run).fit()
+        run = RunConfig(name="prof", storage_path=str(tmp_path),
+                        watchdog=WatchdogConfig(hang_deadline_s=1.0,
+                                                poll_interval_s=0.1,
+                                                bundle_profile_s=0.5))
+        res = TorchTrainer(_hangs_once, train_loop_config={"hang_s": 4.0},
+                           scaling_config=ScalingConfig(device="cpu"),
+                           run_config=run).fit()
+        assert res.error is None
+        diag = tmp_path / "prof" / "diagnostics"
+        (bundle,) = [p for p in diag.iterdir()
+                     if p.name.startswith("watchdog_hang_rank0")
+                     and not p.name.endswith("-profile.json")]
+        prof = json.loads(bundle.read_text())["profile"]
+        assert prof["workers"] == ["driver", "rank0"]
+        assert prof["unresponsive"] == [] and prof["num_events"] > 0
+        trace = json.loads(open(prof["path"]).read())
+        # The worker's samples: asleep in the train fn.
+        assert any("_hangs_once" in str(e.get("args", {}).get("stack"))
+                   for e in trace["traceEvents"])
 
     def test_devices_per_worker_must_be_one(self, tmp_path):
         scaling = ScalingConfig(num_workers=1, device="cpu",
