@@ -27,7 +27,13 @@ of its own): each algorithm's update on the card against the same update
 on the CPU, the CNN and GRU policies and the device-resident CartPole
 (``rl_exact``); PPO at the default config through ``build().train()``
 with its host syncs counted, a 4,096 x 128 device rollout and one
-``train()`` of every other algorithm (``rl_train``).  The process tier:
+``train()`` of every other algorithm (``rl_train``); a BC update from a
+``Dataset`` against the same from ``.npz`` (in ``rl_exact``).  The 1.36B
+step fed from a ``Dataset`` (``data_train``, after ``train_dots``): a
+seeded token corpus in raw int32 shards through read tasks, rows, the
+two-stage shuffle over ``ray_tpu_torch.init``'s task workers,
+``iter_batches`` and ``device_put_iterator``, against the same batches
+placed from memory (bit-equal losses).  The process tier:
 ``build_llm_deployment`` at ``llama_1b`` in a replica process, its greedy
 tokens against the in-process ``LLMServer`` and its kernels' launches
 counted inside the replica (``serve_deployment``); a 960-token llama_1b
@@ -200,6 +206,14 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def check_share(share, what: str) -> None:
+    """An idle share must lie in [0, 1): a profiler window whose kernel
+    time sums past its wall misread the device (such windows have read
+    -985), and its numbers are not kept."""
+    check(share is None or 0.0 <= share < 1.0,
+          f"{what}: an idle share outside [0, 1): {share}")
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -1332,11 +1346,12 @@ def _profile_chunk(params, cfg, eng, page):
     run()
     wall = time.perf_counter() - t0
     busy_ms, top, _kinds = _device_time(run)
+    idle = 1 - busy_ms / (wall * 1e3) if busy_ms else None
+    check_share(idle, "serve decode chunk")
     return {"slots": B, "steps": steps, "depth": depth,
             "wall_ms_per_step": wall * 1e3 / steps,
             "device_busy_ms_per_step": busy_ms / steps,
-            "device_idle_share": (1 - busy_ms / (wall * 1e3)
-                                  if busy_ms else None),
+            "device_idle_share": idle,
             "top_kernels_ms_per_step": [
                 [name[:48], round(us / 1e3 / steps, 4), n // steps]
                 for name, (us, n) in top]}
@@ -1525,6 +1540,7 @@ def phase_train(smi):
               "top_kernels_ms": [[name[:48], round(us / 1e3, 3), n]
                                  for name, (us, n) in top]},
           "kernel_vs_plain_B2": compare})
+    check_share(1 - busy_ms / (step_s * 1e3), "train")
     errs, tol = compare["rel_err"], TOL_TRAIN_BF16
     check(all(errs[k] <= tol[k] for k in tol),
           f"train B=2 kernel vs plain {compare}")
@@ -2449,6 +2465,310 @@ def _fleet_autoscale(params, cfg, eo):
     return row
 
 
+# ------------------------------------------------------------ data_train
+
+# The token corpus of data_train: raw int32 shards, as LLM pre-training
+# corpora are kept, of rows of TRAIN_SEQ + 1 tokens (the inputs and their
+# next-token targets) over the 1.36B config's vocab, from a seed.
+DATA_SHARDS, DATA_ROWS, DATA_MIN_ROWS = 8, 512, 96
+DATA_ROW = TRAIN_SEQ + 1
+DATA_WORKERS, DATA_STEPS = 4, 4
+# Copies of the corpus in /dev/shm at the shuffle's peak: the map side's
+# parts, the merged blocks, and the blocks the driver holds mapped.
+DATA_SHM_COPIES = 3
+
+
+def tokens_to_rows(row_len, batch):
+    """data_train's ``map_batches`` body: each file of raw int32 tokens
+    (a ``read_binary_files`` row) cut into rows of ``row_len`` tokens.  At
+    the top level of the module: task workers import it by reference."""
+    return {"tokens": np.concatenate([
+        np.frombuffer(b, np.int32).reshape(-1, row_len)
+        for b in batch["bytes"]])}
+
+
+def write_token_corpus(root, shards, rows, row_len, vocab, seed):
+    """``shards`` files of ``rows`` x ``row_len`` int32 tokens under
+    ``root``; returns every row, in file order."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for i in range(shards):
+        toks = rng.integers(0, vocab, (rows, row_len), dtype=np.int32)
+        toks.tofile(os.path.join(root, f"shard-{i:03d}.bin"))
+        parts.append(toks)
+    return np.concatenate(parts)
+
+
+def token_pipeline(root, row_len, seed=0):
+    """read tasks -> rows of ``row_len`` tokens -> the two-stage shuffle."""
+    import functools
+    from ray_tpu_torch import data as rdata
+    return (rdata.read_binary_files(root)
+            .map_batches(functools.partial(tokens_to_rows, row_len))
+            .random_shuffle(seed=seed))
+
+
+def _row_multiset(rows):
+    """Rows as one sorted array of byte strings: equal iff the two row
+    multisets are."""
+    a = np.ascontiguousarray(rows)
+    return np.sort(a.view(np.dtype((np.void, a.shape[1] * a.itemsize)))
+                   .ravel())
+
+
+def _split_rows(t):
+    """A (B, S + 1) token tensor as the step's batch: S inputs, their
+    next tokens as targets, every position counted."""
+    import torch
+    tokens = t[:, :-1].contiguous()
+    return {"tokens": tokens, "targets": t[:, 1:].contiguous(),
+            "loss_mask": torch.ones_like(tokens)}
+
+
+class _StepMarks:
+    """CUDA events around each step of a window, in stream order: the
+    device is idle between one step's last kernel and the next step's
+    first (waiting on the host: the batch, its copy).
+    ``idle_between_steps()`` is that time over the window from the first
+    step's start to the last one's end; idle time inside a step is not
+    counted, so it is not the profiler's whole-window idle share of the
+    other phases.  (``torch.profiler`` windows over these steps read
+    kernel time ~1,000 times their wall once the script had run its
+    earlier phases.)  On the CPU it records nothing."""
+
+    def __init__(self, device):
+        import torch
+        self.on = device.type == "cuda"
+        self.event = lambda: torch.cuda.Event(enable_timing=True)
+        self.marks = []
+
+    def start(self):
+        if self.on:
+            self.marks.append([self.event(), self.event()])
+            self.marks[-1][0].record()
+
+    def end(self):
+        if self.on:
+            self.marks[-1][1].record()
+
+    def idle_between_steps(self):
+        if not self.on:
+            return None
+        busy = sum(s.elapsed_time(e) for s, e in self.marks)
+        return 1 - busy / self.marks[0][0].elapsed_time(self.marks[-1][1])
+
+
+def fed_vs_memory(cfg, ds, batch_size, steps, lr, seed=0, device="cuda"):
+    """``steps`` steps of ``make_lm_train_step(cfg)`` fed from ``ds``
+    through ``iter_batches(drop_last=True)`` and ``device_put_iterator(
+    prefetch=2)`` (the main path: launch counts are read from this window
+    only), then the same steps from a clone of the same starting state on
+    the same host batches placed from memory; each window's share of
+    device time idle between its steps (``_StepMarks``)."""
+    import torch
+    from ray_tpu_torch._tree import tree_map
+    from ray_tpu_torch.data import device_put_iterator
+    from ray_tpu_torch.parallel import build_mesh, make_lm_train_step
+    device = torch.device(device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    init_fn, step_fn, place = make_lm_train_step(
+        cfg, build_mesh(device=device), learning_rate=lr,
+        param_dtype=cfg.dtype)
+    params, opt = init_fn(torch.Generator(device=device).manual_seed(seed))
+    clone = lambda tree: tree_map(  # noqa: E731
+        lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
+    fed, mem = clone((params, opt)), clone((params, opt))
+    warm = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch_size, cfg.max_seq_len + 1), np.int32)
+    params, opt, _ = step_fn(params, opt, _split_rows(
+        place({"t": warm})["t"]))         # allocator, cuBLAS handles
+    del params, opt
+    sync()
+
+    host = []
+
+    def keep(batches):
+        for b in batches:
+            host.append({k: np.array(v, copy=True) for k, v in b.items()})
+            yield b
+
+    it = device_put_iterator(keep(ds.iter_batches(
+        batch_size=batch_size, drop_last=True)), prefetch=2, device=device)
+    t0 = time.perf_counter()
+    first = next(it)                     # the pipeline's start-up
+    first_batch_s = time.perf_counter() - t0
+
+    # -- the main path: counts from here.
+    _reset_launches()
+    waits, losses_fed = [], []
+    p, o = fed
+    marks_fed = _StepMarks(device)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tw = time.perf_counter()
+        dev = first if i == 0 else next(it)
+        if i:
+            waits.append(time.perf_counter() - tw)
+        marks_fed.start()
+        p, o, m = step_fn(p, o, _split_rows(dev["tokens"]))
+        marks_fed.end()
+        losses_fed.append(m["loss"])
+    sync()
+    fed_s = time.perf_counter() - t0
+    launches = _read_launches()
+    # -- end of the main path.
+    it.close()
+    del first, dev, p, o, fed
+
+    losses_mem = []
+    p, o = mem
+    marks_mem = _StepMarks(device)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        batch = _split_rows(place({"t": host[i]["tokens"]})["t"])
+        marks_mem.start()
+        p, o, m = step_fn(p, o, batch)
+        marks_mem.end()
+        losses_mem.append(m["loss"])
+    sync()
+    mem_s = time.perf_counter() - t0
+    del p, o, mem
+    idle = {"fed": marks_fed.idle_between_steps(),
+            "memory": marks_mem.idle_between_steps()}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"losses_fed": [x.item() for x in losses_fed],
+            "losses_memory": [x.item() for x in losses_mem],
+            "first_batch_s": first_batch_s,
+            "next_wait_ms": [w * 1e3 for w in waits],
+            "step_ms_fed": fed_s * 1e3 / steps,
+            "step_ms_memory": mem_s * 1e3 / steps,
+            "idle_between_steps": idle, "launches": launches,
+            "rows": np.concatenate([h["tokens"] for h in host])}
+
+
+def phase_data_train(smi, device: str = "cuda"):
+    """The 1.36B step of ``train`` fed from a Dataset on the card: a
+    seeded int32 token corpus in raw shards through read tasks,
+    ``map_batches`` to 2,049-token rows and the two-stage
+    ``random_shuffle`` over ``ray_tpu_torch.init(num_cpus=4)``'s task
+    workers, then ``iter_batches`` and ``device_put_iterator`` into
+    ``make_lm_train_step``: 4 steps fed so, against 4 from a clone of the
+    same state on the same host batches placed from memory (bit-equal
+    losses).  The rows equal the corpus's as a multiset; a second run
+    gives the same order; the flash kernels launch 2L, L and L a step in
+    the fed window; the workers' row counts reach the driver's telemetry;
+    no segment of the session is left after ``shutdown()``."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch import _tasks
+    from ray_tpu_torch.data.context import DataContext
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.util import telemetry
+    t_phase = time.perf_counter()
+    try:
+        import pyarrow
+        pyarrow_version = pyarrow.__version__
+    except ImportError:
+        pyarrow_version = None
+    shm_free = shutil.disk_usage("/dev/shm").free
+    rows = DATA_ROWS
+    row_bytes = DATA_ROW * 4
+
+    def need(r):
+        return DATA_SHM_COPIES * DATA_SHARDS * r * row_bytes
+
+    while need(rows) > shm_free and rows * DATA_SHARDS > DATA_MIN_ROWS:
+        rows = max(DATA_MIN_ROWS // DATA_SHARDS, rows // 2)
+    emit({"phase": "data_train.shm", "dev_shm_free_bytes": shm_free,
+          "rows_per_shard": rows, "needed_bytes": need(rows)})
+    check(need(rows) <= shm_free,
+          f"/dev/shm has {shm_free} bytes free; the pipeline needs "
+          f"{need(rows)} at {rows * DATA_SHARDS} rows")
+    cfg = LlamaConfig(**TRAIN_CFG, dtype=torch.bfloat16, remat=True,
+                      attention_impl="flash")
+    ctx = DataContext.get()
+    old_order, ctx.preserve_order = ctx.preserve_order, True
+    before = _tasks.stats()
+    session = rtt.init(num_cpus=DATA_WORKERS)
+    try:
+        with tempfile.TemporaryDirectory(prefix="data_train_") as root:
+            corpus = write_token_corpus(root, DATA_SHARDS, rows, DATA_ROW,
+                                        cfg.vocab_size, seed=0)
+            t0 = time.perf_counter()
+            got = np.concatenate([
+                b["tokens"] for b in token_pipeline(root, DATA_ROW)
+                .iter_batches(batch_size=4096)])
+            run1_s = time.perf_counter() - t0
+            mid = _tasks.stats()
+            res = fed_vs_memory(cfg, token_pipeline(root, DATA_ROW),
+                                TRAIN_BATCH, DATA_STEPS, TRAIN_LR,
+                                device=device)
+            after = _tasks.stats()
+    finally:
+        ctx.preserve_order = old_order
+        rtt.shutdown()
+    left = glob.glob(f"/dev/shm/rtt_{session.id}_*")
+    by_op = {dict(k)["operator"]: v[1] for k, v in
+             telemetry.samples("ray_tpu_data_rows_total").items()}
+    delta = lambda a, b, k: b.get(k, 0) - a.get(k, 0)  # noqa: E731
+    per_step = {k: n / DATA_STEPS for k, n in res["launches"].items()}
+    # On the CPU (a rehearsal) the wrappers run their plain versions.
+    n = cfg.layers if device == "cuda" else 0
+    want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "paged_decode": 0}
+    same_order = bool(np.array_equal(res["rows"], got[:len(res["rows"])]))
+    multiset = bool(len(got) == len(corpus) and np.array_equal(
+        _row_multiset(got), _row_multiset(corpus)))
+    waits = res["next_wait_ms"]
+    emit({"phase": "data_train", "card": smi, "config": "bench.py:3384-3390",
+          "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": DATA_STEPS,
+          "workers": DATA_WORKERS, "pyarrow_on_card": pyarrow_version,
+          "corpus": {"shards": DATA_SHARDS, "rows_per_shard": rows,
+                     "row_tokens": DATA_ROW, "bytes": corpus.nbytes,
+                     "cut_from_rows": DATA_ROWS * DATA_SHARDS
+                     if rows != DATA_ROWS else None},
+          "tasks_run": delta(before, after, "tasks_run"),
+          "pipeline_run": {"seconds": run1_s, "rows": len(got),
+                           "rows_per_s": len(got) / run1_s,
+                           "driver_mapped_bytes": delta(
+                               before, mid, "mapped_bytes")},
+          "seconds_to_first_batch": res["first_batch_s"],
+          "driver_mapped_bytes_fed": delta(mid, after, "mapped_bytes"),
+          "step_ms": {"fed": res["step_ms_fed"],
+                      "memory": res["step_ms_memory"]},
+          "next_wait_ms_mean": sum(waits) / max(len(waits), 1),
+          "next_wait_ms": waits,
+          "idle_between_steps_share": res["idle_between_steps"],
+          "losses": {"fed": res["losses_fed"],
+                     "memory": res["losses_memory"]},
+          "launches_per_step": per_step, "rows_by_operator": by_op,
+          "rows_multiset_equal": multiset, "same_order": same_order,
+          "segments_left": len(left),
+          "seconds": time.perf_counter() - t_phase})
+    check(multiset, "data_train: the pipeline's rows are not the corpus's")
+    check(same_order, "data_train: a second run gave another order")
+    check(res["losses_fed"] == res["losses_memory"],
+          f"data_train: fed and from-memory losses differ: {res['losses_fed']}"
+          f" vs {res['losses_memory']}")
+    check(all(math.isfinite(x) for x in res["losses_fed"]),
+          f"data_train losses {res['losses_fed']}")
+    check(per_step == want, f"data_train launches a step {per_step} != "
+          f"{want}")
+    check(by_op.get("map", 0) >= len(corpus)
+          and by_op.get("reduce", 0) >= len(corpus),
+          f"data_train: rows by operator in the driver's telemetry {by_op}")
+    check(not left, f"data_train: segments left after shutdown: {left}")
+    for window, share in res["idle_between_steps"].items():
+        check_share(share, f"data_train {window}")
+    return {k: v for k, v in res["launches"].items() if v}
+
+
 def phase_train_dots(smi, params, opt):
     """The train phase's config at full width and depth (bench.py:
     3384-3390, 12 x 2048, bf16) under remat "dots" and "dots_nobatch",
@@ -3154,6 +3474,7 @@ def phase_train_moe(smi):
            "kernel_vs_plain_B2": compare,
            "sorted_no_drops_vs_dense_fp32_max_abs": dispatch_err}
     emit(res)
+    check_share(res["profile_one_step"]["device_idle_share"], "train_moe")
     want_l = {"flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
               "flash_bwd_dkv": cfg.layers}
     check({k: res["launches_per_step"][k] for k in want_l} == want_l,
@@ -3316,6 +3637,34 @@ def rl_card_vs_cpu(name: str, data_path: str, device: str = "cuda"):
     return _rl_tree_err(w_gpu, w_cpu), metric_err
 
 
+def rl_bc_dataset_vs_npz(data_path: str, device: str = "cuda"):
+    """A BC training step (3 updates) on ``device`` from the ``.npz``
+    input and from a ``Dataset`` of the same columns (``from_numpy``: no
+    pyarrow), from the same seed: (max abs difference of the weights, of
+    the metrics); both 0 when the Dataset feeds the same rows."""
+    import ray_tpu_torch.rl as rl
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch.rl._transfer import to_numpy
+    from ray_tpu_torch._tree import tree_leaves
+    with np.load(data_path) as z:
+        cols = {k: z[k] for k in z.files}
+    out = []
+    for src in (data_path, rdata.from_numpy(cols, parallelism=4)):
+        algo = (rl.BCConfig().environment("StatelessGuess")
+                .offline_data(input_path=src, updates_per_iteration=3)
+                .training(lr=1e-3).debugging(seed=0)
+                .resources(device=device)).build_algo()
+        m = algo.training_step()["learner"]
+        out.append((tree_leaves(to_numpy(algo.get_weights())), m))
+    (w_npz, m_npz), (w_ds, m_ds) = out
+    check(sorted(m_npz) == sorted(m_ds), "rl BC: metric names differ")
+    w_err = max(float(np.abs(np.asarray(a, np.float64)
+                             - np.asarray(b, np.float64)).max())
+                for a, b in zip(w_ds, w_npz))
+    m_err = max(abs(float(m_ds[k]) - float(m_npz[k])) for k in m_npz)
+    return w_err, m_err
+
+
 def rl_models_card_vs_cpu(device: str = "cuda"):
     """The CNN forward at 84x84x4 and the GRU forward_train at T 32, on
     the card and on the CPU from the same weights: max relative errors."""
@@ -3390,17 +3739,23 @@ def phase_rl_exact(smi):
                 p_err, m_err = rl_card_vs_cpu(name, data)
                 algos[name] = {"params_rel_err": p_err,
                                "metrics_rel_err": m_err}
+            bc_dataset = dict(zip(("params_abs_diff", "metrics_abs_diff"),
+                                  rl_bc_dataset_vs_npz(data)))
         models = rl_models_card_vs_cpu()
         cartpole = rl_cartpole_card_vs_numpy()
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev
     emit({"phase": "rl_exact", "card": smi, "tf32": False, "tol": RL_TOL,
-          "algos": algos, "models_rel_err": models, "cartpole": cartpole,
+          "algos": algos, "bc_dataset_vs_npz": bc_dataset,
+          "models_rel_err": models, "cartpole": cartpole,
           "seconds": time.perf_counter() - t0})
     bad = {k: v for k, v in algos.items()
            if v["params_rel_err"] > RL_TOL or v["metrics_rel_err"] > RL_TOL}
     check(not bad, f"rl_exact: card and CPU updates differ: {bad}")
+    check(bc_dataset == {"params_abs_diff": 0.0, "metrics_abs_diff": 0.0},
+          f"rl_exact: BC from a Dataset differs from the .npz's: "
+          f"{bc_dataset}")
     check(all(v <= RL_TOL for v in models.values()),
           f"rl_exact: CNN/GRU card vs CPU {models}")
     check(cartpole["state_mismatches"] == 0
@@ -3445,8 +3800,10 @@ def _rl_profile(run):
         if us > 0:
             busy_us += us
             launches += ev.count
+    idle = 1 - busy_us / 1e3 / wall
+    check_share(idle, "an RL profile window")
     return {"wall_ms": wall, "busy_ms": busy_us / 1e3,
-            "kernels": launches, "idle_share": 1 - busy_us / 1e3 / wall}
+            "kernels": launches, "idle_share": idle}
 
 
 def _rl_sample_parts(runner, steps):
@@ -5313,6 +5670,8 @@ def main() -> int:
     paths["train"], params, opt = phase_train(smi)
     paths["train_dots"] = phase_train_dots(smi, params, opt)
     del params, opt
+    torch.cuda.empty_cache()
+    paths["data_train"] = phase_data_train(smi)
     torch.cuda.empty_cache()
     paths["checkpoint"] = phase_checkpoint(smi)
     torch.cuda.empty_cache()

@@ -27,16 +27,24 @@ process actors over the ``_control`` store; ``collective``: groups over
 ``torch.distributed``; RL's remote runners and DDP learners; ``serve``:
 deployments whose replicas are actors, under ``build_llm_deployment`` and
 ``build_disagg_deployment``), compiled DAGs over those actors (``dag``),
-and the developer tools (``devtools``: the CUDA host-sync tripwire and the
+the developer tools (``devtools``: the CUDA host-sync tripwire and the
 RT5xx lint rules; ``profiler``: cluster captures with ``torch.profiler``
-and the kernel-build/first-launch counts of ``recompile``).
+and the kernel-build/first-launch counts of ``recompile``), and tasks and
+the data library (``init``/``remote`` on a function: a pool of spawned
+workers with values in shared memory, ``_tasks``; ``data``: ``Dataset``
+with its streaming executor over those tasks).
+
+Importing this package (or ``ray_tpu_torch.data``) does not import torch:
+a task worker imports it only where its function's module does.
 """
 
 import os as _os
 
 from ._actor import (ActorError, GetTimeoutError, ObjectRef,  # noqa: E402
-                     ObjectRefGenerator, TaskError, get, kill, put, remote,
-                     wait)
+                     ObjectRefGenerator, RayTpuError, TaskError, get, kill,
+                     put, remote, wait)
+from ._tasks import (RemoteFunction, WorkerCrashedError, init,  # noqa: E402
+                     is_initialized)
 
 # Opt-in implicit host-sync tripwire (devtools/syncdebug.py): patches
 # torch.Tensor's host coercions so every implicit sync of a CUDA tensor
@@ -46,6 +54,17 @@ if _os.environ.get("RAY_TPU_SYNC_DEBUG") == "1":
     from .devtools import syncdebug as _syncdebug
     _syncdebug.install()
 
-__all__ = ["remote", "get", "put", "wait", "kill", "ObjectRef",
-           "ObjectRefGenerator", "TaskError", "ActorError",
-           "GetTimeoutError"]
+
+
+def shutdown() -> None:
+    """End the task session (its workers and every segment of it) and kill
+    every actor this process started (JAX: ``ray_tpu.shutdown``)."""
+    from . import _actor, _tasks
+    _tasks.shutdown()
+    _actor.shutdown()
+
+
+__all__ = ["init", "shutdown", "is_initialized", "remote", "get", "put",
+           "wait", "kill", "ObjectRef", "ObjectRefGenerator",
+           "RemoteFunction", "RayTpuError", "TaskError", "ActorError",
+           "WorkerCrashedError", "GetTimeoutError"]

@@ -1,7 +1,10 @@
 """Process actors: the part of ``ray_tpu/_private/api.py`` that the port's
 process tier calls (``remote``, ``ActorClass.options(...).remote``,
 ``ActorHandle`` and ``ActorMethod.remote``, ``ObjectRef``,
-``ObjectRefGenerator``, ``get``, ``wait``, ``put``, ``kill``).
+``ObjectRefGenerator``, ``get``, ``wait``, ``put``, ``kill``).  ``remote``
+on a function, the refs of tasks and ``put`` after ``init()`` are the task
+tier's (``_tasks``): such a ref holds a shared-memory descriptor, pickles
+as it, and is read at ``get``.
 
 An actor is a process started with ``torch.multiprocessing``'s ``spawn``
 context (CUDA forbids ``fork`` once the caller holds a context).  The first
@@ -33,7 +36,9 @@ module attribute is the ``ActorClass``; the actor unwraps it).
 Actors are daemon processes; each also watches its parent's pid and exits
 when it is gone, and ``shutdown()`` (also run at exit) kills every actor
 this process started.  An ``ObjectRef`` passed as a top-level argument is
-resolved to its value before the call is sent (a pending one waits).
+resolved to its value before the call is sent (a pending one waits); a
+task's ref may also sit inside an argument (it crosses as its
+descriptor), an actor call's may not.
 
 ``handle.__ray_call__.remote(fn, *args)`` runs ``fn(instance, *args)`` in
 the actor as an ordinary call (in its turn, on a call thread), as the JAX
@@ -122,10 +127,11 @@ class GetTimeoutError(RayTpuError, TimeoutError):
 
 def _by_reference_rule(what: str, e: BaseException) -> ValueError:
     return ValueError(
-        f"{what} must pickle by reference: actors import classes and "
-        f"functions by module and name (no cloudpickle), so define them at "
-        f"the top level of a module; lambdas and nested functions cannot "
-        f"be sent ({type(e).__name__}: {e})")
+        f"{what} must pickle by reference: actors and task workers "
+        f"import classes and functions by module and name (no "
+        f"cloudpickle), so define them at the top level of a module; "
+        f"lambdas and nested functions cannot be sent "
+        f"({type(e).__name__}: {e})")
 
 
 def _dumps(obj: Any, what: str) -> bytes:
@@ -171,6 +177,9 @@ class _Session:
 
 _session: Optional[_Session] = None
 _session_lock = threading.Lock()
+#: Held while ``os.environ`` carries a child's environment for a spawn
+#: (actors here, task workers in ``_tasks``).
+_spawn_env_lock = threading.Lock()
 #: In an actor process: its store client and options.
 _in_actor: Optional[Dict[str, Any]] = None
 
@@ -191,21 +200,42 @@ def _plane():
 
 
 class ObjectRef:
-    """A result that may still be coming (JAX: ``ObjectRef``)."""
+    """A result that may still be coming (JAX: ``ObjectRef``).
 
-    __slots__ = ("_fut", "_name")
+    Two kinds: an actor call's or a ``put`` before ``init()`` holds its
+    value in the future (``store`` False); a task's or a ``put`` after
+    ``init()`` holds a store descriptor there (``_tasks``), read at
+    ``get``.  ``owned``: this process owns the descriptor's segment, which
+    goes when the last owned ref of it is collected."""
 
-    def __init__(self, fut: cf.Future, name: str = ""):
+    __slots__ = ("_fut", "_name", "_store", "_owned")
+
+    def __init__(self, fut: cf.Future, name: str = "", store: bool = False,
+                 owned: bool = False):
         self._fut = fut
         self._name = name
+        self._store = store
+        self._owned = owned
 
     def future(self) -> cf.Future:
         return self._fut
 
     def __reduce__(self):
+        if self._store:
+            # Its descriptor, once ready (a failed task's error raises).
+            from ._tasks import _ref_from_desc
+            return (_ref_from_desc, (self._fut.result(), self._name))
         raise TypeError("an ObjectRef cannot be pickled into a value: pass "
                         "it as a top-level argument (resolved before the "
                         "call) or get() it first")
+
+    def __del__(self):
+        if getattr(self, "_owned", False):
+            try:
+                from ._tasks import _release_when_done
+                _release_when_done(self._fut)
+            except Exception:  # noqa: BLE001 - interpreter teardown
+                pass
 
     def __repr__(self):
         return f"ObjectRef({self._name}, done={self._fut.done()})"
@@ -230,9 +260,30 @@ class ObjectRefGenerator:
         self._name = name
         self._items: "queue.Queue" = queue.Queue()
         self._done = False
+        self._closed = False
+        self._lock = threading.Lock()
 
-    def _put(self, kind: str, value: Any = None) -> None:
-        self._items.put((kind, value))
+    def _put(self, kind: str, value: Any = None) -> bool:
+        """Queue one item; False once the generator was collected (the
+        caller then frees a store item itself)."""
+        with self._lock:
+            if self._closed:
+                return False
+            self._items.put((kind, value))
+            return True
+
+    def __del__(self):
+        # Store items (a task's stream) not consumed: their segments go.
+        try:
+            with self._lock:
+                self._closed = True
+            from ._tasks import _release
+            while True:
+                kind, value = self._items.get_nowait()
+                if kind == "desc":
+                    _release(value)
+        except Exception:  # noqa: BLE001 - queue.Empty, or teardown
+            pass
 
     def __iter__(self):
         return self
@@ -247,6 +298,10 @@ class ObjectRefGenerator:
         if kind == "err":
             self._done = True
             return _resolved(exc=value, name=self._name)
+        if kind == "desc":
+            # The queue's count on the segment passes to the ref.
+            from ._tasks import _store_ref
+            return _store_ref(value, self._name, owned=True)
         return _resolved(value, name=self._name)
 
     def __repr__(self):
@@ -523,7 +578,7 @@ class ActorClass:
         env = dict(_device_env(opts.get("device")),
                    **{k: str(v) for k, v in
                       (opts.get("env_vars") or {}).items()})
-        with _session.lock:
+        with _session.lock, _spawn_env_lock:
             # The child inherits the environment from its first instruction.
             old = {k: os.environ.get(k) for k in env}
             os.environ.update(env)
@@ -581,15 +636,13 @@ def _device_env(device) -> Dict[str, str]:
 
 
 def remote(*args, **options):
-    """``@remote`` / ``@remote(**options)`` for classes (JAX: ``remote``);
-    a function raises ``NotImplementedError`` (remote tasks are not ported:
-    the port's callers use actors)."""
+    """``@remote`` / ``@remote(**options)`` (JAX: ``remote``): a class
+    becomes an ``ActorClass``, a function a ``_tasks.RemoteFunction``."""
     def wrap(target):
         if isinstance(target, type):
             return ActorClass(target, **options)
-        raise NotImplementedError(
-            "remote functions (tasks) are not ported; wrap the function in "
-            "an actor class")
+        from ._tasks import RemoteFunction
+        return RemoteFunction(target, **options)
     if len(args) == 1 and not options and callable(args[0]):
         return wrap(args[0])
     if args:
@@ -615,15 +668,24 @@ def get(refs, timeout: Optional[float] = None):
         left = None if deadline is None else max(0.0,
                                                  deadline - time.monotonic())
         try:
-            values.append(r._fut.result(timeout=left))
+            value = r._fut.result(timeout=left)
         except cf.TimeoutError:
             raise GetTimeoutError(f"get timed out after {timeout} s "
                                   f"({r._name})") from None
+        if r._store:
+            from ._tasks import _load
+            value = _load(value)
+        values.append(value)
     return values[0] if single else values
 
 
 def put(value: Any) -> ObjectRef:
-    """A ref holding ``value`` (sent by value wherever it is passed)."""
+    """A ref holding ``value``: after ``init()`` (and in a task) sealed in
+    the session's store, so it crosses to tasks as a descriptor; before,
+    a ref sent by value wherever it is passed."""
+    from . import _tasks
+    if _tasks.is_initialized() or _tasks._in_worker is not None:
+        return _tasks.put(value)
     return _resolved(value, name="put")
 
 

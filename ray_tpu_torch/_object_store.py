@@ -130,8 +130,10 @@ class _HostPickler(pickle.Pickler):
     of band by themselves under protocol 5)."""
 
     def reducer_override(self, obj):
-        import torch
-        if isinstance(obj, torch.Tensor):
+        # A process that never imported torch holds no tensor (a task
+        # worker imports it only when its function does).
+        torch = sys.modules.get("torch")
+        if torch is not None and isinstance(obj, torch.Tensor):
             if obj.device.type != "cpu":
                 raise ValueError("a host payload holds a tensor on "
                                  f"{obj.device}")
@@ -174,7 +176,8 @@ def _write(dest: memoryview, meta: bytes, buffers: List[memoryview],
                       np.frombuffer(b, np.uint8))
 
 
-def _read(src: memoryview) -> Any:
+def _read_parts(src: memoryview) -> Tuple[bytes, List[memoryview]]:
+    """(metadata, views of the buffers) of a layout ``_write`` made."""
     n, len_meta = _HEADER.unpack_from(src, 0)
     meta = bytes(src[_HEADER.size:_HEADER.size + len_meta])
     off = _HEADER.size + len_meta
@@ -185,6 +188,11 @@ def _read(src: memoryview) -> Any:
         (nbytes,) = _LEN.unpack_from(src, off - _LEN.size)
         bufs.append(src[off:off + nbytes])
         off += nbytes
+    return meta, bufs
+
+
+def _read(src: memoryview) -> Any:
+    meta, bufs = _read_parts(src)
     return pickle.loads(meta, buffers=bufs)
 
 

@@ -1,12 +1,13 @@
 """Batch iteration and device feeding (counterpart of
 ray_tpu/data/iterator.py).
 
-``iter_batches`` cuts an iterable of numpy-dict blocks (the port has no
-``Dataset`` or streaming executor yet) into batches.  ``device_put_iterator``
-keeps up to ``prefetch`` batches' host-to-card copies in flight while the
-current step runs: each batch goes through pinned host buffers, its copies
-issued ``non_blocking`` on a side stream, and the consumer's stream waits on
-that batch's event before the batch is handed out.
+``iter_batches`` cuts a ``Dataset`` (streamed through its executor, each
+block fetched as it is consumed) or an iterable of blocks into batches.
+``device_put_iterator`` keeps up to ``prefetch`` batches' host-to-card
+copies in flight while the current step runs: each batch goes through
+pinned host buffers, its copies issued ``non_blocking`` on a side stream,
+and the consumer's stream waits on that batch's event before the batch is
+handed out.
 """
 
 from __future__ import annotations
@@ -19,15 +20,18 @@ import numpy as np
 from .block import Block, BlockAccessor
 
 
-def iter_batches(blocks: Iterable[Block], *, batch_size: int = 256,
-                 drop_last: bool = False,
+def iter_batches(ds, *, batch_size: int = 256, drop_last: bool = False,
                  shuffle_seed: Optional[int] = None) -> Iterator[Block]:
-    """Batches of ``batch_size`` rows across block boundaries, in block
-    order; ``shuffle_seed`` permutes each block's rows first."""
+    """Batches of ``batch_size`` rows across block boundaries from ``ds``,
+    a ``Dataset`` or an iterable of blocks; ``shuffle_seed`` permutes each
+    block's rows first."""
     carry: Optional[Block] = None
     rng = (np.random.default_rng(shuffle_seed)
            if shuffle_seed is not None else None)
-    for block in map(_maybe_shuffle(rng), blocks):
+    # A seeded shuffle must consume blocks in plan order to be
+    # reproducible; otherwise first-completed order is fine (and faster).
+    for block in map(_maybe_shuffle(rng),
+                     _blocks_of(ds, force_ordered=rng is not None)):
         if carry is not None and BlockAccessor(carry).num_rows():
             block = BlockAccessor.concat([carry, block])
             carry = None
@@ -41,6 +45,21 @@ def iter_batches(blocks: Iterable[Block], *, batch_size: int = 256,
             carry = acc.slice(start, n)
     if carry is not None and BlockAccessor(carry).num_rows() and not drop_last:
         yield carry
+
+
+def _blocks_of(ds, force_ordered: bool = False) -> Iterable[Block]:
+    """A Dataset's blocks as its executor streams them (unless
+    preserve_order is set, first-completed, so one slow block task never
+    delays the first batch); any other iterable as it is."""
+    from .dataset import Dataset
+    if not isinstance(ds, Dataset):
+        yield from ds
+        return
+    from .context import DataContext
+    from .executor import execute_streaming, fetch
+    ordered = force_ordered or DataContext.get().preserve_order
+    for b in execute_streaming(ds, ordered=ordered):
+        yield fetch(b)
 
 
 def _maybe_shuffle(rng):

@@ -8,8 +8,8 @@ algorithm runs on ``config.resources(device=...)`` (None: the card): in
 one process, or with remote env runners (``num_env_runners > 0``) and
 learner actors (``num_learners > 0``, DDP over a gloo allreduce) as process
 actors (``ray_tpu_torch._actor``); IMPALA/APPO run their async pipeline
-over remote runners.  The parquet and ``Dataset`` inputs of offline RL
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 3(c)).
+over remote runners.  Offline RL reads ``.npz`` shards, parquet shards
+and ``ray_tpu_torch.data.Dataset`` inputs.
 
 Quick start::
 

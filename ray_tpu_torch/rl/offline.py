@@ -1,11 +1,11 @@
 """Offline RL: dataset IO + BC / MARWIL / discrete CQL.
 
-Counterpart of ``ray_tpu/rl/offline.py``.  Datasets are ``.npz`` shards
-(``save_shard``, ``collect_from_env``, ``OfflineData``: numpy, copied).
-The parquet shards and ``Dataset`` inputs the JAX package reads and writes
-through ``ray_tpu.data`` (``offline.py:52-75``, ``:178-200``) raise
-``NotImplementedError``: they wait for the port's data pipeline (ROADMAP
-Queue 1 item 3(c), "data pipeline").
+Counterpart of ``ray_tpu/rl/offline.py``.  Episode data is stored as
+``.npz`` shards (the zero-dependency local format) or as columnar parquet
+shards written and read through ``ray_tpu_torch.data`` (read tasks and the
+streaming executor when a session is up), so offline preprocessing
+composes with the data pipeline's ops; ``OfflineData`` also takes a
+``Dataset``.
 
 Algorithms:
   * BC      — behavior cloning: max log pi(a|s) (discrete cross-entropy /
@@ -34,12 +34,11 @@ from .rl_module import (ContinuousModuleSpec, DiscretePolicyModule,
                         GaussianPolicyModule, QModule, take)
 
 REQUIRED_COLUMNS = ("obs", "actions")
-DATA_PIPELINE = ('ROADMAP Queue 1 item 3(c), "data pipeline" (the port has '
-                 'no Dataset or parquet IO yet; use .npz shards)')
 
 
 def save_shard(path: str, columns: Dict[str, np.ndarray]) -> str:
-    """Write one columnar ``.npz`` shard."""
+    """Write one columnar shard: a ``.npz`` file, or (any other path) a
+    directory of parquet shards written through ray_tpu_torch.data."""
     for c in REQUIRED_COLUMNS:
         if c not in columns:
             raise ValueError(f"offline shard missing column {c!r}")
@@ -52,9 +51,47 @@ def save_shard(path: str, columns: Dict[str, np.ndarray]) -> str:
 
 def save_parquet(path: str, columns: Dict[str, np.ndarray],
                  shards: int = 4) -> str:
-    """Parquet shards through the data pipeline: not ported."""
-    raise NotImplementedError(
-        f"parquet offline data ({path!r}): see {DATA_PIPELINE}")
+    """Write episode columns as parquet shards via the data pipeline
+    (reference: rllib offline writers emitting parquet through Ray Data).
+    Vector columns (obs) become per-dimension scalar columns
+    ``name/<i>``; readers stack them back."""
+    from .. import data as rdata
+    out: Dict[str, np.ndarray] = {}
+    n = len(next(iter(columns.values())))
+    for k, v in columns.items():
+        v = np.asarray(v)
+        if v.ndim == 1:
+            out[k] = v
+        elif v.ndim == 2:
+            for i in range(v.shape[1]):
+                out[f"{k}/{i}"] = v[:, i]
+        else:
+            raise ValueError(
+                f"parquet episode column {k!r} has ndim={v.ndim}; flatten "
+                "to <= 2 dims first")
+        if len(v) != n:
+            raise ValueError(f"column {k!r} length mismatch")
+    ds = rdata.Dataset.from_numpy(out, parallelism=shards)
+    ds.write_parquet(path)
+    return path
+
+
+def _unflatten_columns(cols: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Inverse of save_parquet's vector flattening: stack name/<i>."""
+    out: Dict[str, np.ndarray] = {}
+    grouped: Dict[str, Dict[int, np.ndarray]] = {}
+    for k, v in cols.items():
+        if "/" in k:
+            base, _, idx = k.rpartition("/")
+            try:
+                grouped.setdefault(base, {})[int(idx)] = v
+                continue
+            except ValueError:
+                pass
+        out[k] = v
+    for base, parts in grouped.items():
+        out[base] = np.stack([parts[i] for i in range(len(parts))], axis=1)
+    return out
 
 
 def collect_from_env(env_spec: Any, policy_fn, num_steps: int,
@@ -110,32 +147,63 @@ def collect_from_env(env_spec: Any, policy_fn, num_steps: int,
 
 
 class OfflineData:
-    """Columnar dataset over ``.npz`` shards (a path, a glob or a list of
-    paths); uniform minibatches from a seeded numpy generator."""
+    """Columnar dataset over .npz shards or parquet directories
+    (reference: rllib/offline/offline_data.py — parquet episode data read
+    through the Data library); uniform minibatches from a seeded numpy
+    generator.
+
+    Parquet paths (a directory from ``save_parquet`` / ``write_parquet``,
+    a ``*.parquet`` glob, or a ``ray_tpu_torch.data.Dataset``) stream
+    through the data executor: shard reads run as tasks when a session is
+    up, and batches flow back through ``iter_batches`` — the npz path
+    stays a zero-runtime local loader."""
 
     def __init__(self, paths, seed: int = 0):
-        if isinstance(paths, str):
-            expanded = sorted(glob.glob(paths)) if any(
-                ch in paths for ch in "*?[") else [paths]
-        elif isinstance(paths, (list, tuple)):
-            expanded = list(paths)
+        from ..data import Dataset
+        if isinstance(paths, Dataset):
+            self.columns = self._from_dataset(paths)
         else:
-            raise NotImplementedError(
-                f"offline input {type(paths).__name__}: see "
-                f"{DATA_PIPELINE}")
-        if not expanded:
-            raise ValueError("no offline data shards found")
-        if not all(p.endswith(".npz") for p in expanded):
-            raise NotImplementedError(
-                f"offline input {paths!r} is not .npz: see {DATA_PIPELINE}")
-        parts: Dict[str, List[np.ndarray]] = {}
-        for p in expanded:
-            with np.load(p) as z:
-                for k in z.files:
-                    parts.setdefault(k, []).append(z[k])
-        self.columns = {k: np.concatenate(v) for k, v in parts.items()}
+            if isinstance(paths, str):
+                expanded = sorted(glob.glob(paths)) if any(
+                    ch in paths for ch in "*?[") else [paths]
+            else:
+                expanded = list(paths)
+            if not expanded:
+                raise ValueError("no offline data shards found")
+            if all(p.endswith(".npz") for p in expanded):
+                parts: Dict[str, List[np.ndarray]] = {}
+                for p in expanded:
+                    with np.load(p) as z:
+                        for k in z.files:
+                            parts.setdefault(k, []).append(z[k])
+                self.columns = {k: np.concatenate(v)
+                                for k, v in parts.items()}
+            else:
+                from .. import data as rdata
+                files: List[str] = []
+                for p in expanded:
+                    files.extend(sorted(
+                        glob.glob(os.path.join(p, "*.parquet")))
+                        if os.path.isdir(p) else [p])
+                if not files:
+                    raise ValueError(f"no parquet shards under {paths!r}")
+                self.columns = self._from_dataset(
+                    rdata.read_parquet(files))
         self.size = len(self.columns["obs"])
         self._rng = np.random.default_rng(seed)
+
+    @staticmethod
+    def _from_dataset(ds) -> Dict[str, np.ndarray]:
+        parts: Dict[str, List[np.ndarray]] = {}
+        # Streaming consumption: shard reads execute as data tasks while
+        # earlier batches are already being accumulated here.
+        for batch in ds.iter_batches(batch_size=4096):
+            for k, v in batch.items():
+                parts.setdefault(k, []).append(np.asarray(v))
+        if not parts:
+            raise ValueError("offline dataset is empty")
+        return _unflatten_columns(
+            {k: np.concatenate(v) for k, v in parts.items()})
 
     def sample(self, batch_size: int) -> Dict[str, np.ndarray]:
         idx = self._rng.integers(0, self.size, batch_size)

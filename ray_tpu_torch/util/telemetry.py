@@ -6,12 +6,14 @@ tier and the fleet call, with its metric names).
   subsystem record (``ray_tpu_train_*``, ``ray_tpu_ckpt_*``), those the
   engine, the disagg tier and the fleet record (``ray_tpu_llm_*``,
   ``ray_tpu_serve_*``), the host-sync tripwire's and the recompile
-  detector's (``ray_tpu_jax_host_sync_*``, ``ray_tpu_profiler_*``), and
-  the swallowed-error counter.  ``inc``/``observe``/``set_gauge`` record into
-  this process's registry and never raise (an undeclared name records
-  nothing, as JAX's helpers swallow it).
+  detector's (``ray_tpu_jax_host_sync_*``, ``ray_tpu_profiler_*``), the
+  data executor's (``ray_tpu_data_*``), and the swallowed-error counter.
+  ``inc``/``observe``/``set_gauge`` record into this process's registry
+  and never raise (an undeclared name records nothing, as JAX's helpers
+  swallow it).
 - Worker processes ship ``snapshot()`` to the controller when their train
-  fn ends; the controller keeps them by source (``merge_remote``), and
+  fn ends (a task worker, with each task's result); the controller keeps
+  them by source (``merge_remote``), and
   ``samples``/``emitted_names`` read the merged view, as JAX's scrape
   merges every worker's pushed snapshot.
 - ``profile_span``/``_emit_span`` record finished spans in a bounded
@@ -222,6 +224,15 @@ CATALOG: Dict[str, Dict[str, Any]] = {
     "ray_tpu_internal_swallowed_errors_total": _c(
         ("where",), "Control-plane exceptions intentionally swallowed "
                     "(best-effort paths), by call site."),
+    # -- data (the streaming executor; recorded in the task workers) ------
+    "ray_tpu_data_block_seconds": _h(
+        ("operator",), "Per-block processing time in the streaming "
+                       "executor (operator=map|reduce).",
+        _LATENCY_BUCKETS),
+    "ray_tpu_data_rows_total": _c(
+        ("operator",), "Rows produced by data-pipeline operators."),
+    "ray_tpu_data_blocks_total": _c(
+        ("operator",), "Blocks processed by data-pipeline operators."),
 }
 
 _lock = threading.Lock()

@@ -151,8 +151,10 @@ def test_by_reference_rule():
 
     with pytest.raises(ValueError, match="top level of a module"):
         A.remote(Local).remote()
-    with pytest.raises(NotImplementedError, match="remote functions"):
-        A.remote(local_fn)
+    # A function becomes a task (ray_tpu_torch._tasks); a nested one is
+    # refused at .remote() by the same rule, before any session is asked.
+    with pytest.raises(ValueError, match="lambdas and nested functions"):
+        A.remote(local_fn).remote()
     with pytest.raises(ValueError, match="unknown actor options"):
         A.remote(Counter).options(num_replicas=2)
 

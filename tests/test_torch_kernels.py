@@ -951,3 +951,35 @@ def test_rl_host_syncs(cuda):
     gen = torch.Generator(device="cuda").manual_seed(0)
     _traj, syncs = cs._rl_syncs(lambda: vec.rollout(None, policy, 16, gen))
     assert syncs == 0
+
+
+def test_llama_fed_from_a_dataset_equals_from_memory(cuda, tmp_path):
+    """Two steps of llama_tiny (bf16, full remat, the flash kernels) fed
+    from a Dataset: raw token shards through read tasks, rows, the
+    two-stage shuffle over the port's task workers, ``iter_batches`` and
+    ``device_put_iterator``; the same losses, bit for bit, as the same
+    host batches placed from memory (``chip_smoke.fed_vs_memory``, the
+    helper of the ``data_train`` phase)."""
+    import pathlib
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)      # task workers import chip_smoke
+    import chip_smoke as cs
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.models.llama import llama_tiny
+    cfg = llama_tiny().replace(dtype=torch.bfloat16, remat=True,
+                               attention_impl="flash")
+    row = cfg.max_seq_len + 1
+    cs.write_token_corpus(str(tmp_path), 2, 16, row, cfg.vocab_size, 1)
+    rtt.init(num_cpus=2)
+    try:
+        res = cs.fed_vs_memory(cfg, cs.token_pipeline(str(tmp_path), row),
+                               4, 2, 1e-3)
+    finally:
+        rtt.shutdown()
+    assert res["losses_fed"] == res["losses_memory"]
+    assert all(math.isfinite(x) for x in res["losses_fed"])
+    assert res["launches"]["flash_fwd"] == 2 * 2 * cfg.layers
+    assert res["launches"]["flash_bwd_dq"] == 2 * cfg.layers
+    assert res["launches"]["flash_bwd_dkv"] == 2 * cfg.layers

@@ -315,16 +315,41 @@ def test_offline_training_step(guess_data, name):
         [j.compute_single_action(o) for o in obs]
 
 
-def test_offline_refuses_parquet_and_datasets(tmp_path, guess_data):
-    cols = {"obs": np.zeros((4, 2), np.float32), "actions": np.zeros(4)}
-    with pytest.raises(NotImplementedError, match=r"3\(c\)"):
-        trl.save_shard(str(tmp_path / "episodes"), cols)
-    with pytest.raises(NotImplementedError, match=r"3\(c\)"):
-        trl.save_parquet(str(tmp_path / "episodes"), cols)
-    with pytest.raises(NotImplementedError, match=r"3\(c\)"):
-        trl.OfflineData(str(tmp_path / "episodes"))
-    with pytest.raises(NotImplementedError, match=r"3\(c\)"):
-        trl.OfflineData(object())
+def test_offline_refuses_parquet_and_datasets(tmp_path):
+    """What ``OfflineData`` still refuses, with the same errors in both
+    packages: a directory that holds no parquet shards, a glob that
+    matches nothing, and a ``Dataset`` without rows."""
+    import ray_tpu.data as jdata
+    from ray_tpu_torch import data as tdata
+    (tmp_path / "empty").mkdir()
+    for rl, data in ((jrl, jdata), (trl, tdata)):
+        for src, msg in (
+                (str(tmp_path / "empty"), "no parquet shards under"),
+                (str(tmp_path / "nothing*"), "no offline data shards found"),
+                (data.from_numpy({"obs": np.zeros((0, 2), np.float32),
+                                  "actions": np.zeros(0)}),
+                 "offline dataset is empty")):
+            with pytest.raises(ValueError, match=msg):
+                rl.OfflineData(src)
+
+
+def test_offline_reads_parquet_and_datasets(tmp_path, guess_data):
+    """Parquet shards and ``Dataset`` inputs read back what was written,
+    as JAX's do."""
+    from ray_tpu_torch import data as tdata
+    cols = {"obs": np.arange(8, dtype=np.float32).reshape(4, 2),
+            "actions": np.arange(4)}
+    trl.save_shard(str(tmp_path / "episodes"), cols)
+    trl.save_parquet(str(tmp_path / "more"), cols)
+    for src in (str(tmp_path / "episodes"), str(tmp_path / "more"),
+                tdata.from_numpy(cols, parallelism=2)):
+        got = trl.OfflineData(src).columns
+        assert sorted(got) == ["actions", "obs"]
+        np.testing.assert_array_equal(got["obs"], cols["obs"])
+        np.testing.assert_array_equal(got["actions"], cols["actions"])
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(ValueError, match="no parquet shards"):
+        trl.OfflineData(str(tmp_path / "empty"))
     assert trl.OfflineData([guess_data, guess_data]).size == 1200
 
 
