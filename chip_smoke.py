@@ -56,7 +56,14 @@ beside the same graph interpreted, and an allreduce node over two more
 actors against numpy (``dag_disagg``); the host-sync tripwire over
 ``serve``'s mix and a PPO iteration, with a planted per-token ``.item()``
 (``sync_tripwire``); kernel first launches per tracked site and a
-recompile at a new batch size (``recompile``).
+recompile at a new batch size (``recompile``).  The scheduler tier: the
+card booked as ``GPU`` by tasks with ``num_tpus=1`` (one after the other,
+each pinned to the card and launching the flash forward at the serving
+shape against its plain version), a placement group holding the card
+while a task outside it waits, an infeasible ask, a nested task
+(``sched_cards``); ``Tuner.fit`` over the 4-layer 1.36B step on the card,
+4 trials under ASHA, two at a time, the lowest learning rate's losses
+against the same steps bare here, bit for bit (``tune``).
 The kernels' launch counts, set to 0 just before each path and
 read just after, show that every path ran through them.  Each phase prints one JSON line; any failed
 check raises and the script exits non-zero.  The last line is
@@ -2949,10 +2956,11 @@ TRAINER_DIE_AT = 3
 TRAINER_SEED = 17
 
 
-def _trainer_batches(vocab: int, start: int):
-    for step in range(start, TRAINER_STEPS):
+def _trainer_batches(vocab: int, start: int, batch: int = CKPT_BATCH,
+                     steps: int = TRAINER_STEPS):
+    for step in range(start, steps):
         rng = np.random.default_rng(TRAINER_SEED + step)
-        yield {"tokens": rng.integers(0, vocab, (CKPT_BATCH, TRAIN_SEQ),
+        yield {"tokens": rng.integers(0, vocab, (batch, TRAIN_SEQ),
                                       dtype=np.int32)}
 
 
@@ -3123,6 +3131,309 @@ def phase_trainer(smi):
     check(committed and not problems, f"trainer checkpoint {problems}")
     check(all(v <= 1e-6 for v in differ.values()),
           f"trainer losses differ from the bare run: {differ}")
+    return {k: launches.get(k, 0) for k in ("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv")}
+
+
+# sched_cards: the card as the scheduler's GPU.  Each card task launches
+# the flash forward at the serving shape (B1 H16 Hkv8 S256 D128, bf16)
+# in a task worker pinned to its granted card.
+SCHED_SHAPE = dict(B=1, H=16, Hkv=8, S=256, D=128)
+
+
+def sched_card_task(seed: int):
+    """A task holding one card: what it sees, and the flash forward held
+    against its plain version (module level: the worker imports it)."""
+    t_run = time.time()
+    import torch
+    from ray_tpu_torch.ops.attention import flash_fwd, reference_attention
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    count = torch.cuda.device_count()
+    if count != 1:
+        raise RuntimeError(f"a one-card task sees {count} cards "
+                           f"(CUDA_VISIBLE_DEVICES={visible!r})")
+    sh = SCHED_SHAPE
+    q, k, v = _flash_inputs(sh["B"], sh["H"], sh["Hkv"], sh["S"], sh["S"],
+                            sh["D"], torch.bfloat16, seed)
+    flash_fwd.launches = 0
+    out, _ = flash_fwd(q, k, v, causal=True)
+    launches = flash_fwd.launches
+    ref = reference_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    return {"run": t_run, "end": time.time(), "visible": visible,
+            "device_count": count, "launches": launches,
+            "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+            "pid": os.getpid()}
+
+
+def sched_double(x):
+    return x * 2
+
+
+def sched_outer():
+    import ray_tpu_torch as rtt
+    return rtt.get(rtt.remote(sched_double).remote(100)) + 1
+
+
+def _smi_cards() -> int:
+    import subprocess
+    out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                         text=True, timeout=60)
+    return sum(1 for line in out.stdout.splitlines()
+               if line.startswith("GPU "))
+
+
+def phase_sched_cards(smi):
+    """Tasks booking the card through the scheduler tier (see
+    ``SCHED_SHAPE``): the count against ``nvidia-smi``, two card tasks
+    serialised on one card, a placement group holding it, an infeasible
+    two-card ask, a nested task, and every resource back at the end."""
+    import ray_tpu_torch as rtt
+    t0 = time.perf_counter()
+    tol = TOL["bfloat16"]
+    session = rtt.init(num_cpus=4)
+    sched = session.node.scheduler
+    try:
+        cards = _smi_cards()
+        total = rtt.cluster_resources()
+        check(total.get("GPU") == cards,
+              f"the node advertises {total.get('GPU')} cards, nvidia-smi "
+              f"lists {cards}")
+        card_task = rtt.remote(num_tpus=1)(sched_card_task)
+        t_submit = time.time()
+        a, b = card_task.remote(1), card_task.remote(2)
+        ra, rb = rtt.get([a, b], timeout=600)
+        first, second = sorted((ra, rb), key=lambda r: r["run"])
+        check(first["end"] <= second["run"],
+              f"two one-card tasks overlapped: {ra} {rb}")
+        placed = {}
+        for rec in sched.ring.snapshot(limit=10_000):
+            if rec["name"] == "sched_card_task" and rec["kind"] in (
+                    "inline", "loop"):
+                placed.setdefault(rec["task_id"], rec["time"])
+        book_to_run = [r["run"] - t for r, t in zip(
+            (first, second), sorted(placed.values()))]
+        # A placement group holds the card: a task inside runs, one
+        # outside waits until the group is removed.
+        pg = rtt.placement_group([{"GPU": 1}])
+        check(pg.ready(timeout=60), "the card's placement group")
+        inside = rtt.get(rtt.remote(
+            num_cpus=0, num_tpus=1, placement_group=pg,
+            placement_group_bundle_index=0)(sched_card_task).remote(3),
+            timeout=600)
+        outside = card_task.remote(4)
+        time.sleep(2.0)
+        waited = not outside._fut.done()
+        rtt.remove_placement_group(pg)
+        after_pg = rtt.get(outside, timeout=600)
+        check(waited, "a one-card task ran while a placement group held "
+                      "the card")
+        # Two cards asked of one: parked as infeasible, never run.
+        infeasible = rtt.remote(num_tpus=cards + 1)(sched_card_task).remote(5)
+        deadline = time.monotonic() + 30
+        while sched.queue_depths()["infeasible"] < 1 and \
+                time.monotonic() < deadline:
+            time.sleep(0.02)
+        parked = sched.queue_depths()["infeasible"]
+        check(parked >= 1 and not infeasible._fut.done(),
+              "a two-card ask on one card was not parked as infeasible")
+        nested = rtt.get(rtt.remote(sched_outer).remote(), timeout=120)
+        check(nested == 201, f"nested task gave {nested}")
+        runs = [first, second, inside, after_pg]
+        avail = rtt.available_resources()
+        res = {"phase": "sched_cards", "card": smi, "cards": cards,
+               "cluster_resources": {k: v for k, v in total.items()
+                                     if k != "memory"},
+               "shape": SCHED_SHAPE, "dtype": "bfloat16", "tol": tol,
+               "start_s": [r["run"] - t_submit for r in (first, second)],
+               "booking_to_run_ms": [1e3 * x for x in book_to_run],
+               "visible": [r["visible"] for r in runs],
+               "max_abs_err": max(r["max_abs_err"] for r in runs),
+               "pids": [r["pid"] for r in runs],
+               "waited_for_pg": waited, "infeasible_parked": parked,
+               "nested": nested,
+               "decisions": sched.ring.stats()["counts"],
+               "available_after": {k: v for k, v in avail.items()
+                                   if k != "memory"},
+               "launches": {"flash_fwd": sum(r["launches"] for r in runs)},
+               "seconds": time.perf_counter() - t0}
+        emit(res)
+        check(all(r["device_count"] == 1 for r in runs),
+              f"card tasks' device counts {res}")
+        check(res["max_abs_err"] <= tol, f"flash forward in a card task "
+                                         f"{res['max_abs_err']} > {tol}")
+        check(all(r["launches"] == 1 for r in runs),
+              f"card tasks' flash launches {res['launches']}")
+        check(avail.get("GPU") == total.get("GPU")
+              and avail.get("CPU") == total.get("CPU"),
+              f"resources not back after the phase: {avail}")
+    finally:
+        rtt.shutdown()
+    return res["launches"]
+
+
+# tune: Tuner.fit over the trainer phase's 4-layer 1.36B step on the card.
+TUNE_TRIALS = 4
+TUNE_STEPS = 6
+TUNE_BATCH = 2
+
+
+def tune_trial(config):
+    """One trial: the 4-layer 1.36B step (bf16, full remat, flash) from the
+    seeded init, on the trainer phase's batches at ``TUNE_BATCH``; each
+    step reported, its kernels' launches in the last report (module level:
+    the trial worker imports it)."""
+    import torch
+    import ray_tpu_torch.tune as tune
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.parallel import build_mesh, make_lm_train_step
+    t_start = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _reset_launches()
+    cfg = LlamaConfig(**CKPT_CFG, dtype=torch.bfloat16, remat=True,
+                      attention_impl="flash")
+    init_fn, step_fn, place = make_lm_train_step(
+        cfg, build_mesh(), learning_rate=config["lr"],
+        param_dtype=torch.bfloat16)
+    params, opt, _ = _trainer_state(init_fn, None)
+    for step, b in enumerate(_trainer_batches(cfg.vocab_size, 0,
+                                              TUNE_BATCH, TUNE_STEPS)):
+        b = place(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, b)
+        loss = m["loss"].item()
+        tune.report({"loss": loss, "step": step + 1,
+                     "step_ms": (time.perf_counter() - t0) * 1e3,
+                     "start": t_start, "wall": time.time(),
+                     "launches": _read_launches()})
+    return {"loss": loss}
+
+
+class _RecordingASHA:
+    """An ``ASHAScheduler`` that keeps every (trial, step, value, decision)
+    the tuner asked it for, in the tuner's order."""
+
+    def __init__(self, **kw):
+        from ray_tpu_torch.tune import ASHAScheduler
+        self.kw = kw
+        self.asha = ASHAScheduler(**kw)
+        self.calls = []
+
+    def on_result(self, trial_id, step, value):
+        decision = self.asha.on_result(trial_id, step, value)
+        self.calls.append((trial_id, step, value, decision))
+        return decision
+
+    def replayed(self):
+        """The decisions a fresh ASHA gives the same reports in order."""
+        from ray_tpu_torch.tune import ASHAScheduler
+        asha = ASHAScheduler(**self.kw)
+        return [asha.on_result(t, s, v) for t, s, v, _d in self.calls]
+
+
+def phase_tune(smi):
+    """``Tuner.fit`` on the card: ``TUNE_TRIALS`` trials drawing ``lr``
+    from ``loguniform(1e-5, 1e-3)`` (seed 0), ASHA (max_t 6, grace 2,
+    reduction 2), two trials at a time sharing the card.  Every trial
+    reports; ASHA's decisions are its rule over the reports in the order
+    the tuner read them (replayed), and a trial stopped early had a stop;
+    the best result is the lowest last loss; the lowest ``lr``'s losses
+    equal the same steps run bare in this process, bit for bit.  Whether
+    ASHA stops a trial at all depends on that order (see PERF.md §6)."""
+    import torch
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.parallel import build_mesh, make_lm_train_step
+    from ray_tpu_torch.tune.search import generate_variants
+    space = {"lr": tune.loguniform(1e-5, 1e-3)}
+    lr_min = min(v["lr"] for v in generate_variants(space, TUNE_TRIALS, 0))
+    cfg = LlamaConfig(**CKPT_CFG, dtype=torch.bfloat16, remat=True,
+                      attention_impl="flash")
+    init_fn, step_fn, place = make_lm_train_step(
+        cfg, build_mesh(), learning_rate=lr_min, param_dtype=torch.bfloat16)
+    params, opt, _ = _trainer_state(init_fn, None)
+    bare_loss, bare_ms = [], []
+    for b in _trainer_batches(cfg.vocab_size, 0, TUNE_BATCH, TUNE_STEPS):
+        b = place(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, b)
+        bare_loss.append(m["loss"].item())
+        bare_ms.append((time.perf_counter() - t0) * 1e3)
+    del params, opt, m, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    asha = _RecordingASHA(metric="loss", mode="min", max_t=TUNE_STEPS,
+                          grace_period=2, reduction_factor=2)
+    rtt.init(num_cpus=2)
+    try:
+        t0 = time.time()
+        grid = tune.Tuner(
+            tune_trial, param_space=space,
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", num_samples=TUNE_TRIALS,
+                max_concurrent_trials=2, seed=0, scheduler=asha)).fit()
+        wall = time.time() - t0
+    finally:
+        rtt.shutdown()
+    trials = list(grid)
+    launches = {}
+    for r in trials:
+        for k, n in (r.history[-1]["launches"] if r.history else {}).items():
+            launches[k] = launches.get(k, 0) + n
+    low = min(trials, key=lambda r: r.config["lr"])
+    got = [h["loss"] for h in low.history]
+    best = grid.get_best_result()
+    res = {"phase": "tune", "card": smi,
+           "config": "bench.py:3384-3390 width, 4 layers",
+           "batch": [TUNE_BATCH, TRAIN_SEQ], "trials": TUNE_TRIALS,
+           "max_concurrent_trials": 2,
+           "asha": {"max_t": TUNE_STEPS, "grace_period": 2,
+                    "reduction_factor": 2},
+           "trials_wall_s": wall,
+           "first_report_s": min(h["wall"] for r in trials
+                                 for h in r.history[:1]) - t0,
+           "trial_rows": [{"lr": r.config["lr"], "steps": len(r.history),
+                           "stopped_early": r.stopped_early,
+                           "error": r.error,
+                           "last_loss": r.metrics.get("loss"),
+                           "losses": [h["loss"] for h in r.history],
+                           "step_ms": [h["step_ms"] for h in r.history]}
+                          for r in trials],
+           "step_ms_bare": bare_ms, "loss_bare": bare_loss,
+           # Medians past each run's first step (its warm-up).
+           "step_ms_median_trial": float(np.median(
+               [ms for r in trials for ms in
+                [h["step_ms"] for h in r.history][1:]])),
+           "step_ms_median_bare": float(np.median(bare_ms[1:])),
+           "loss_lowest_lr": got, "best_lr": best.config["lr"],
+           "asha_stops": [[c[1], c[2]] for c in asha.calls
+                          if c[3] == "STOP"],
+           "stopped_early": sum(r.stopped_early for r in trials),
+           "launches": launches}
+    emit(res)
+    check(len(trials) == TUNE_TRIALS and all(
+        r.error is None and r.history for r in trials),
+        f"not every trial reported: {res['trial_rows']}")
+    check(len(asha.calls) == sum(len(r.history) for r in trials),
+          "the tuner did not hand ASHA every report")
+    check(asha.replayed() == [c[3] for c in asha.calls],
+          "ASHA's decisions differ from its rule replayed in order")
+    stopped = {c[0] for c in asha.calls if c[3] == "STOP"}
+    check(all(trial.trial_id in stopped for trial in trials
+              if trial.stopped_early),
+          "a trial stopped early without a stop from ASHA")
+    check(best.metrics["loss"] == min(r.metrics["loss"] for r in trials),
+          "get_best_result is not the lowest last loss")
+    check(got == bare_loss[:len(got)],
+          f"the lowest lr's losses {got} differ from the bare run "
+          f"{bare_loss}")
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches.get(k, 0) > 0, f"{k} never launched in a trial")
     return {k: launches.get(k, 0) for k in ("flash_fwd", "flash_bwd_dq",
                                             "flash_bwd_dkv")}
 
@@ -5676,6 +5987,9 @@ def main() -> int:
     paths["checkpoint"] = phase_checkpoint(smi)
     torch.cuda.empty_cache()
     paths["trainer"] = phase_trainer(smi)
+    torch.cuda.empty_cache()
+    paths["sched_cards"] = phase_sched_cards(smi)
+    paths["tune"] = phase_tune(smi)
     torch.cuda.empty_cache()
     paths["ring_local"] = phase_ring_local(smi)
     torch.cuda.empty_cache()

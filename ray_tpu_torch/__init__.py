@@ -32,7 +32,12 @@ RT5xx lint rules; ``profiler``: cluster captures with ``torch.profiler``
 and the kernel-build/first-launch counts of ``recompile``), and tasks and
 the data library (``init``/``remote`` on a function: a pool of spawned
 workers with values in shared memory, ``_tasks``; ``data``: ``Dataset``
-with its streaming executor over those tasks).
+with its streaming executor over those tasks), and the scheduler tier
+and tune (``_scheduler``: the host as one node of JAX's
+``ClusterScheduler``, the card as ``GPU``, placement groups, nested
+tasks, runtime envs, isolation, the OOM monitor; ``accelerators``,
+``schedview``, ``util.gpu``; ``train``'s bookings and elastic resizes;
+``tune``: ``Tuner`` over tasks, its schedulers and searchers).
 
 Importing this package (or ``ray_tpu_torch.data``) does not import torch:
 a task worker imports it only where its function's module does.
@@ -41,10 +46,15 @@ a task worker imports it only where its function's module does.
 import os as _os
 
 from ._actor import (ActorError, GetTimeoutError, ObjectRef,  # noqa: E402
-                     ObjectRefGenerator, RayTpuError, TaskError, get, kill,
-                     put, remote, wait)
-from ._tasks import (RemoteFunction, WorkerCrashedError, init,  # noqa: E402
+                     ObjectRefGenerator, RayTpuError, TaskError, get,
+                     get_actor, kill, put, remote, wait)
+from ._tasks import (OutOfMemoryError, RemoteFunction,  # noqa: E402
+                     RuntimeEnvSetupError, WorkerCrashedError, init,
                      is_initialized)
+from ._scheduler import (NodeAffinitySchedulingStrategy,  # noqa: E402
+                         PlacementGroup, PlacementGroupSchedulingStrategy,
+                         available_resources, cluster_resources, nodes,
+                         placement_group, remove_placement_group)
 
 # Opt-in implicit host-sync tripwire (devtools/syncdebug.py): patches
 # torch.Tensor's host coercions so every implicit sync of a CUDA tensor
@@ -65,6 +75,10 @@ def shutdown() -> None:
 
 
 __all__ = ["init", "shutdown", "is_initialized", "remote", "get", "put",
-           "wait", "kill", "ObjectRef", "ObjectRefGenerator",
+           "wait", "kill", "get_actor", "ObjectRef", "ObjectRefGenerator",
            "RemoteFunction", "RayTpuError", "TaskError", "ActorError",
-           "WorkerCrashedError", "GetTimeoutError"]
+           "WorkerCrashedError", "OutOfMemoryError", "RuntimeEnvSetupError",
+           "GetTimeoutError", "cluster_resources", "available_resources",
+           "nodes", "placement_group", "remove_placement_group",
+           "PlacementGroup", "PlacementGroupSchedulingStrategy",
+           "NodeAffinitySchedulingStrategy"]

@@ -55,14 +55,23 @@ Options: ``max_concurrency`` (threads taking calls, default 1),
 ``"cuda:<i>"`` makes card ``i`` (of the caller's) the actor's only visible
 card, its ``"cuda"`` in every thread (CUDA's current device is a
 per-thread setting, so ``set_device`` would not reach the threads that run
-the calls); ``"cpu"`` hides the cards; None leaves the caller's.  There is
-no scheduler: nothing is reserved.
+the calls); ``"cpu"`` hides the cards; None leaves the caller's.
+``name``/``namespace`` register the actor for ``get_actor`` (and
+``get_if_exists`` returns the registered one).
+
+With ``init()``'s session up, an actor is booked through the session's
+scheduler as JAX's are (``num_cpus``, default 0; ``num_tpus``, its cards;
+``memory``; ``resources``; ``placement_group``; ``scheduling_strategy``;
+``runtime_env``): its process starts once it is placed, pinned to its
+granted cards, and the booking goes back when the process exits.  Without
+a session nothing is reserved, and those options raise.
 """
 
 from __future__ import annotations
 
 import atexit
 import concurrent.futures as cf
+import contextlib
 import itertools
 import os
 import pickle
@@ -76,8 +85,13 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 #: Seconds a caller waits for a new actor to publish its address (a spawned
 #: interpreter imports torch and the actor's module first).
 CONNECT_TIMEOUT_S = 300.0
-_KNOWN_OPTIONS = frozenset(("max_concurrency", "device", "num_cpus",
-                            "env_vars"))
+_KNOWN_OPTIONS = frozenset((
+    "max_concurrency", "device", "num_cpus", "env_vars", "name", "namespace",
+    "get_if_exists", "num_tpus", "resources", "memory", "placement_group",
+    "placement_group_bundle_index", "scheduling_strategy", "runtime_env"))
+#: The options that need the scheduler (``init()``'s session).
+_SCHEDULED_OPTIONS = ("num_tpus", "resources", "memory", "placement_group",
+                      "scheduling_strategy", "runtime_env")
 #: The method name that runs ``fn(instance, *args)`` (``__ray_call__``).
 _RAY_CALL = "__ray_call__"
 
@@ -563,6 +577,13 @@ class ActorClass:
                 "an actor cannot start actors: actors are daemon processes, "
                 "which have no children; start them from the main process")
         opts = dict(self._options)
+        name = opts.get("name")
+        namespace = opts.get("namespace") or "default"
+        if name and opts.get("get_if_exists"):
+            try:
+                return get_actor(name, namespace)
+            except ValueError:
+                pass
         module, qualname = _class_ref(self._cls)
         args, kwargs = _resolve_args(args, kwargs)
         init = _dumps((args, kwargs),
@@ -574,28 +595,130 @@ class ActorClass:
                 "parent": os.getpid(),
                 "options": {k: v for k, v in opts.items()
                             if k != "env_vars"}}
-        import torch.multiprocessing as mp
         env = dict(_device_env(opts.get("device")),
                    **{k: str(v) for k, v in
                       (opts.get("env_vars") or {}).items()})
-        with _session.lock, _spawn_env_lock:
-            # The child inherits the environment from its first instruction.
-            old = {k: os.environ.get(k) for k in env}
-            os.environ.update(env)
-            try:
-                proc = mp.get_context("spawn").Process(
-                    target=_actor_main, args=(spec,), daemon=True,
-                    name=f"actor-{qualname}")
-                proc.start()
-            finally:
-                for k, v in old.items():
-                    if v is None:
-                        os.environ.pop(k, None)
-                    else:
-                        os.environ[k] = v
-            _session.procs[actor_id] = proc
-        return ActorHandle(actor_id, self._cls.__name__,
-                           int(opts.get("max_concurrency") or 1))
+        max_conc = int(opts.get("max_concurrency") or 1)
+        if name:
+            plane.kv_put(_name_key(namespace, name),
+                         f"{actor_id}:{self._cls.__name__}:{max_conc}"
+                         .encode())
+        from . import _tasks
+        session = _tasks._session
+        if session is None:
+            given = [k for k in _SCHEDULED_OPTIONS if opts.get(k)]
+            if given:
+                raise RayTpuError(
+                    f"actor options {given} book through the scheduler: "
+                    "call ray_tpu_torch.init() first")
+            _spawn_actor(actor_id, qualname, spec, env)
+        else:
+            _schedule_actor(session.node, actor_id, qualname, spec, env,
+                            opts)
+        return ActorHandle(actor_id, self._cls.__name__, max_conc)
+
+
+@contextlib.contextmanager
+def _child_environment(env: Dict[str, str]):
+    """``env`` in force while a child process spawns (a spawned
+    interpreter inherits the environment from its first instruction), and
+    a pip runtime env's interpreter (``RAY_TPU_PYTHON``) as the one it
+    runs.  Actors and task workers spawn under it."""
+    from multiprocessing import spawn
+    with _spawn_env_lock:
+        old = {k: os.environ.get(k) for k in env}
+        old_exe = spawn.get_executable()
+        os.environ.update(env)
+        if env.get("RAY_TPU_PYTHON"):
+            spawn.set_executable(env["RAY_TPU_PYTHON"])
+        try:
+            yield
+        finally:
+            spawn.set_executable(old_exe)
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+
+def _spawn_actor(actor_id: str, qualname: str, spec: Dict[str, Any],
+                 env: Dict[str, str]):
+    import torch.multiprocessing as mp
+    with _session.lock, _child_environment(env):
+        proc = mp.get_context("spawn").Process(
+            target=_actor_main, args=(spec,), daemon=True,
+            name=f"actor-{qualname}")
+        proc.start()
+        _session.procs[actor_id] = proc
+    return proc
+
+
+#: Actors killed before their placement came (their process never starts).
+_killed_pending: set = set()
+
+
+def _schedule_actor(node, actor_id: str, qualname: str,
+                    spec: Dict[str, Any], env: Dict[str, str],
+                    opts: Dict[str, Any]) -> None:
+    """Book the actor (JAX: its creation task) and start its process once
+    placed; the booking and its cards go back when the process exits."""
+    from . import _runtime_env, _scheduler
+    from ._resources import task_resources
+    strategy, pg, bundle = _scheduler.normalize_strategy(opts)
+    rt_env = _runtime_env.prepare_runtime_env(opts.get("runtime_env"))
+    resources = task_resources(opts.get("num_cpus"), opts.get("num_tpus"),
+                               opts.get("memory"), opts.get("resources"),
+                               default_num_cpus=0.0)
+    tspec = node.new_spec(f"{qualname}.__init__", resources,
+                          strategy=strategy, pg=pg, bundle=bundle,
+                          runtime_env=rt_env)
+
+    def placed(_spec, _node_id) -> None:
+        cards = node.take_cards(tspec)
+        if actor_id in _killed_pending:
+            node.give_back(tspec, cards)
+            return
+        full = dict(env)
+        full.update({k: str(v) for k, v in
+                     ((rt_env or {}).get("env_vars") or {}).items()})
+        full.update(node.card_env(cards))
+        try:
+            full.update(_runtime_env.node_setup_env_vars(rt_env))
+            proc = _spawn_actor(actor_id, qualname, spec, full)
+        except BaseException:
+            node.give_back(tspec, cards)
+            raise
+
+        def watch() -> None:
+            proc.join()
+            node.give_back(tspec, cards)
+
+        threading.Thread(target=watch, daemon=True,
+                         name=f"actor-booking-{actor_id[:8]}").start()
+
+    def failed(exc: BaseException) -> None:
+        _plane().kv_put(f"actor/{actor_id}/error",
+                        f"{type(exc).__name__}: {exc}".encode())
+
+    node.submit(tspec, placed, failed)
+
+
+def _name_key(namespace: str, name: str) -> str:
+    return f"actor/name/{namespace}/{name}"
+
+
+def get_actor(name: str, namespace: Optional[str] = None) -> ActorHandle:
+    """The actor registered under ``name`` (JAX: ``ray_tpu.get_actor``);
+    ValueError when there is none or it has died."""
+    raw = _plane().kv_get(_name_key(namespace or "default", name))
+    if raw is None:
+        raise ValueError(f"no actor named {name!r}")
+    actor_id, cls_name, max_conc = raw.decode().split(":")
+    handle = ActorHandle(actor_id, cls_name, int(max_conc))
+    if is_dead(handle):
+        raise ValueError(f"no actor named {name!r} (it has died)")
+    return handle
 
 
 def side_call(actor: ActorHandle, fn, *args, **kwargs) -> ObjectRef:
@@ -706,8 +829,14 @@ def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
         left = None if deadline is None else deadline - time.monotonic()
         if left is not None and left <= 0:
             break
-        cf.wait([r._fut for r in refs if not r._fut.done()], timeout=left,
-                return_when=cf.FIRST_COMPLETED)
+        futs = [r._fut for r in refs if not r._fut.done()]
+        if any(hasattr(f, "_link") for f in futs):
+            # A nested task's refs in a task worker: their futures are
+            # settled by asking the driver (``done`` polls), not by a
+            # thread of this process.
+            time.sleep(0.01 if left is None else min(0.01, left))
+            continue
+        cf.wait(futs, timeout=left, return_when=cf.FIRST_COMPLETED)
     ready = done[:num_returns]
     ids = {id(r) for r in ready}
     return ready, [r for r in refs if id(r) not in ids]
@@ -717,6 +846,7 @@ def kill(actor: ActorHandle, *, no_restart: bool = True) -> None:
     """Kill the actor's process; its calls in flight, and every later
     one, fail with ``ActorError``."""
     import signal
+    _killed_pending.add(actor._actor_id)
     proc = _started_proc(actor._actor_id)
     if proc is not None:
         if proc.is_alive():
@@ -873,9 +1003,11 @@ def _actor_main(spec: Dict[str, Any]) -> None:
     import torch
 
     from ._control import ControlPlane, set_current
+    from ._tasks import _boot_worker_env
     actor_id = spec["actor_id"]
     plane = ControlPlane.connect(spec["host"], spec["port"])
     set_current(plane)
+    _boot_worker_env()
     opts = spec["options"]
     _in_actor = {"plane": plane, "options": opts}
     threading.Thread(target=_watch_parent, args=(spec["parent"],),

@@ -1,0 +1,115 @@
+"""The typed flags the scheduler tier reads (a copy of the part of
+``ray_tpu/_private/config.py`` that ``_scheduler``, ``_cgroup`` and
+``_memory_monitor`` call, with the same names, defaults and precedence):
+
+    ``Config.initialize(overrides)``  >  env ``RAY_TPU_<NAME>``  >  default.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+ENV_PREFIX = "RAY_TPU_"
+
+
+def _parse_bool(s: str) -> bool:
+    return s.strip().lower() in ("1", "true", "yes", "on")
+
+
+_PARSERS: Dict[type, Callable[[str], Any]] = {
+    bool: _parse_bool,
+    int: lambda s: int(s, 0),
+    float: float,
+    str: str,
+}
+
+
+@dataclass
+class _Flag:
+    name: str
+    type: type
+    default: Any
+    doc: str
+
+
+class Config:
+    """Process-wide typed flag registry with env overrides."""
+
+    _flags: Dict[str, _Flag] = {}
+    _values: Dict[str, Any] = {}
+    _lock = threading.Lock()
+    _initialized = False
+
+    @classmethod
+    def define(cls, name: str, type_: type, default: Any,
+               doc: str = "") -> None:
+        cls._flags[name] = _Flag(name, type_, default, doc)
+
+    @classmethod
+    def initialize(cls, overrides: Optional[Dict[str, Any]] = None) -> None:
+        """Resolve all flags (idempotent refresh allowed)."""
+        with cls._lock:
+            values: Dict[str, Any] = {}
+            for name, flag in cls._flags.items():
+                val = flag.default
+                env_val = os.environ.get(ENV_PREFIX + name.upper())
+                if env_val is not None:
+                    val = _PARSERS[flag.type](env_val)
+                if overrides and name in overrides:
+                    val = overrides[name]
+                if val is not None and not isinstance(val, flag.type):
+                    val = flag.type(val)
+                values[name] = val
+            cls._values = values
+            cls._initialized = True
+
+    @classmethod
+    def get(cls, name: str) -> Any:
+        if not cls._initialized:
+            cls.initialize()
+        try:
+            return cls._values[name]
+        except KeyError:
+            raise KeyError(f"unknown config flag: {name}") from None
+
+    @classmethod
+    def set(cls, name: str, value: Any) -> None:
+        if not cls._initialized:
+            cls.initialize()
+        if name not in cls._flags:
+            raise KeyError(f"unknown config flag: {name}")
+        with cls._lock:
+            cls._values[name] = value
+
+
+D = Config.define
+
+# --- Scheduler -------------------------------------------------------------
+D("scheduler_spread_threshold", float, 0.5,
+  "Hybrid policy: pack onto nodes under this utilization, then spread.")
+D("sched_decision_ring_size", int, 4096,
+  "Bounded scheduler decision-ring capacity (schedview).")
+
+# --- Resource isolation ----------------------------------------------------
+D("enable_resource_isolation", bool, False,
+  "Isolate worker processes (cgroup v2 when writable, RLIMIT_AS "
+  "otherwise).")
+D("worker_memory_limit_bytes", int, 0,
+  "Per-worker-tree memory cap (cgroup memory.max / worker RLIMIT_AS); "
+  "0 = unlimited.")
+D("worker_cgroup_cpu_weight", int, 0,
+  "cpu.weight for the workers cgroup (cgroup tier only); 0 = default.")
+
+# --- Memory monitor / OOM killing ------------------------------------------
+D("memory_monitor_refresh_ms", int, 0,
+  "Memory monitor poll period; 0 disables.")
+D("memory_usage_threshold", float, 0.95,
+  "Host memory usage fraction above which a worker is OOM-killed.")
+D("memory_monitor_kill_interval_s", float, 2.0,
+  "Minimum time between successive OOM kills.")
+D("memory_monitor_test_fraction", float, 0.0,
+  "Testing hook: fake observed memory usage fraction (>0 overrides real "
+  "sampling so OOM paths are deterministically testable).")

@@ -2,14 +2,32 @@
 (``RemoteFunction``, ``init``, ``is_initialized``, ``shutdown``) and the
 task execution of ``ray_tpu/_private/worker.py``.
 
-``init(num_cpus=...)`` starts the session: a pool of spawned worker
-processes (``num_cpus`` of them at most, default ``os.cpu_count()``)
-that run the functions ``remote`` wraps.  Workers are kept per env
-signature (``env_vars`` and ``device``, fixed when the process starts) and
-reused; the default signature's workers start at ``init``.  A task takes
-``num_cpus`` (default 1) of the session's ``num_cpus`` slots while it
-runs; nothing else is reserved.  A worker imports this package, numpy and
-the function's module, and nothing of torch unless that module does.
+``init(num_cpus=..., num_tpus=..., resources=...)`` starts the session:
+the host as one node of the scheduler tier (``_scheduler``: ``CPU`` is
+``num_cpus``, default ``os.cpu_count()``; ``GPU`` its cards) and a pool of
+spawned worker processes that run the functions ``remote`` wraps.  Every
+task is booked through the node's scheduler with JAX's options and
+semantics (``num_cpus``, default 1; ``num_tpus``, the cards; ``memory``;
+``resources``; ``placement_group`` with ``placement_group_bundle_index``;
+``scheduling_strategy``; ``runtime_env``): it waits in the dependency
+stage for its argument refs, then in the ready queue until it fits, and
+runs once placed; a shape the node could never hold is parked as
+infeasible.  A task holding cards sees exactly its granted cards
+(``CUDA_VISIBLE_DEVICES``) and its worker exits after it (JAX does not
+pool chip-holding workers).  Other workers are kept per env signature
+(``env_vars``, ``device``, the runtime env, fixed when the process
+starts) and reused; the default signature's workers start at ``init``.  A
+worker imports this package, numpy and the function's module, and nothing
+of torch unless that module does.
+
+A task may submit tasks: its ``.remote()`` goes to the driver's scheduler
+over the worker's pipe, and while it waits in ``get`` its CPU goes back to
+the scheduler.  The session's memory monitor (``_memory_monitor``, off
+unless ``memory_monitor_refresh_ms`` is set) kills a worker when host
+memory runs over ``memory_usage_threshold``: idle workers first, then the
+retriable task started last; the task retries under ``max_retries`` or
+fails with ``OutOfMemoryError``.  Isolation (``_cgroup``) is off unless
+``enable_resource_isolation`` is set.
 
 Values travel as descriptors:
 
@@ -37,15 +55,13 @@ port has no cloudpickle): a function must be defined at the top level of a
 module; a lambda or a nested function raises ``ValueError`` at
 ``.remote()``.  A task that raises comes back as ``TaskError`` (its
 ``cause`` the exception) and is not retried; a task whose worker process
-dies runs again on a fresh worker up to ``max_retries`` times (default 3,
-JAX's ``task_max_retries_default``), then fails with
+dies is placed again, and runs on a fresh worker, up to ``max_retries``
+times (default 3, JAX's ``task_max_retries_default``), then fails with
 ``WorkerCrashedError``.  A task whose argument failed fails with a
 ``TaskError`` whose cause is that argument's error.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-entry): the scheduler's options (``num_tpus``, ``resources``, ``memory``,
-``placement_group``, ``scheduling_strategy``, ``runtime_env``), the
-cluster arguments of ``init``, and a task submitting tasks.
+Not ported: the cluster arguments of ``init`` (each raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -70,28 +86,36 @@ import uuid
 import weakref
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
+from . import _cgroup, _memory_monitor, _runtime_env, _scheduler
 from ._actor import (ObjectRef, ObjectRefGenerator, RayTpuError, TaskError,
-                     _by_reference_rule, _device_env, _spawn_env_lock)
+                     _by_reference_rule, _child_environment, _device_env)
 from ._object_store import (SHM_DIR, _HostPickler, _layout, _read_parts,
                             _Segment, _write)
+from ._resources import CPU, ResourceSet, task_resources
 
 #: Values whose pickle is at most this many bytes travel inside their
 #: descriptor (JAX: ``max_inline_object_size``).
 INLINE_MAX = 100 * 1024
 #: JAX's ``task_max_retries_default``.
 DEFAULT_MAX_RETRIES = 3
-_KNOWN_OPTIONS = frozenset(("num_returns", "max_retries", "name", "num_cpus",
-                            "device", "env_vars"))
-SCHEDULER = 'ROADMAP Queue 1 item 12, "scheduler tier"'
+_KNOWN_OPTIONS = frozenset((
+    "num_returns", "max_retries", "name", "num_cpus", "device", "env_vars",
+    "num_tpus", "resources", "memory", "placement_group",
+    "placement_group_bundle_index", "scheduling_strategy", "runtime_env"))
 CLUSTER = 'ROADMAP Queue 1 item 13, "multi-node cluster"'
-NESTED = 'ROADMAP Queue 1 item 12, "nested tasks"'
-_SCHEDULER_OPTIONS = ("num_tpus", "resources", "memory", "placement_group",
-                      "placement_group_bundle_index", "scheduling_strategy",
-                      "runtime_env")
 
 
 class WorkerCrashedError(RayTpuError):
     """The worker process died mid-task (JAX: ``WorkerCrashedError``)."""
+
+
+class OutOfMemoryError(WorkerCrashedError):
+    """The memory monitor killed the task's worker (JAX:
+    ``OutOfMemoryError``); its message says "OOM-killed"."""
+
+
+class RuntimeEnvSetupError(RayTpuError):
+    """A runtime env could not be set up (JAX: ``RuntimeEnvSetupError``)."""
 
 
 def _not_ported(what: str, entry: str) -> NotImplementedError:
@@ -313,16 +337,18 @@ def put(value: Any) -> ObjectRef:
     return _store_ref(desc, "put", owned=owned)
 
 
-# -- the session: a worker pool --------------------------------------------------
+# -- the session: the node's scheduler and a worker pool -------------------------
 
 
 class _Task:
     """One submitted task: its function and packed arguments, the refs
-    those hold (kept until it ends), its return futures or its stream."""
+    those hold (kept until it ends), its return futures or its stream, its
+    scheduling spec and, once placed, its cards."""
 
     __slots__ = ("tid", "name", "fn_blob", "arg_refs", "opts", "env_key",
-                 "cpus", "attempts", "returns", "gen", "waiting", "lock",
-                 "args_desc", "args_ref")
+                 "attempts", "returns", "gen", "args_desc", "args_ref",
+                 "spec", "cards", "booked", "cpu_released", "nested",
+                 "started")
 
     def __init__(self, **kw):
         for k in self.__slots__:
@@ -340,6 +366,10 @@ class _WorkerHandle:
         self.retire = False
         self.proc = None
         self.conn = None
+        #: The task it runs, and why its process was killed (the OOM
+        #: monitor's reason).
+        self.task: Optional[_Task] = None
+        self.death_reason: Optional[str] = None
         self.thread = threading.Thread(target=self._loop, daemon=True,
                                        name="task-worker")
 
@@ -347,26 +377,16 @@ class _WorkerHandle:
         import multiprocessing as mp
         ctx = mp.get_context("spawn")
         parent, child = ctx.Pipe(duplex=True)
-        env = dict(self.env_key)
-        with _spawn_env_lock:
-            # The child inherits the environment from its first
-            # instruction (the same trick as the actors').
-            old = {k: os.environ.get(k) for k in env}
-            os.environ.update(env)
-            try:
-                proc = ctx.Process(
-                    target=_worker_main,
-                    args=(child, self.pool.session_id, os.getpid()),
-                    daemon=True, name="task-worker")
-                proc.start()
-            finally:
-                for k, v in old.items():
-                    if v is None:
-                        os.environ.pop(k, None)
-                    else:
-                        os.environ[k] = v
+        with _child_environment(dict(self.env_key)):
+            proc = ctx.Process(
+                target=_worker_main,
+                args=(child, self.pool.session_id, os.getpid()),
+                daemon=True, name="task-worker")
+            proc.start()
         child.close()
+        self.pool.cgroup.add_process(proc.pid)
         self.proc, self.conn = proc, parent
+        self.death_reason = None
         # Take no task before the process is up: a task handed to a
         # worker still starting waits out its start-up while others idle.
         try:
@@ -398,8 +418,9 @@ class _WorkerHandle:
         self.stop()
 
     def _run(self, task: _Task) -> Tuple[bool, bool]:
-        """Run one task: (the worker process died, the task was queued
-        again)."""
+        """Run one task: (the worker process died, the task was placed
+        again).  While it runs, the worker's requests (a nested task's
+        submit, get or poll) are answered here."""
         msg = pickle.dumps(("task", task.tid, task.name, task.fn_blob,
                             task.args_desc, task.opts),
                            protocol=pickle.HIGHEST_PROTOCOL)
@@ -407,6 +428,10 @@ class _WorkerHandle:
             self.conn.send_bytes(msg)
             while True:
                 reply = pickle.loads(self.conn.recv_bytes())
+                if reply[0] in _REQUESTS:
+                    self.conn.send_bytes(pickle.dumps(
+                        self.pool.serve_request(task, reply), protocol=5))
+                    continue
                 if _apply_reply(task, reply):
                     return False, False
         except (EOFError, OSError, BrokenPipeError):
@@ -424,6 +449,10 @@ class _WorkerHandle:
         if self.proc is not None and self.proc.is_alive():
             self.proc.kill()
             self.proc.join(timeout=10)
+
+
+#: What a worker asks the driver while its task runs.
+_REQUESTS = frozenset(("submit", "get", "poll"))
 
 
 def _apply_reply(task: _Task, reply: tuple) -> bool:
@@ -471,23 +500,48 @@ def _fail_task(task: _Task, exc: BaseException) -> None:
             fut.set_exception(exc)
 
 
+def _error_blob(exc: BaseException) -> bytes:
+    try:
+        return pickle.dumps(exc)
+    except Exception:  # noqa: BLE001 - its cause won't pickle
+        return pickle.dumps(RayTpuError(repr(exc)))
+
+
 class _Pool:
-    def __init__(self, num_cpus: float, session_id: str):
-        self.capacity = float(num_cpus)
-        self.free = float(num_cpus)
-        self.max_workers = max(1, int(math.ceil(num_cpus)))
-        self.session_id = session_id
+    """The session's worker processes.  The scheduler decides what runs
+    (``dispatch`` once a task is placed); the pool finds it a worker of
+    its env signature, starting one where none is idle, and gives the
+    booking back when the task ends."""
+
+    def __init__(self, session: "_TaskSession"):
+        self.session = session
+        self.node = session.node
+        self.max_workers = max(1, int(math.ceil(session.num_cpus)))
+        self.session_id = session.id
         self.cv = threading.Condition()
         self.queues: Dict[tuple, Deque[_Task]] = {}
         self.workers: List[_WorkerHandle] = []
         self.closed = False
+        self.cgroup = _cgroup.CgroupManager(root=_cgroup.CGROUP_ROOT)
+        self.memory_monitor = _memory_monitor.MemoryMonitor(self)
+
+    @property
+    def capacity(self) -> float:
+        """The node's CPUs."""
+        return self.node.info.total_resources.get(CPU)
+
+    @property
+    def free(self) -> float:
+        """The node's CPUs not booked now."""
+        return self.node.available_resources().get(CPU, 0.0)
 
     # -- called with the condition held -------------------------------------
 
     def _spawn_for(self, env_key: tuple) -> None:
         """Start workers until the queued tasks of ``env_key`` have a free
-        worker each, within ``max_workers`` (retiring idle workers of
-        other signatures to make room)."""
+        worker each (retiring idle workers of other signatures while the
+        pool is at ``max_workers``; a placed task gets a worker even
+        past it)."""
         queued = len(self.queues.get(env_key, ()))
         free_here = sum(1 for w in self.workers
                         if w.env_key == env_key and not w.busy
@@ -496,11 +550,10 @@ class _Pool:
             if len(self.workers) >= self.max_workers:
                 idle = [w for w in self.workers if w.env_key != env_key
                         and not w.busy and not w.retire]
-                if not idle:
-                    return
-                idle[0].retire = True
-                self.workers.remove(idle[0])
-                self.cv.notify_all()
+                if idle:
+                    idle[0].retire = True
+                    self.workers.remove(idle[0])
+                    self.cv.notify_all()
             self._add_worker(env_key)
             free_here += 1
 
@@ -516,7 +569,42 @@ class _Pool:
             for _ in range(min(n, self.max_workers) - len(self.workers)):
                 self._add_worker(env_key)
 
-    def submit(self, task: _Task) -> None:
+    def dispatch(self, task: _Task) -> None:
+        """The scheduler placed ``task`` (its booking is held): pack its
+        arguments, take its cards, and queue it for a worker."""
+        spec = task.spec
+        self.node.drop_deps(spec)
+        if task.args_desc is None and not _pack_args(task):
+            self.node.give_back(spec, [])
+            return
+        task.cards = self.node.take_cards(spec)
+        task.booked = True
+        env = dict(_device_env(task.opts["device"]))
+        env.update(task.opts["env_vars"])
+        rt_env = spec.runtime_env or {}
+        env.update({k: str(v) for k, v in
+                    (rt_env.get("env_vars") or {}).items()})
+        env.update(self.node.card_env(task.cards))
+        env.update(self.cgroup.spawn_env())
+        if rt_env and not _runtime_env.pip_env_ready(rt_env):
+            # A venv is built once per signature, off the scheduler's
+            # thread (minutes, for a cold one).
+            threading.Thread(target=self._setup_then_queue,
+                             args=(task, env, rt_env), daemon=True,
+                             name="runtime-env-setup").start()
+            return
+        self._setup_then_queue(task, env, rt_env)
+
+    def _setup_then_queue(self, task: _Task, env: Dict[str, str],
+                          rt_env: Dict[str, Any]) -> None:
+        try:
+            env.update(_runtime_env.node_setup_env_vars(rt_env or None))
+        except Exception as e:  # noqa: BLE001 - the task's own error
+            self._give_back(task)
+            _fail_task(task, e if isinstance(e, RayTpuError)
+                       else RuntimeEnvSetupError(f"{type(e).__name__}: {e}"))
+            return
+        task.env_key = tuple(sorted(env.items()))
         with self.cv:
             if self.closed:
                 _fail_task(task, RayTpuError("the session was shut down"))
@@ -532,22 +620,33 @@ class _Pool:
                 if self.closed or w.retire:
                     return None
                 q = self.queues.get(w.env_key)
-                if q and self.free >= q[0].cpus:
+                if q:
                     task = q.popleft()
-                    self.free -= task.cpus
+                    task.started = time.monotonic()
                     w.busy = True
+                    w.task = task
                     return task
                 self.cv.wait()
 
     def task_finished(self, w: _WorkerHandle, task: _Task,
                       requeued: bool) -> None:
+        held_cards = bool(task.cards)
         if not requeued:
+            self._give_back(task)
             # The arguments' refs go; their segments with the last ref.
             task.arg_refs = None
             task.args_ref = None
+            task.nested = None
         with self.cv:
-            self.free += task.cpus
             w.busy = False
+            w.task = None
+            if held_cards:
+                # A worker that held cards is not pooled (JAX: its process
+                # must exit before the cards are reusable; here its CUDA
+                # context and cached blocks go with it).
+                w.retire = True
+                if w in self.workers:
+                    self.workers.remove(w)
             # A task of another signature that came while the pool was
             # full of busy workers has none of its own: this worker, idle
             # now, may make room for it.
@@ -556,25 +655,51 @@ class _Pool:
                     self._spawn_for(key)
             self.cv.notify_all()
 
+    def _give_back(self, task: _Task) -> None:
+        """Return ``task``'s booking (less the CPU it gave up while blocked
+        in ``get``) and its cards, once."""
+        if not task.booked:
+            return
+        task.booked = False
+        spec = task.spec
+        rest = None
+        if task.cpu_released:
+            rest = ResourceSet({k: v for k, v in spec.resources.items()
+                                if k != CPU})
+        self.node.give_back(spec, task.cards or [], rest)
+        task.cards = None
+        task.cpu_released = False
+
+    def blocked(self, task: _Task) -> None:
+        """``task``'s worker waits in ``get``: its CPU goes back to the
+        scheduler until the task ends (the tail after the wait runs
+        unbooked, as a worker that unblocks does in JAX's reference)."""
+        if not task.cpu_released and task.spec.resources.get(CPU) > 0:
+            task.cpu_released = True
+            self.node.scheduler.release(
+                self.node.node_id,
+                ResourceSet({CPU: task.spec.resources.get(CPU)}),
+                task.spec.placement_group, task.spec.bundle_index)
+
     def worker_died(self, w: _WorkerHandle, task: _Task, code) -> bool:
-        """True when ``task`` goes back to the front of its queue (a fresh
-        worker takes it), False when it failed."""
+        """True when ``task`` is placed again (a fresh worker, and fresh
+        cards, take it), False when it failed."""
         if self.closed:
             _fail_task(task, RayTpuError("the session was shut down"))
             return False
+        self._give_back(task)
         retries = task.opts["max_retries"]
         if task.attempts < retries:
             task.attempts += 1
             _count("task_retries")
-            with self.cv:
-                self.queues.setdefault(task.env_key, collections.deque()
-                                       ).appendleft(task)
-                self.cv.notify_all()
+            self.session.submit(task)
             return True
-        _fail_task(task, WorkerCrashedError(
+        why = w.death_reason
+        cls = OutOfMemoryError if why else WorkerCrashedError
+        _fail_task(task, cls(
             f"the worker process of task {task.name!r} exited with code "
             f"{code} (attempts {task.attempts + 1}, max_retries "
-            f"{retries})"))
+            f"{retries})" + (f": {why}" if why else "")))
         return False
 
     def worker_failed_to_start(self, w: _WorkerHandle,
@@ -586,7 +711,65 @@ class _Pool:
         err = RayTpuError(f"a task worker failed to start: "
                           f"{type(e).__name__}: {e}")
         for task in q:
+            self._give_back(task)
             _fail_task(task, err)
+
+    # -- the OOM monitor's hooks (JAX: NodeManager.select_oom_victim) --------
+
+    def select_oom_victim(self) -> Optional[_WorkerHandle]:
+        """Idle workers first (killing them fails nothing), then busy ones
+        by the retriable-LIFO policy."""
+        with self.cv:
+            for w in self.workers:
+                if not w.busy and not w.retire and w.proc is not None:
+                    return w
+            candidates = [(w, w.task.attempts < w.task.opts["max_retries"],
+                           w.task.started)
+                          for w in self.workers
+                          if w.busy and w.task is not None]
+        return _memory_monitor.select_victim(candidates)
+
+    def oom_kill_worker(self, w: _WorkerHandle, reason: str) -> None:
+        w.death_reason = f"OOM-killed: {reason}"
+        with self.cv:
+            if not w.busy:
+                w.retire = True
+                if w in self.workers:
+                    self.workers.remove(w)
+                self.cv.notify_all()
+        if w.proc is not None and w.proc.is_alive():
+            w.proc.kill()
+
+    # -- nested tasks: what a worker asks while its task runs -----------------
+
+    def serve_request(self, task: _Task, req: tuple) -> tuple:
+        kind = req[0]
+        if kind == "submit":
+            _, fn_blob, name, opts, args_desc = req
+            try:
+                out = _submit(self.session, fn_blob, name, opts,
+                              args_desc=args_desc)
+            except Exception as e:  # noqa: BLE001 - raised in the worker
+                return ("error", _error_blob(e))
+            refs = out if isinstance(out, list) else [out]
+            if task.nested is None:
+                task.nested = []
+            task.nested.extend(refs)
+            first = len(task.nested) - len(refs)
+            return ("submitted", list(range(first, len(task.nested))))
+        ref = task.nested[req[1]]
+        if kind == "poll":
+            if not ref._fut.done():
+                return ("pending",)
+        else:
+            self.blocked(task)
+        try:
+            return ("value", ref._fut.result(timeout=req[2] if kind == "get"
+                                             else 0))
+        except cf.TimeoutError:
+            return ("timeout",)
+        except BaseException as e:  # noqa: BLE001 - the task's error
+            return ("error", _error_blob(e))
 
     def close(self) -> None:
         with self.cv:
@@ -596,6 +779,7 @@ class _Pool:
             queued = [t for q in self.queues.values() for t in q]
             self.queues.clear()
             self.cv.notify_all()
+        self.memory_monitor.stop()
         for t in queued:
             _fail_task(t, RayTpuError("the session was shut down"))
         for w in workers:
@@ -604,17 +788,52 @@ class _Pool:
         for w in workers:
             w.thread.join(timeout=30)
             w.stop()
+        self.cgroup.cleanup()
 
 
 class _TaskSession:
-    """``init``'s session: its id, slots and pool."""
+    """``init``'s session: its id, its node (the scheduler and the cards)
+    and its pool."""
 
-    def __init__(self, num_cpus: float, namespace: str):
+    def __init__(self, num_cpus: float, namespace: str,
+                 num_tpus: Optional[float] = None,
+                 resources: Optional[Dict[str, float]] = None):
         self.id = uuid.uuid4().hex[:12]
         self.num_cpus = float(num_cpus)
         self.namespace = namespace
-        self.pool = _Pool(num_cpus, self.id)
+        self.node = _scheduler.Node(num_cpus, num_tpus, resources)
+        self.pool = _Pool(self)
         self.ids = itertools.count()
+        #: Tasks with the scheduler, not placed yet (failed at shutdown).
+        self.unplaced: Dict[int, _Task] = {}
+        self.lock = threading.Lock()
+
+    def submit(self, task: _Task) -> None:
+        """Queue ``task`` with the scheduler; the pool runs it once it is
+        placed."""
+        with self.lock:
+            self.unplaced[task.tid] = task
+
+        def placed(_spec, _node_id) -> None:
+            with self.lock:
+                self.unplaced.pop(task.tid, None)
+            self.pool.dispatch(task)
+
+        def failed(exc: BaseException) -> None:
+            with self.lock:
+                self.unplaced.pop(task.tid, None)
+            _fail_task(task, exc)
+
+        self.node.submit(task.spec, placed, failed)
+
+    def close(self) -> None:
+        """Stop the pool and the scheduler; fail what never ran."""
+        self.pool.close()
+        self.node.stop()
+        with self.lock:
+            left, self.unplaced = list(self.unplaced.values()), {}
+        for task in left:
+            _fail_task(task, RayTpuError("the session was shut down"))
 
     def __repr__(self):
         return (f"TaskSession({self.id}, num_cpus={self.num_cpus:g}, "
@@ -627,16 +846,16 @@ _session_lock = threading.Lock()
 
 def init(num_cpus: Optional[float] = None, namespace: str = "default",
          ignore_reinit_error: bool = True, *,
-         num_tpus: Optional[int] = None, resources: Optional[dict] = None,
+         num_tpus: Optional[float] = None,
+         resources: Optional[Dict[str, float]] = None,
          head_port: Optional[int] = None, address: Optional[str] = None,
          cluster_token: Optional[bytes] = None,
          state_dir: Optional[str] = None, **_compat: Any) -> _TaskSession:
     """Start the session in this process (JAX: ``ray_tpu.init``): the
-    task pool, ``num_cpus`` slots and workers (default ``os.cpu_count()``),
-    the default signature's workers started now."""
-    for arg, value in (("num_tpus", num_tpus), ("resources", resources)):
-        if value is not None:
-            raise _not_ported(f"init({arg}=...)", SCHEDULER)
+    host as one node with ``num_cpus`` CPUs (default ``os.cpu_count()``),
+    ``num_tpus`` cards (default: those detected) and ``resources``, its
+    scheduler, and the task pool, the default signature's workers started
+    now."""
     for arg, value in (("head_port", head_port), ("address", address),
                        ("cluster_token", cluster_token),
                        ("state_dir", state_dir)):
@@ -652,9 +871,9 @@ def init(num_cpus: Optional[float] = None, namespace: str = "default",
             num_cpus)
         if n <= 0:
             raise ValueError(f"num_cpus={num_cpus!r}: give at least 1")
-        _session = _TaskSession(n, namespace)
-        _session.pool.prestart(_env_key(None, None),
-                               _session.pool.max_workers)
+        _session = _TaskSession(n, namespace, num_tpus, resources)
+        _session.pool.prestart((), _session.pool.max_workers)
+        _session.pool.memory_monitor.start()
         return _session
 
 
@@ -664,14 +883,14 @@ def is_initialized() -> bool:
 
 
 def shutdown() -> None:
-    """End the session: stop its workers, fail its pending tasks, and
-    unlink every segment of the session."""
+    """End the session: stop its workers and its scheduler, fail its
+    pending tasks, and unlink every segment of the session."""
     global _session
     with _session_lock:
         session, _session = _session, None
     if session is None:
         return
-    session.pool.close()
+    session.close()
     with _owned_lock:
         _owned.clear()
     for path in glob.glob(os.path.join(SHM_DIR, f"rtt_{session.id}_*")):
@@ -694,18 +913,10 @@ def session_segments(session: Optional[_TaskSession] = None) -> List[str]:
 
 
 def _require_session() -> _TaskSession:
-    if _in_worker is not None:
-        raise _not_ported("submitting a task from inside a task", NESTED)
     session = _session
     if session is None:
         raise RayTpuError("ray_tpu_torch.init() has not been called")
     return session
-
-
-def _env_key(device, env_vars) -> tuple:
-    env = dict(_device_env(device),
-               **{k: str(v) for k, v in (env_vars or {}).items()})
-    return tuple(sorted(env.items()))
 
 
 # -- remote functions ------------------------------------------------------------
@@ -775,84 +986,174 @@ class RemoteFunction:
     def remote(self, *args, **kwargs):
         if self._blob is None:
             self._blob = _fn_blob(self._fn)
+        name = self._options.get("name") or _fn_name(self._fn)
+        if _in_worker is not None:
+            return _submit_from_worker(self._blob, name, self._options,
+                                       args, kwargs)
         session = _require_session()
-        opts = self._options
-        name = opts.get("name") or _fn_name(self._fn)
-        num_returns = opts.get("num_returns", 1)
-        streaming = num_returns == "streaming"
-        if not streaming and (not isinstance(num_returns, int)
-                              or num_returns < 1):
-            raise ValueError(f"num_returns={num_returns!r}: a positive int "
-                             "or 'streaming'")
-        cpus = float(opts.get("num_cpus", 1) or 0)
-        if cpus > session.num_cpus:
-            raise ValueError(
-                f"task {name!r} asks num_cpus={cpus:g}, more than the "
-                f"session's {session.num_cpus:g}")
-        meta, buffers, refs = _pack((args, kwargs),
-                                    f"the arguments of {name}")
-        task = _Task(
-            tid=next(session.ids), name=name, fn_blob=self._blob,
-            opts={"num_returns": 1 if streaming else num_returns,
-                  "streaming": streaming,
-                  "max_retries": 0 if streaming else int(opts.get(
-                      "max_retries", DEFAULT_MAX_RETRIES))},
-            env_key=_env_key(opts.get("device"), opts.get("env_vars")),
-            cpus=cpus, attempts=0, arg_refs=refs, lock=threading.Lock(),
-            returns=[] if streaming else [cf.Future()
-                                          for _ in range(num_returns)])
-        _count("tasks_submitted")
-        out: Any
-        if streaming:
-            gen = ObjectRefGenerator(name)
-            task.gen = weakref.ref(gen)
-            out = gen
-        else:
-            refs_out = [ObjectRef(f, name, store=True, owned=True)
-                        for f in task.returns]
-            out = refs_out[0] if num_returns == 1 else refs_out
-        pending = [r for r in refs if not r._fut.done()]
-        task.waiting = len(pending) + 1
-        packed = (meta, buffers)
-        for r in pending:
-            r._fut.add_done_callback(
-                lambda _f, t=task: _dep_ready(session, t, packed))
-        _dep_ready(session, task, packed)
-        return out
+        return _submit(session, self._blob, name, self._options,
+                       packed=_pack((args, kwargs),
+                                    f"the arguments of {name}"))
 
 
-def _dep_ready(session: _TaskSession, task: _Task, packed) -> None:
-    """One dependency of ``task`` resolved (or the submit itself): once all
-    have, pack the arguments with their descriptors and queue it."""
-    with task.lock:
-        task.waiting -= 1
-        if task.waiting:
-            return
+def _submit(session: _TaskSession, fn_blob: bytes, name: str,
+            opts: Dict[str, Any], packed=None, args_desc=None):
+    """Submit one task of the session (from the driver, or on behalf of a
+    worker with its arguments already sealed in ``args_desc``)."""
+    num_returns = opts.get("num_returns", 1)
+    streaming = num_returns == "streaming"
+    if not streaming and (not isinstance(num_returns, int)
+                          or num_returns < 1):
+        raise ValueError(f"num_returns={num_returns!r}: a positive int "
+                         "or 'streaming'")
+    strategy, pg, bundle = _scheduler.normalize_strategy(opts)
+    resources = task_resources(opts.get("num_cpus"), opts.get("num_tpus"),
+                               opts.get("memory"), opts.get("resources"),
+                               default_num_cpus=1.0)
+    runtime_env = _runtime_env.prepare_runtime_env(opts.get("runtime_env"))
+    refs: List[ObjectRef] = []
+    task = _Task(
+        tid=next(session.ids), name=name, fn_blob=fn_blob,
+        opts={"num_returns": 1 if streaming else num_returns,
+              "streaming": streaming,
+              "max_retries": 0 if streaming else int(opts.get(
+                  "max_retries", DEFAULT_MAX_RETRIES)),
+              "device": opts.get("device"),
+              "env_vars": {k: str(v) for k, v in
+                           (opts.get("env_vars") or {}).items()}},
+        attempts=0, cpu_released=False,
+        returns=[] if streaming else [cf.Future()
+                                      for _ in range(num_returns)])
+    if args_desc is not None:
+        task.args_desc = args_desc
+        if args_desc[0] == "shm":
+            _adopt(args_desc)
+            task.args_ref = _store_ref(args_desc, "args", owned=True)
+        task.arg_refs = []
+    else:
+        meta, buffers, refs = packed
+        task.arg_refs = (meta, buffers, refs)
+    pending = [r for r in refs if not r._fut.done()]
+    task.spec = session.node.new_spec(
+        name, resources, deps=tuple(session.node.dep(r._fut)
+                                    for r in pending),
+        strategy=strategy, pg=pg, bundle=bundle, runtime_env=runtime_env)
+    _count("tasks_submitted")
+    out: Any
+    if streaming:
+        gen = ObjectRefGenerator(name)
+        task.gen = weakref.ref(gen)
+        out = gen
+    else:
+        refs_out = [ObjectRef(f, name, store=True, owned=True)
+                    for f in task.returns]
+        out = refs_out[0] if num_returns == 1 else refs_out
+    session.submit(task)
+    return out
+
+
+def _pack_args(task: _Task) -> bool:
+    """Seal ``task``'s arguments with the descriptors of the refs inside
+    (every one resolved now); False when one failed (the task failed with
+    its error)."""
+    meta, buffers, refs = task.arg_refs
     try:
         keep: list = []
-        descs = [_desc_of(r, keep) for r in task.arg_refs]
-        task.arg_refs = task.arg_refs + keep
+        descs = [_desc_of(r, keep) for r in refs]
+        task.arg_refs = refs + keep
     except Exception as e:  # noqa: BLE001 - an argument's own error
         # As JAX's worker wraps the error it meets resolving the argument.
         task.arg_refs = None
         _fail_task(task, TaskError(e, task.name, "".join(
             traceback.format_exception(e))))
-        return
-    task.args_desc = _encode(*packed, descs)
+        return False
+    task.args_desc = _encode(meta, buffers, descs)
     if task.args_desc[0] == "shm":
         _adopt(task.args_desc)
         # Held by the task until it ends; then collected and unlinked.
         task.args_ref = _store_ref(task.args_desc, "args", owned=True)
-    session.pool.submit(task)
+    return True
 
 
 def _check_options(opts: Dict[str, Any]) -> None:
-    for k in opts:
-        if k in _SCHEDULER_OPTIONS:
-            raise _not_ported(f"the task option {k!r}", SCHEDULER)
     unknown = set(opts) - _KNOWN_OPTIONS
     if unknown:
         raise ValueError(f"unknown task options {sorted(unknown)}")
+
+
+# -- nested tasks (in a worker) ----------------------------------------------------
+
+
+class _DriverLink:
+    """A worker's requests to the driver over its task pipe while a task
+    runs (one at a time: the driver answers each before the next)."""
+
+    def __init__(self, conn):
+        self.conn = conn
+        self.lock = threading.Lock()
+
+    def send(self, msg: tuple) -> None:
+        data = pickle.dumps(msg, protocol=5)
+        with self.lock:
+            self.conn.send_bytes(data)
+
+    def request(self, msg: tuple) -> tuple:
+        data = pickle.dumps(msg, protocol=5)
+        with self.lock:
+            self.conn.send_bytes(data)
+            return pickle.loads(self.conn.recv_bytes())
+
+
+class _NestedFuture(cf.Future):
+    """The future of a nested task's ref in the worker that submitted it:
+    ``result`` asks the driver (which gives up the task's CPU while it
+    waits), ``done`` polls it."""
+
+    def __init__(self, link: _DriverLink, key: int):
+        super().__init__()
+        self._link = link
+        self._key = key
+
+    def _settle(self, reply: tuple) -> bool:
+        if reply[0] == "value":
+            self.set_result(reply[1])
+        elif reply[0] == "error":
+            self.set_exception(pickle.loads(reply[1]))
+        else:
+            return False
+        return True
+
+    def done(self) -> bool:
+        return super().done() or self._settle(
+            self._link.request(("poll", self._key)))
+
+    def result(self, timeout=None):
+        if not super().done() and not self._settle(
+                self._link.request(("get", self._key, timeout))):
+            raise cf.TimeoutError()
+        return super().result(0)
+
+
+def _submit_from_worker(fn_blob: bytes, name: str, opts: Dict[str, Any],
+                        args: tuple, kwargs: dict):
+    """``.remote()`` inside a task: the driver's scheduler places it (JAX:
+    a worker submits through its node to the same scheduler)."""
+    link = _in_worker.get("link")
+    if link is None:
+        raise RayTpuError("a task is submitted from a task worker only "
+                          "while one of its tasks runs")
+    if opts.get("num_returns") == "streaming":
+        raise NotImplementedError(
+            "a streaming task submitted from inside a task is not ported "
+            "(submit it from the driver)")
+    meta, buffers, refs = _pack((args, kwargs), f"the arguments of {name}")
+    args_desc = _encode(meta, buffers, [_desc_of(r) for r in refs])
+    reply = link.request(("submit", fn_blob, name, dict(opts), args_desc))
+    if reply[0] == "error":
+        raise pickle.loads(reply[1])
+    out = [ObjectRef(_NestedFuture(link, k), name, store=True)
+           for k in reply[1]]
+    return out[0] if len(out) == 1 else out
 
 
 # -- the worker process ----------------------------------------------------------
@@ -865,14 +1166,33 @@ def _watch_parent(parent: int) -> None:
         time.sleep(0.5)
 
 
+def _boot_worker_env() -> None:
+    """Isolation and runtime env of a worker, applied before any task:
+    the rlimit tier, ``working_dir``/``py_modules``, and a pip env's venv
+    site directory ahead of the parent's paths (spawn gives the child the
+    parent's ``sys.path``)."""
+    _cgroup.apply_worker_rlimits()
+    _runtime_env.apply_worker_env()
+    if os.environ.get("RAY_TPU_PYTHON"):
+        import site
+        import sysconfig
+        purelib = sysconfig.get_paths()["purelib"]
+        if purelib in sys.path:
+            sys.path.remove(purelib)
+        sys.path.insert(0, purelib)
+        site.addsitedir(purelib)
+
+
 def _worker_main(conn, session_id: str, parent: int) -> None:
     """Entry point of a spawned task worker."""
     global _in_worker
-    _in_worker = {"session": session_id}
+    _in_worker = {"session": session_id, "link": None}
     threading.Thread(target=_watch_parent, args=(parent,), daemon=True,
                      name="task-worker-watch-parent").start()
+    _boot_worker_env()
     pid = os.getpid()
     last_snap = None
+    link = _DriverLink(conn)
     conn.send_bytes(pickle.dumps(("ready", pid)))
     while True:
         try:
@@ -880,9 +1200,6 @@ def _worker_main(conn, session_id: str, parent: int) -> None:
         except (EOFError, OSError):
             return
         _kind, tid, name, fn_blob, args_desc, opts = msg
-
-        def send(reply):
-            conn.send_bytes(pickle.dumps(reply, protocol=5))
 
         def snap():
             nonlocal last_snap
@@ -895,6 +1212,7 @@ def _worker_main(conn, session_id: str, parent: int) -> None:
             last_snap = s
             return s
 
+        _in_worker["link"] = link
         try:
             fn = _resolve_fn(fn_blob)
             args, kwargs = _load(args_desc)
@@ -907,8 +1225,10 @@ def _worker_main(conn, session_id: str, parent: int) -> None:
             result = fn(*args, **kwargs)
             if opts["streaming"]:
                 for item in result:
-                    send(("item", tid, _seal(item, f"an item of {name}")))
-                send(("end", tid, pid, snap()))
+                    link.send(("item", tid, _seal(item,
+                                                  f"an item of {name}")))
+                _in_worker["link"] = None
+                link.send(("end", tid, pid, snap()))
                 continue
             n = opts["num_returns"]
             values = [result] if n == 1 else list(result)
@@ -916,8 +1236,10 @@ def _worker_main(conn, session_id: str, parent: int) -> None:
                 raise ValueError(f"task {name!r} returned {len(values)} "
                                  f"values; num_returns={n}")
             descs = [_seal(v, f"the result of {name}") for v in values]
-            send(("ok", tid, descs, pid, snap()))
+            _in_worker["link"] = None
+            link.send(("ok", tid, descs, pid, snap()))
         except BaseException as e:  # noqa: BLE001 - back to the caller
+            _in_worker["link"] = None
             err = e if isinstance(e, TaskError) else TaskError(
                 e, name, traceback.format_exc())
             try:
@@ -925,4 +1247,4 @@ def _worker_main(conn, session_id: str, parent: int) -> None:
             except Exception:  # noqa: BLE001 - the cause won't pickle
                 blob = pickle.dumps(TaskError(RuntimeError(repr(e)), name,
                                               traceback.format_exc()))
-            send(("err", tid, blob, pid, snap()))
+            link.send(("err", tid, blob, pid, snap()))

@@ -11,13 +11,26 @@ the train fn with its ``TrainContext`` set, closes the context (every async
 save acked) and writes its result under ``train/{run_id}/done/...``, with
 its traceback when the fn raised and its telemetry.
 
+Before it spawns, the controller books each worker's
+``resources_per_worker`` through the scheduler (``_scheduler.node_for_run``:
+the session's node, or with no session one of the run's own over the
+host's cores and cards); by default a worker on
+the cards books one ``GPU`` and is given the card it was granted, a CPU
+worker books nothing (JAX's default actor books 0 CPUs).  The bookings go
+back at teardown.  The scaling policy (``scaling_policy.py``) sizes each
+incarnation: fixed, or with ``min_workers``/``max_workers`` JAX's elastic
+loop, which takes what fits at formation and, every
+``elastic_check_interval_s``, upsizes at a checkpoint boundary when
+capacity joined: teardown, re-formation at the larger size, restore from
+the last commit.
+
 On the first failure the controller kills EVERY process of the group (the
 NCCL peers of a dead rank would hang), then the failure budget (a rolling
 window when ``failure_window_s`` is set), bounded backoff and the crash-loop
 breaker decide whether a fresh group resumes from the latest committed
 checkpoint.  The train fn travels by reference: a module-level function,
 which the spawned process imports.  Not ported: the drain (preemption)
-protocol and elastic resizes (ROADMAP Queue 1 item 3(c)).
+protocol (ROADMAP Queue 1 item 3(c)).
 """
 
 from __future__ import annotations
@@ -203,7 +216,8 @@ def _worker_main(rank: int, world: int, run_id: str, host: str, port: int,
         if device == "cpu":
             torch.set_num_threads(1)
         else:
-            torch.cuda.set_device(rank)
+            device = f"cuda:{spec['card']}"
+            torch.cuda.set_device(device)
         plane.kv_put(_key(run_id, "alive", generation, rank),
                      str(os.getpid()).encode())
         worker = TrainWorker(rank, world, run_id, device)
@@ -215,7 +229,7 @@ def _worker_main(rank: int, world: int, run_id: str, host: str, port: int,
             _key(run_id, "go", generation, 0), spec["formation_timeout_s"]))
         try:
             worker.run(spec["fn"], spec["config"],
-                       dict(ctx_info, device=device or f"cuda:{rank}"))
+                       dict(ctx_info, device=device))
         finally:
             worker.shutdown_dist()
     except BaseException as e:  # noqa: BLE001 - reported to the controller
@@ -251,6 +265,8 @@ class WorkerGroupState:
     procs: List[Any] = field(default_factory=list)
     generation: int = 0
     stack_files: List[str] = field(default_factory=list)
+    #: Each worker's booking with the scheduler (released at teardown).
+    bookings: List[Any] = field(default_factory=list)
 
 
 class TrainController:
@@ -275,6 +291,9 @@ class TrainController:
             self.mesh_config.validate_scaling(scaling_config)
         #: Mesh axis sizes of the current incarnation (Result.mesh).
         self._mesh_axes: Optional[Dict[str, int]] = None
+        #: Set by run(): the scheduler node the workers book on.
+        self.node = None
+        self.policy = None
         self.manager = CheckpointManager(
             run_config.storage_path, run_config.name,
             num_to_keep=run_config.checkpoint_config.num_to_keep)
@@ -350,16 +369,42 @@ class TrainController:
             },
         }
 
+    def _worker_resources(self) -> Dict[str, float]:
+        """What one worker books: ``resources_per_worker``, else a card
+        for a worker on the cards (nothing for a CPU worker)."""
+        res = dict(self.scaling.resources_per_worker or {})
+        if not res and self.device != "cpu":
+            res = {"GPU": 1.0}
+        return res
+
     def _start_group(self, n: int) -> WorkerGroupState:
-        """Spawn ``n`` workers; returns once every rank is alive and its
-        process group formed.  Raises (and kills the group) when a rank
-        dies first or formation outlasts ``formation_timeout_s``."""
+        """Book and spawn ``n`` workers; returns once every rank is alive
+        and its process group formed.  Raises (and kills the group) when a
+        booking or formation outlasts ``formation_timeout_s`` or a rank
+        dies first."""
         import torch.multiprocessing as mp
         self._resolved_axes(n)   # the mesh must tile n before any spawn
         generation = len(self.world_size_history) - 1
         ctx = mp.get_context("spawn")
         group = WorkerGroupState(generation=generation)
         self._group = group
+        res = self._worker_resources()
+        total = self.node.cluster_resources()
+        if any(total.get(k, 0.0) < v for k, v in res.items()):
+            # No booking of this shape could ever be placed: say so now,
+            # not after formation_timeout_s.
+            raise RuntimeError(
+                f"a worker books {res} and the node has "
+                f"{ {k: total.get(k, 0.0) for k in res} } in all")
+        group.bookings = [self.node.book(res, f"train-{self.run_id}-rank{r}")
+                          for r in range(n)]
+        for b in group.bookings:
+            b.wait(self.scaling.formation_timeout_s)
+        if self.device != "cpu" and any(not b.cards
+                                        for b in group.bookings):
+            raise RuntimeError(
+                f"a worker on the cards booked {res} and was granted no "
+                "card: give resources_per_worker a whole GPU")
         spec = {"fn": self.train_fn, "config": self.train_loop_config,
                 "device": self.device,
                 "formation_timeout_s": self.scaling.formation_timeout_s,
@@ -375,11 +420,13 @@ class TrainController:
                 f"{self.run_id}-g{generation}-rank{rank}.txt")
             group.stack_files.append(stack_file)
             with _environ(self.scaling.env_per_worker or {}):
+                cards = group.bookings[rank].cards
                 p = ctx.Process(
                     target=_worker_main, daemon=True,
                     args=(rank, n, self.run_id, self.plane.host,
                           self.plane.port, generation,
-                          dict(spec, stack_file=stack_file)))
+                          dict(spec, stack_file=stack_file,
+                               card=cards[0] if cards else None)))
                 p.start()
             group.procs.append(p)
         form_t = self.scaling.formation_timeout_s
@@ -404,12 +451,15 @@ class TrainController:
         return group
 
     def _teardown_group(self, group: WorkerGroupState) -> None:
-        """Kill every process of the group and drop its control keys."""
+        """Kill every process of the group, drop its control keys and give
+        back its bookings."""
         for p in group.procs:
             if p.is_alive():
                 p.kill()
         for p in group.procs:
             p.join(timeout=30)
+        for b in group.bookings:
+            b.release()
         for what in ("alive", "formed", "go", "done"):
             for rank in range(len(group.procs)):
                 _control("kv_del",
@@ -573,18 +623,21 @@ class TrainController:
         if self.manager.commit_ready():
             self._last_ckpt_mono = time.monotonic()
 
-    def _run_incarnation(self, group: WorkerGroupState,
-                         world: int) -> Optional[Exception]:
+    def _run_incarnation(self, group: WorkerGroupState, world: int):
         """Start the train fn on a formed group (every worker waits for
-        this context) and drive it until every rank finished or one
-        failed: poll reports and acks, and book lost work on failure."""
+        this context) and drive it until every rank finished, one failed,
+        or the elastic policy asks for more workers at a checkpoint
+        boundary: poll reports and acks, and book lost work on failure.
+        Returns (error, the size to re-form at, or None)."""
         _control("kv_put", _key(self.run_id, "go", group.generation, 0),
                  pickle.dumps(self._ctx_info(self._mesh_axes)))
         self.goodput.enter("step")
         t_step = time.monotonic()
         error: Optional[Exception] = None
+        resize_to: Optional[int] = None
+        last_elastic_check = time.monotonic()
         pending = set(range(world))
-        while pending and error is None:
+        while pending and error is None and resize_to is None:
             time.sleep(0.05)
             self._poll_reports()
             for rank in sorted(pending):
@@ -597,13 +650,36 @@ class TrainController:
                 if res != "ok":
                     error = res
                     break
+            # Elastic upsize (JAX: the monitor decision), gated to a
+            # checkpoint boundary: the re-formed group restores from the
+            # latest commit, so re-forming before this incarnation has
+            # committed one would replay all of it.  A run that has never
+            # checkpointed replays from the start anyway and upsizes now.
+            if pending and error is None and self.scaling.elastic and \
+                    time.monotonic() - last_elastic_check >= \
+                    self.scaling.elastic_check_interval_s and \
+                    (self._last_ckpt_mono >= t_step
+                     or self._last_ckpt_mono == 0.0):
+                last_elastic_check = time.monotonic()
+                d = self.policy.monitor_decision(world)
+                if d is not None:
+                    # A crashed worker frees what looks like growth: its
+                    # failure takes the failure path, not the resize.
+                    for rank in sorted(pending):
+                        res = self._worker_result(group, rank)
+                        if isinstance(res, Exception):
+                            error = res
+                            break
+                    if error is None:
+                        resize_to = d.num_workers
+                        telemetry.inc("ray_tpu_train_upsize_total")
         self._poll_reports()
         if error is not None:
             # Step time since the last committed checkpoint produced no
             # surviving work (the restart replays it).
             self.goodput.reattribute(
                 "lost", time.monotonic() - max(t_step, self._last_ckpt_mono))
-        return error
+        return error, resize_to
 
     def _trip_crash_loop(self, signature: str,
                          last_error: Exception) -> CrashLoopError:
@@ -634,11 +710,16 @@ class TrainController:
     # -- main loop ----------------------------------------------------------
 
     def run(self):
+        from .._scheduler import node_for_run
+        from .scaling_policy import make_scaling_policy
         from .trainer import Result
+        self.node, own_node = node_for_run()
+        self.policy = make_scaling_policy(self.scaling, self.node)
         self.plane = ControlPlane.serve()
         set_current(self.plane)
         failures = 0
         error: Optional[Exception] = None
+        carry_target: Optional[int] = None
         fc = self.run_config.failure_config
         self._backoff_s = fc.restart_backoff_initial_s
         self.watchdog.start()
@@ -646,7 +727,9 @@ class TrainController:
             while True:
                 self.goodput.enter(
                     "init" if not self.world_size_history else "restart")
-                world = self.scaling.num_workers
+                world = self.policy.initial_decision(
+                    prefer=carry_target).num_workers
+                carry_target = None
                 self.world_size_history.append(world)
                 # A fresh incarnation: stale rank clocks and acks of the
                 # torn-down group must not count against the new one.
@@ -655,6 +738,7 @@ class TrainController:
                     generation=len(self.world_size_history))
                 t_form = time.monotonic()
                 error = None
+                resize_to: Optional[int] = None
                 group: Optional[WorkerGroupState] = None
                 try:
                     group = self._start_group(world)
@@ -664,11 +748,14 @@ class TrainController:
                     # budget and backoff below decide on a retry.
                     error = e
                 if group is not None and error is None:
-                    error = self._run_incarnation(group, world)
+                    error, resize_to = self._run_incarnation(group, world)
                 self.goodput.enter("idle")
                 if self._group is not None:
                     self._teardown_group(self._group)
                     self._group = None
+                if resize_to is not None:
+                    carry_target = resize_to
+                    continue  # not a failure: re-form at the new size
                 if error is None:
                     break
                 failures += 1
@@ -714,6 +801,9 @@ class TrainController:
                         "ray_tpu_train_restart_backoff_seconds", delay)
                     self.goodput.enter("restart")
                     time.sleep(delay)
+                # A restart prefers the previous size: the policy waits
+                # briefly for the dead group's bookings to come back.
+                carry_target = world
         finally:
             self.watchdog.stop()
             self.goodput.finish()
@@ -722,6 +812,8 @@ class TrainController:
             self._save_events()
             set_current(None)
             self.plane = None
+            if own_node:
+                self.node.stop()
         rank0 = sorted((r for r in self._reports if r["rank"] == 0),
                        key=lambda r: r["time"])
         last_metrics = rank0[-1]["metrics"] if rank0 else {}

@@ -8,9 +8,12 @@ ray_tpu/train/trainer.py, whose ``JaxTrainer`` it stands beside).
 
 ``train_fn`` must be a module-level function: the spawned workers import
 it by reference (no cloudpickle on the card machine).  ``ScalingConfig(
-device=None)`` puts worker r on card r and builds the kernels once before
-spawning; ``device="cpu"`` runs gloo CPU workers.  Options the port does
-not support yet raise ``NotImplementedError`` naming their ROADMAP entry.
+device=None)`` books a card for each worker through the scheduler (worker r
+takes the card it is granted) and builds the kernels once before spawning;
+``device="cpu"`` runs gloo CPU workers.  ``resources_per_worker`` and
+elastic ``min_workers``/``max_workers`` book through the scheduler too.
+Options the port does not support yet raise ``NotImplementedError`` naming
+their ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -69,9 +72,11 @@ class ScalingConfig:
     # Form a process group even for num_workers == 1.
     force_distributed: bool = False
     mesh_config: Optional[MeshConfig] = None
-    # Elastic resizes are not ported: set, they raise at fit().
+    # Elastic: size each group to what fits in [min_workers, max_workers],
+    # and upsize between checks at a checkpoint boundary.
     min_workers: Optional[int] = None
     max_workers: Optional[int] = None
+    elastic_check_interval_s: float = 5.0
     # How long spawning and forming the group may take before the
     # formation counts as a failure.
     formation_timeout_s: float = 300.0
@@ -117,10 +122,6 @@ class Result:
 
 
 def _refuse_unsupported(scaling: ScalingConfig, run: RunConfig) -> None:
-    if scaling.elastic:
-        raise NotImplementedError(
-            f"min_workers/max_workers (elastic resize) are "
-            f"{todo('elastic resize')}")
     if scaling.num_slices > 1:
         raise NotImplementedError(
             f"num_slices > 1 is {todo('multi-slice')}")
@@ -128,10 +129,6 @@ def _refuse_unsupported(scaling: ScalingConfig, run: RunConfig) -> None:
         raise NotImplementedError(
             "use_tpu, topology and chips_per_worker have no port (a worker "
             f"holds one card): {todo('TPU scaling fields')}")
-    if scaling.resources_per_worker:
-        raise NotImplementedError(
-            "resources_per_worker needs a scheduler: "
-            f"{todo('resources_per_worker')}")
     if run.checkpoint_config.emergency_replica:
         raise NotImplementedError(EMERGENCY_REPLICA_TODO)
     if scaling.device not in (None, "cpu"):

@@ -233,6 +233,23 @@ CATALOG: Dict[str, Dict[str, Any]] = {
         ("operator",), "Rows produced by data-pipeline operators."),
     "ray_tpu_data_blocks_total": _c(
         ("operator",), "Blocks processed by data-pipeline operators."),
+    # -- the scheduler (``_scheduler.py``) and elastic training ------------
+    "ray_tpu_sched_decisions_total": _c(
+        ("kind",), "Scheduler decisions by kind (inline|loop|exchange|"
+                   "pipeline|reject|infeasible|pg_commit|pg_reject)."),
+    "ray_tpu_sched_placement_attempts": _h(
+        (), "Placement rounds a task needed before it was placed.",
+        _SIZE_BUCKETS),
+    "ray_tpu_sched_pg_commit_seconds": _h(
+        (), "Placement-group two-phase commit latency: create (or the "
+            "re-plan after a node death) to CREATED.", _LATENCY_BUCKETS),
+    "ray_tpu_sched_queue_depth": _g(
+        ("queue",), "Scheduler queue depths (queue=ready|waiting_deps|"
+                    "infeasible|pending_pgs), refreshed about once a "
+                    "second."),
+    "ray_tpu_train_upsize_total": _c(
+        (), "Elastic upsizes: the worker group tore down at a checkpoint "
+            "boundary and re-formed larger because capacity joined."),
 }
 
 _lock = threading.Lock()
@@ -274,6 +291,14 @@ def inc(name: str, value: float = 1.0,
 def observe(name: str, value: float,
             tags: Optional[Dict[str, str]] = None) -> None:
     _record(name, "histogram", value, tags)
+
+
+def observe_many(name: str, values,
+                 tags: Optional[Dict[str, str]] = None) -> None:
+    """``observe`` each of ``values`` (the scheduler's attempt-sample
+    flush)."""
+    for v in values:
+        _record(name, "histogram", v, tags)
 
 
 def set_gauge(name: str, value: float,

@@ -6,6 +6,7 @@
     python3 sharded_smoke.py --fit     # only the trainer run (4 cards)
     python3 sharded_smoke.py --collective   # only the NCCL collective group
     python3 sharded_smoke.py --fleet   # only the serving fleet, a replica a card
+    python3 sharded_smoke.py --elastic # only the elastic trainer run (4 cards)
 
 Run from the root of a checkout on a machine with two or more CUDA cards
 and nvcc.  It builds the kernels, then for each run of ``RUNS`` trains 4
@@ -56,6 +57,18 @@ tokens of card 0's replica; then ``chip_smoke.py``'s prefix-heavy fleet
 mix on 1, 2 and 4 replicas (sustained rps, TTFT, ITL, the router's call
 times).  ``--cpu --fleet`` rehearses it with 4 CPU replicas at
 llama_tiny's size.
+
+``--elastic`` runs the scheduler tier across the four cards: a
+``STRICT_PACK`` placement group of four ``{"GPU": 1}`` bundles gives four
+tasks four distinct cards; then a placement group holds two of the four,
+and ``TorchTrainer(min_workers=2, max_workers=4, resources_per_worker=
+{"GPU": 1})`` trains the ``fit`` config over ``MeshConfig(fsdp=-1)`` with
+an async save after every step.  It forms at 2; the group is removed after
+step 2 once a save has committed, and the trainer upsizes to 4 at the next
+checkpoint boundary and resumes from the latest commit.  ``world_size_history`` must be ``[2, 4]``, every step's
+loss within ``TOL`` of one card's, and the flash kernels must launch in
+every worker.  ``--cpu --elastic`` rehearses it over gloo with four
+advertised cards (``init(num_tpus=4)``) at llama_tiny's size.
 
 One JSON line a run; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, with fewer than two cards (two cards:
@@ -399,6 +412,204 @@ def _fit_runs(cpu: bool, smi):
     return out, ok
 
 
+ELASTIC_STEPS = 8
+
+
+def card_probe(cpu: bool):
+    """A one-card task: the card it was pinned to, and how many it sees
+    (module level: the task worker imports it)."""
+    import os
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if cpu:
+        return visible, 1
+    import torch
+    return visible, torch.cuda.device_count()
+
+
+def elastic_train_fn(config):
+    """The elastic run's train fn: the ``fit`` config over the group's
+    fsdp mesh, an async save after every step, resumed from the latest
+    (module level: each worker imports it)."""
+    import torch
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch._tree import tree_map
+    from ray_tpu_torch.models.llama import param_logical_axes
+    from ray_tpu_torch.ops.attention import (flash_bwd_dkv, flash_bwd_dq,
+                                             flash_fwd)
+    from ray_tpu_torch.optim import AdamState
+    from ray_tpu_torch.parallel import make_lm_train_step
+    cpu = config["cpu"]
+    if not cpu:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = train.get_context()
+    cfg, dtype, seq = _fit_cfg(cpu)
+    mesh = train.get_mesh()
+    init_fn, step_fn, place = make_lm_train_step(
+        cfg, mesh, learning_rate=LR, param_dtype=dtype)
+    axes = param_logical_axes(cfg)
+    state = train.load_sharded({"params": axes, "mu": axes, "nu": axes,
+                                "count": None, "step": None})
+    if state is None:
+        params, opt = init_fn(torch.Generator(
+            device="cpu" if cpu else "cuda").manual_seed(0))
+        start = 0
+    else:
+        params = tree_map(lambda p: p.requires_grad_(True),
+                          state["params"])
+        opt = AdamState(state["count"], state["mu"], state["nu"])
+        start = int(state["step"])
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    for step in range(start, ELASTIC_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, place(_fit_batch(cfg, step,
+                                                               seq)))
+        loss = float(m["loss"])
+        step_ms = (time.perf_counter() - t0) * 1e3
+        # The CPU rehearsal's steps are paced to the card's (a step and
+        # its save take seconds there), so the resize lands mid-run.
+        time.sleep(max(0.0, config["pace_s"] - step_ms / 1e3))
+        train.save_checkpoint({"params": params, "mu": opt.mu, "nu": opt.nu,
+                               "count": opt.count, "step": step + 1})
+        train.report({"step": step, "loss": loss, "step_ms": step_ms,
+                      "world": ctx.get_world_size(), "resumed_from": start,
+                      "mesh": mesh.shape,
+                      "launches": {fn.__name__: fn.launches for fn in
+                                   (flash_fwd, flash_bwd_dq,
+                                    flash_bwd_dkv)}})
+
+
+def _elastic_run(cpu: bool, smi):
+    """Four tasks on four cards through a ``STRICT_PACK`` group, then the
+    elastic trainer upsizing from 2 to 4 cards when a placement group
+    holding two is removed: the JSON line, and whether it held."""
+    import threading
+
+    import torch
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.parallel import build_mesh, make_lm_train_step
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig,
+                                     MeshConfig, RunConfig, ScalingConfig,
+                                     TorchTrainer)
+    from ray_tpu_torch.train.controller import TrainController
+    cfg, dtype, seq = _fit_cfg(cpu)
+    init_fn, step_fn, place = make_lm_train_step(
+        cfg, build_mesh(device="cpu" if cpu else "cuda"), learning_rate=LR,
+        param_dtype=dtype)
+    params, opt = init_fn(torch.Generator(
+        device="cpu" if cpu else "cuda").manual_seed(0))
+    bare = []
+    for step in range(ELASTIC_STEPS):
+        params, opt, m = step_fn(params, opt, place(_fit_batch(cfg, step,
+                                                               seq)))
+        bare.append(float(m["loss"]))
+    del params, opt, m
+    if not cpu:
+        torch.cuda.empty_cache()
+    out = {"run": "elastic", "card": smi,
+           "config": "llama_tiny" if cpu else
+           "bench.py:3384-3390 width, 4 layers",
+           "batch": [FIT_BATCH, seq], "loss_one_card": bare, "tol": TOL}
+    session = rtt.init(num_cpus=8, num_tpus=4 if cpu else None)
+    try:
+        out["cluster_resources"] = {k: v for k, v in
+                                    rtt.cluster_resources().items()
+                                    if k != "memory"}
+        pg = rtt.placement_group([{"GPU": 1}] * 4, strategy="STRICT_PACK")
+        packed = pg.ready(timeout=60)
+        probes = rtt.get([rtt.remote(
+            num_cpus=0, num_tpus=1, placement_group=pg,
+            placement_group_bundle_index=i)(card_probe).remote(cpu)
+            for i in range(4)], timeout=600)
+        rtt.remove_placement_group(pg)
+        out["strict_pack"] = {"ready": packed, "tasks": probes}
+        hold = rtt.placement_group([{"GPU": 1}, {"GPU": 1}])
+        held = hold.ready(timeout=60)
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = TorchTrainer(
+                elastic_train_fn, train_loop_config={
+                    "cpu": cpu, "pace_s": 0.5 if cpu else 0.0},
+                scaling_config=ScalingConfig(
+                    min_workers=2, max_workers=4,
+                    resources_per_worker={"GPU": 1},
+                    mesh_config=MeshConfig(fsdp=-1),
+                    elastic_check_interval_s=0.5,
+                    device="cpu" if cpu else None),
+                run_config=RunConfig(name="elastic", storage_path=tmp,
+                                     failure_config=FailureConfig(
+                                         max_failures=1),
+                                     checkpoint_config=CheckpointConfig(
+                                         num_to_keep=2)))
+            controller = TrainController(trainer._train_fn, trainer._config,
+                                         trainer._scaling,
+                                         trainer._run_config)
+            box = {}
+            t0 = time.perf_counter()
+            if not cpu:
+                from ray_tpu_torch.ops import _build
+                _build.build()
+            t = threading.Thread(target=lambda: box.update(
+                r=controller.run()), daemon=True)
+            t.start()
+            removed_at = None
+            deadline = time.monotonic() + 900
+            while t.is_alive() and time.monotonic() < deadline:
+                # After step 2, once a save has committed: with none, the
+                # elastic loop re-forms at once and replays from step 0
+                # (JAX's rule), and the run would show no resume.
+                if removed_at is None and any(
+                        r["rank"] == 0 and r["metrics"].get("step", -1) >= 2
+                        for r in list(controller._reports)) and \
+                        controller.manager.latest() is not None:
+                    rtt.remove_placement_group(hold)
+                    removed_at = time.time()
+                t.join(timeout=0.1)
+            result = box.get("r")
+        fit_s = time.perf_counter() - t0
+        avail = rtt.available_resources()
+    finally:
+        rtt.shutdown()
+    if result is None:
+        out.update(error="the elastic fit did not finish", held=False)
+        return out, False
+    reps = [r for r in result.all_reports if "step" in r["metrics"]]
+    rank0 = [r["metrics"] for r in reps if r["rank"] == 0]
+    errs = [abs(r["metrics"]["loss"] - bare[r["metrics"]["step"]])
+            / abs(bare[r["metrics"]["step"]]) for r in reps]
+    launches = {}
+    for r in reps:
+        launches.setdefault((r["metrics"]["world"], r["rank"]), {}).update(
+            r["metrics"]["launches"])
+    resumed = [m for m in rank0 if m["world"] == 4]
+    visible = [p[0] for p in probes]
+    out.update({
+        "fit_s": fit_s, "error": repr(result.error) if result.error else None,
+        "held_pg_ready": held, "world_size_history":
+        result.world_size_history, "formation_s": result.formation_seconds,
+        "pg_removed_after_step": 2,
+        "resumed_from": resumed[0]["resumed_from"] if resumed else None,
+        "loss": [[m["world"], m["step"], m["loss"]] for m in rank0],
+        "step_ms": [[m["world"], m["step_ms"]] for m in rank0],
+        "max_rel_err_vs_one_card": max(errs) if errs else None,
+        "goodput": result.goodput,
+        "launches_by_world_rank": {f"w{w}r{r}": v for (w, r), v in
+                                   sorted(launches.items())},
+        "available_after": {k: v for k, v in avail.items()
+                            if k != "memory"}})
+    launched = cpu or (len(launches) == 6 and all(
+        v > 0 for d in launches.values() for v in d.values()))
+    ok = (packed and held and len(set(visible)) == 4
+          and all(p[1] == 1 for p in probes)
+          and result.error is None
+          and result.world_size_history == [2, 4]
+          and bool(errs) and max(errs) <= TOL["loss"]
+          and bool(resumed) and resumed[0]["resumed_from"] >= 1
+          and launched and avail.get("GPU") == 4.0)
+    out["held"] = ok
+    return out, ok
+
+
 def _collective_run(cpu: bool, smi):
     """``--collective``: the group over every card (NCCL), or over 4 CPU
     actors (gloo); its results held to numpy (``chip_smoke``'s member and
@@ -558,13 +769,14 @@ def main(argv) -> int:
     fit_only = "--fit" in argv
     collective_only = "--collective" in argv
     fleet_only = "--fleet" in argv
+    elastic_only = "--elastic" in argv
     import torch
     from ray_tpu_torch._device import card_power_line
     from ray_tpu_torch.parallel import build_mesh
     from ray_tpu_torch.parallel.launch import run_local
     world = 4 if cpu else torch.cuda.device_count()
-    if fit_only and world < 4:
-        print("sharded_smoke: the trainer run needs four cards",
+    if (fit_only or elastic_only) and world < 4:
+        print("sharded_smoke: the trainer runs need four cards",
               file=sys.stderr)
         return 1
     if not cpu and world < 2:
@@ -592,7 +804,12 @@ def main(argv) -> int:
         emit(row)
         if not ok:
             failed.append("fleet")
-    only = fit_only or collective_only or fleet_only
+    if elastic_only:
+        row, ok = _elastic_run(cpu, smi)
+        emit(row)
+        if not ok:
+            failed.append("elastic")
+    only = fit_only or collective_only or fleet_only or elastic_only
     runs = () if only else RUNS[4 if world >= 4 else 2]
     for name, kind, spec_kw, changes in runs:
         if kind not in refs:
@@ -630,7 +847,7 @@ def main(argv) -> int:
         if not (row["same_on_every_rank"] and launched
                 and all(errs[k] <= TOL[k] for k in held)):
             failed.append(name)
-    if world >= 4 and not (collective_only or fleet_only):
+    if world >= 4 and not (collective_only or fleet_only or elastic_only):
         if not cpu:
             refs.clear()
             torch.cuda.empty_cache()

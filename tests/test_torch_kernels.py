@@ -983,3 +983,29 @@ def test_llama_fed_from_a_dataset_equals_from_memory(cuda, tmp_path):
     assert res["launches"]["flash_fwd"] == 2 * 2 * cfg.layers
     assert res["launches"]["flash_bwd_dq"] == 2 * cfg.layers
     assert res["launches"]["flash_bwd_dkv"] == 2 * cfg.layers
+
+
+def test_num_tpus_task_sees_one_card_and_launches_flash(cuda):
+    """A ``num_tpus=1`` task is pinned to one card (``CUDA_VISIBLE_DEVICES``
+    holds the card it was granted) and launches the flash forward at the
+    serving shape, held against the plain version in the worker
+    (``chip_smoke.sched_card_task``, the ``sched_cards`` phase's task)."""
+    import pathlib
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)      # task workers import chip_smoke
+    import chip_smoke as cs
+    import ray_tpu_torch as rtt
+    rtt.init(num_cpus=2)
+    try:
+        assert rtt.cluster_resources()["GPU"] == torch.cuda.device_count()
+        r = rtt.get(rtt.remote(num_tpus=1)(cs.sched_card_task).remote(0),
+                    timeout=300)
+        assert rtt.available_resources()["GPU"] == \
+            rtt.cluster_resources()["GPU"]
+    finally:
+        rtt.shutdown()
+    assert r["device_count"] == 1 and r["visible"] is not None
+    assert r["launches"] == 1
+    assert r["max_abs_err"] <= cs.TOL["bfloat16"]

@@ -516,7 +516,11 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
             "_actor.py", "backends.py", "_object_store.py", "remote.py",
             "controller.py", "batching.py", "multiplex.py",
             "compiled_dag.py", "syncdebug.py", "capture.py", "recompile.py",
-            "rules_torch.py"} <= \
+            "rules_torch.py", "_scheduler.py", "_resources.py",
+            "_runtime_env.py", "_cgroup.py", "_memory_monitor.py",
+            "_config.py", "_ids.py", "cuda.py", "accelerator.py",
+            "decisions.py", "tuner.py", "searchers.py", "schedulers.py",
+            "scaling_policy.py", "gpu.py"} <= \
         {f.name for f in files}
     for f in files:
         # Whole-word roots: ray_tpu_torch is the port itself.  optax, chex

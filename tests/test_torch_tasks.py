@@ -6,11 +6,11 @@ Each case of ``tests/test_tasks_actors.py``'s ``TestTasks``,
 runs as one scenario through both packages: the JAX side under the
 conftest ``ray_start`` runtime, the port's under ``ray_tpu_torch.init``
 (one module-scoped session, 4 CPU slots), and the two results must be
-equal.  The one departure is ``nested_tasks``: a task that submits a task
-raises in the port, naming its ROADMAP entry.  Then what only the port
-has: the by-reference rule, the refusals, a ref's payload crossing from
-worker to worker without the driver mapping it, workers that never import
-torch, and no segment of a session left after ``shutdown()``.
+equal; ``nested_tasks`` gives 201 on both.  Then what only the port has:
+the by-reference rule, the scheduler's options accepted on both packages,
+the refusals, a ref's payload crossing from worker to worker without the
+driver mapping it, workers that never import torch, and no segment of a
+session left after ``shutdown()``.
 
 The task functions are plain module-level functions that each package's
 ``remote`` wraps (the port pickles them by reference, so every worker
@@ -285,18 +285,13 @@ def test_scenario_matches_jax(scenario, ray_start, port, tmp_path):
     assert got == want
 
 
-def test_nested_tasks_raise_naming_their_entry(ray_start, port):
-    """JAX's ``test_nested_tasks`` gives 201; the port's worker has no way
-    to submit (it would need the driver's pool), so the inner
-    ``.remote()`` raises, naming the ROADMAP entry."""
+def test_nested_tasks_give_201_on_both(ray_start, port):
+    """JAX's ``test_nested_tasks``: the inner ``.remote()`` goes to the
+    driver's scheduler, and both packages give 201."""
     import ray_tpu
     assert ray_tpu.get(ray_tpu.remote(outer_jax).remote(),
                        timeout=TIMEOUT) == 201
-    with pytest.raises(rtt.TaskError) as ei:
-        rtt.get(rtt.remote(outer_port).remote(), timeout=TIMEOUT)
-    assert isinstance(ei.value.cause, NotImplementedError)
-    assert "nested tasks" in str(ei.value.cause)
-    assert "item 12" in str(ei.value.cause)
+    assert rtt.get(rtt.remote(outer_port).remote(), timeout=TIMEOUT) == 201
 
 
 def test_lambda_and_nested_function_refused_at_remote(port):
@@ -314,20 +309,48 @@ def test_lambda_and_nested_function_refused_at_remote(port):
         rtt.remote(double)(1)
 
 
+def _scheduler_option(pkg, opt):
+    """(options, expected value of ``env_of(key)``, key) exercising one
+    scheduler option on ``pkg``'s session (4 CPUs, no cards asked for)."""
+    if opt == "num_tpus":
+        return {"num_tpus": 0}, None, "RTT_UNSET"
+    if opt == "resources":
+        return {"resources": {"CPU": 2}}, None, "RTT_UNSET"
+    if opt == "memory":
+        return {"memory": 1 << 20}, None, "RTT_UNSET"
+    if opt == "placement_group":
+        pg = pkg.placement_group([{"CPU": 2}])
+        assert pg.ready(timeout=TIMEOUT)
+        return {"placement_group": pg}, None, "RTT_UNSET"
+    if opt == "scheduling_strategy":
+        return {"scheduling_strategy": "SPREAD"}, None, "RTT_UNSET"
+    return ({"runtime_env": {"env_vars": {"RTT_PROBE": "rt"}}}, "rt",
+            "RTT_PROBE")
+
+
 @pytest.mark.parametrize("opt", ["num_tpus", "resources", "memory",
                                  "placement_group", "scheduling_strategy",
                                  "runtime_env"])
-def test_scheduler_options_refused_by_name(opt, port):
-    with pytest.raises(NotImplementedError, match=opt):
-        rtt.remote(**{opt: 1})(double)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        rtt.remote(double).options(**{opt: 1})
+def test_scheduler_option_runs_as_on_jax(opt, ray_start, port):
+    """Each option of the scheduler tier, on ``remote`` and on
+    ``.options``, books and runs the task on both packages with the same
+    result; ``test_torch_sched.py`` holds each to JAX's decisions."""
+    import ray_tpu
+    got = {}
+    for pkg in (ray_tpu, rtt):
+        opts, want, key = _scheduler_option(pkg, opt)
+        out = pkg.get([pkg.remote(**opts)(env_of).remote(key),
+                       pkg.remote(env_of).options(**opts).remote(key)],
+                      timeout=TIMEOUT)
+        assert out == [want, want]
+        got[pkg.__name__] = out
+        if opt == "placement_group":
+            pkg.remove_placement_group(opts["placement_group"])
+    assert got["ray_tpu"] == got["ray_tpu_torch"]
 
 
 def test_init_refusals_and_reinit(port):
-    for kw, entry in (({"num_tpus": 1}, "item 12"),
-                      ({"resources": {"x": 1}}, "item 12"),
-                      ({"head_port": 0}, "item 13"),
+    for kw, entry in (({"head_port": 0}, "item 13"),
                       ({"address": "h:1"}, "item 13"),
                       ({"cluster_token": b"t"}, "item 13"),
                       ({"state_dir": "/tmp"}, "item 13")):
@@ -336,8 +359,16 @@ def test_init_refusals_and_reinit(port):
     assert rtt.init(num_cpus=2) is port       # ignore_reinit_error
     with pytest.raises(RuntimeError, match="already called"):
         rtt.init(ignore_reinit_error=False)
-    with pytest.raises(ValueError, match="more than the session"):
-        rtt.remote(num_cpus=8)(double).remote(1)
+    # More CPUs than the node has: parked as infeasible, as JAX's
+    # scheduler parks it (it never runs).
+    parked = rtt.remote(num_cpus=8)(double).remote(1)
+    deadline = time.monotonic() + TIMEOUT
+    sched = port.node.scheduler
+    while sched.queue_depths()["infeasible"] < 1 and \
+            time.monotonic() < deadline:
+        time.sleep(0.02)
+    assert sched.queue_depths()["infeasible"] >= 1
+    assert not parked._fut.done()
     with pytest.raises(ValueError, match="unknown task options"):
         rtt.remote(num_gpus=1)(double)
 

@@ -3,7 +3,9 @@ the four cases of tests/test_train.py (an MLP trained with legacy
 checkpoints on one worker, a planted failure and its resume, an exhausted
 failure budget, two-worker data parallelism), run under both trainers from
 JAX's ``init_mlp`` weights carried through numpy; the metric names one fit
-emits; and the options the port refuses.
+emits; the options the port refuses; and what the scheduler tier gives
+the trainer: ``resources_per_worker`` booked and released, and the elastic
+upsize over gloo when a placement group frees capacity.
 
 JAX is imported inside functions: every spawned worker imports this file
 to find its train fn.
@@ -259,12 +261,10 @@ def _nested_fn_holder():
 
 class TestRefusals:
     @pytest.mark.parametrize("kw,entry", [
-        ({"min_workers": 1, "max_workers": 2}, "elastic resize"),
         ({"num_slices": 2, "num_workers": 2}, "multi-slice"),
         ({"use_tpu": True}, "TPU scaling fields"),
         ({"topology": "2x2"}, "TPU scaling fields"),
-        ({"chips_per_worker": 4}, "TPU scaling fields"),
-        ({"resources_per_worker": {"CPU": 1}}, "resources_per_worker")])
+        ({"chips_per_worker": 4}, "TPU scaling fields")])
     def test_scaling_options_raise_with_roadmap_entry(self, tmp_path, kw,
                                                       entry):
         kw = dict(dict(device="cpu"), **kw)
@@ -345,3 +345,156 @@ class TestRefusals:
             TorchTrainer(_always_dies, scaling_config=scaling,
                          run_config=RunConfig(
                              storage_path=str(tmp_path))).fit()
+
+
+# -- the scheduler tier: bookings and elastic resizes ----------------------------
+
+
+def _elastic_train_fn(config):
+    """JAX's ``make_train_fn`` (tests/test_train_elastic.py) in the port:
+    a checkpoint after every step, resumed from the latest."""
+    import time as _time
+
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch.train import Checkpoint
+
+    ctx = train.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    start = 0
+    ckpt = ctx.get_checkpoint()
+    if ckpt is not None:
+        start = int(ckpt.load_pytree()["step"])
+    for step in range(start, config["steps"]):
+        _time.sleep(config["step_s"])
+        metrics = {"step": step + 1, "start": start, "world": world}
+        if rank == 0:
+            d = os.path.join(ctx.storage_path, ctx.get_experiment_name(),
+                             f"step_{step:04d}")
+            train.report(metrics, checkpoint=Checkpoint.from_pytree(
+                {"step": step + 1}, d))
+        else:
+            train.report(metrics)
+
+
+@pytest.fixture
+def session():
+    import ray_tpu_torch as rtt
+    s = rtt.init(num_cpus=2, resources={"slot": 2})
+    yield s
+    rtt.shutdown()
+
+
+def test_elastic_upsize_when_a_placement_group_frees_capacity(
+        session, tmp_path):
+    """JAX's ``test_upscale_when_capacity_appears`` on one node: a
+    placement group holds one of the two CPUs, so the group forms at 1;
+    removing it after step 2 lets the monitor upsize to 2 at the next
+    checkpoint, and the run resumes from it to the end."""
+    import threading
+    import time
+
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.train.controller import TrainController
+    pg = rtt.placement_group([{"CPU": 1}])
+    assert pg.ready(timeout=FORM_S)
+    trainer = TorchTrainer(
+        _elastic_train_fn, train_loop_config={"steps": 10, "step_s": 0.3},
+        scaling_config=ScalingConfig(
+            device="cpu", resources_per_worker={"CPU": 1}, min_workers=1,
+            max_workers=2, elastic_check_interval_s=0.5,
+            formation_timeout_s=FORM_S),
+        run_config=RunConfig(storage_path=str(tmp_path),
+                             failure_config=FailureConfig(max_failures=2)))
+    controller = TrainController(trainer._train_fn, trainer._config,
+                                 trainer._scaling, trainer._run_config)
+    box = {}
+    t = threading.Thread(target=lambda: box.update(r=controller.run()),
+                         daemon=True)
+    t.start()
+    deadline = time.monotonic() + FORM_S
+    while time.monotonic() < deadline and not any(
+            r["metrics"].get("step", 0) >= 2 for r in controller._reports):
+        time.sleep(0.1)
+    rtt.remove_placement_group(pg)
+    t.join(timeout=180)
+    assert not t.is_alive(), "training did not finish"
+    r = box["r"]
+    assert r.error is None, r.error
+    assert r.world_size_history == [1, 2]
+    assert r.metrics["step"] == 10 and r.metrics["world"] == 2
+    resumed = [x["metrics"] for x in r.all_reports if x["rank"] == 0
+               and x["metrics"]["world"] == 2]
+    assert resumed and resumed[0]["start"] >= 2
+    assert rtt.available_resources()["CPU"] == 2.0
+
+
+def _holds_a_while(config):
+    import time as _time
+
+    import ray_tpu_torch.train as train
+    train.report({"step": 0})
+    _time.sleep(config["hold_s"])
+
+
+def test_resources_per_worker_booked_and_released(session, tmp_path):
+    """Each worker books its ``resources_per_worker`` before it spawns
+    (the custom resource runs down while the group lives) and gives it
+    back at teardown."""
+    import threading
+    import time
+
+    import ray_tpu_torch as rtt
+    seen = []
+    stop = threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            seen.append(rtt.available_resources().get("slot", 0.0))
+            time.sleep(0.02)
+
+    w = threading.Thread(target=watch, daemon=True)
+    w.start()
+    try:
+        r = TorchTrainer(
+            _holds_a_while, train_loop_config={"hold_s": 1.0},
+            scaling_config=ScalingConfig(
+                num_workers=2, device="cpu",
+                resources_per_worker={"CPU": 1, "slot": 1},
+                formation_timeout_s=FORM_S),
+            run_config=RunConfig(storage_path=str(tmp_path))).fit()
+    finally:
+        stop.set()
+        w.join()
+    assert r.error is None, r.error
+    assert 0.0 in seen
+    avail = rtt.available_resources()
+    assert avail["slot"] == 2.0 and avail["CPU"] == 2.0
+    # The decision ring shows the two bookings placed.
+    counts = session.node.scheduler.ring.stats()["counts"]
+    assert counts.get("inline", 0) + counts.get("loop", 0) >= 2
+
+
+@pytest.mark.parametrize("res,want", [
+    ({"slot": 3}, (RuntimeError, "the node has")),     # never fits
+    ({"slot": 2}, (TimeoutError, "not placed"))])      # fits, held
+def test_resources_per_worker_not_placed_fail_the_formation(
+        session, tmp_path, res, want):
+    """A worker shape the node could never hold (3 slots of 2) fails the
+    formation at once; one that fits but is held by a placement group
+    times out at ``formation_timeout_s``.  Neither spawns, and nothing
+    stays booked."""
+    import ray_tpu_torch as rtt
+    pg = rtt.placement_group([{"slot": 1}])
+    assert pg.ready(timeout=FORM_S)
+    try:
+        r = TorchTrainer(
+            _holds_a_while, train_loop_config={"hold_s": 0.0},
+            scaling_config=ScalingConfig(
+                num_workers=1, device="cpu", resources_per_worker=res,
+                formation_timeout_s=1.0),
+            run_config=RunConfig(storage_path=str(tmp_path))).fit()
+    finally:
+        rtt.remove_placement_group(pg)
+    assert isinstance(r.error, want[0]), r.error
+    assert want[1] in str(r.error)
+    assert rtt.available_resources()["slot"] == 2.0
