@@ -2095,8 +2095,8 @@ def _import_device_ms(eng, handoff, reps: int = 5) -> float:
 
 
 def phase_serving_tiers(smi):
-    """disagg_load, then fleet, on one set of llama_1b weights (bf16, from
-    a seeded generator, as the serve phase's)."""
+    """disagg_load, then fleet, then lock_profile, on one set of llama_1b
+    weights (bf16, from a seeded generator, as the serve phase's)."""
     import torch
     from ray_tpu_torch.models.llama import init_params, llama_1b
     cfg = llama_1b()
@@ -2105,10 +2105,13 @@ def phase_serving_tiers(smi):
     disagg = phase_disagg_load(smi, params, cfg)
     torch.cuda.empty_cache()
     fleet = phase_fleet(smi, params, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lock_profile = phase_lock_profile(smi, params, cfg)
     # Servers, replicas and their threads refer to each other: collect
     # them now, so their pages are free for the phases after.
     gc.collect()
-    return disagg, fleet
+    return disagg, fleet, lock_profile
 
 
 def phase_disagg_load(smi, params, cfg):
@@ -2250,6 +2253,7 @@ def phase_fleet(smi, params, cfg):
         list(range(1, FLEET_PROMPT + 1)),
         SamplingParams(max_tokens=FLEET_MAX_TOKENS)).nbytes
     cache_bytes = int(entry * (FLEET_POOL // 2) + entry // 2)
+    FLEET_CACHE["bytes"] = cache_bytes
     out.update(entry_bytes=entry, cache_capacity_bytes=cache_bytes)
     spec = dict(rps=FLEET_RPS, duration_s=FLEET_DURATION_S,
                 long_fraction=1.0, long_prompt=FLEET_PROMPT,
@@ -5925,6 +5929,446 @@ def _profile_serving(smi, handle, bodies, replica_pid):
     return out
 
 
+# -- the developer tools and one-host surfaces on the card -----------------------
+# lock_profile (in the serving tiers: the contention profiler and the
+# lock-order detector over the in-process fleet), sanitize (the leak
+# sanitizer over a serve deployment, a card task and a CUDA IPC handoff,
+# then a planted leak), trace_metrics (a trace across a card task and its
+# nested task, ActorPool over two card actors, a Queue, a metrics scrape).
+
+#: The profiled run's and the detector's burst's seconds (FLEET_RPS, the
+#: fleet's spec otherwise).
+LOCK_PROFILE_S, LOCK_ORDER_S = 3.0, 1.5
+#: The cache the fleet phase gave a replica (set there).
+FLEET_CACHE = {}
+
+
+def _engine_lock_site() -> str:
+    """``engine.py:<line>``: where InferenceEngine creates its lock, the
+    site the contention profiler names it by."""
+    import ray_tpu_torch.llm.engine as eng
+    with open(eng.__file__) as f:
+        for i, line in enumerate(f, 1):
+            if "self._lock = threading.RLock()" in line:
+                return f"engine.py:{i}"
+    raise RuntimeError("InferenceEngine's lock not found")
+
+
+def _lock_row(report, site):
+    rows = [r for r in report["sites"] if r["site"] == site]
+    if not rows:
+        return None
+    r = rows[0]
+    return {"site": site, "locks": r["locks"], "acquires": r["acquires"],
+            "contended": r["contended"],
+            "wait_p50_ms": r["wait_p50_s"] * 1e3,
+            "wait_p99_ms": r["wait_p99_s"] * 1e3,
+            "contended_wait_p50_ms": r["contended_wait_p50_s"] * 1e3,
+            "contended_wait_p99_ms": r["contended_wait_p99_s"] * 1e3,
+            "wait_max_ms": r["wait_max_s"] * 1e3,
+            "hold_p50_ms": r["hold_p50_s"] * 1e3,
+            "hold_max_ms": r["hold_max_s"] * 1e3}
+
+
+def _fleet_spec(duration_s):
+    return dict(rps=FLEET_RPS, duration_s=duration_s, long_fraction=1.0,
+                long_prompt=FLEET_PROMPT, long_max_tokens=FLEET_MAX_TOKENS,
+                short_prompt=32, short_max_tokens=FLEET_MAX_TOKENS,
+                prompt_pool=FLEET_POOL, drain_timeout_s=120.0)
+
+
+def _fleet_one(params, cfg, name):
+    from ray_tpu_torch.llm.fleet import FleetConfig, FleetServer
+    srv = FleetServer(lambda: (params, cfg), name=name,
+                      admission=_open_admission(),
+                      config=FleetConfig(
+                          num_replicas=1, engine_options=dict(SERVE_OPTS),
+                          cache_capacity_bytes=FLEET_CACHE["bytes"]),
+                      record_token_times=True)
+    pubs = [srv.submit({"prompt_tokens": [1] * (FLEET_PROMPT - i),
+                        "max_tokens": 2, "timeout_s": 300})
+            for i in range(2)]
+    for x in pubs:
+        srv.result(x, timeout_s=300)
+    return srv
+
+
+def phase_lock_profile(smi, params, cfg):
+    """The port's contention profiler (``RAY_TPU_LOCK_PROFILE``'s
+    ``install_profile``), installed before a one-replica in-process fleet
+    is built (only locks made after install are instrumented), over the
+    fleet's traffic at FLEET_RPS with ``_time_router_calls`` on as well:
+    the engine lock's waits and holds by creation site beside the hand
+    timer's router-call times.  Then a shorter burst under the lock-order
+    detector (``install``), its findings printed.  The launches are the
+    profiled run's, in this process."""
+    import torch
+    from ray_tpu_torch.devtools import lockdebug
+    from ray_tpu_torch.llm.disagg import ServeLoadSpec, run_open_loop
+    t0 = time.perf_counter()
+    site = _engine_lock_site()
+    out = {"phase": "lock_profile", "model": "llama_1b", "card": smi,
+           "rps": FLEET_RPS, "duration_s": LOCK_PROFILE_S,
+           "engine_lock_site": f"ray_tpu_torch/llm/{site}"}
+    lockdebug.install_profile()
+    try:
+        srv = _fleet_one(params, cfg, "lockprof")
+        try:
+            waits = _time_router_calls(srv)
+            lockdebug.clear_contention()
+            torch.cuda.synchronize()
+            # -- the main path: launch counts read from this window only.
+            _reset_launches()
+            r = run_open_loop(srv, ServeLoadSpec(**_fleet_spec(
+                LOCK_PROFILE_S)), cfg.vocab_size)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _read_launches().items()
+                        if k in ("flash_fwd", "paged_decode")}
+            # -- end of the main path.
+            report = lockdebug.contention_report(top=10_000)
+            _untime_router_calls(srv, waits)
+        finally:
+            srv.close()
+    finally:
+        lockdebug.uninstall_profile()
+    row = _lock_row(report, site)
+    out.update(load=_load_row(r), engine_lock=row,
+               router_calls=_summarize_waits(waits),
+               hottest_sites=[{k: x[k] for k in ("site", "kind", "acquires",
+                                                 "contended", "wait_total_s")}
+                              for x in report["sites"][:5]],
+               launches=launches)
+    plain = FLEET_IN_PROCESS.get(1) or {}
+    out["itl_p50_ms_plain"] = plain.get("itl_p50_ms")
+    out["itl_p50_ms_profiled"] = r["itl_p50_ms"]
+    check(r["unfinished"] == 0 and r["errors"] == 0,
+          f"lock_profile: {out['load']}")
+    check(row is not None and row["acquires"] > 0 and row["contended"] > 0,
+          f"lock_profile: the profiler did not see the engine lock "
+          f"({site}) contended: {row}; hottest {out['hottest_sites']}")
+    check(launches["flash_fwd"] > 0 and launches["paged_decode"] > 0,
+          f"lock_profile: launches {launches}")
+    # The lock-order detector over a shorter burst on a fresh fleet.
+    t1 = time.perf_counter()
+    lockdebug.install()
+    lockdebug.clear()
+    try:
+        srv = _fleet_one(params, cfg, "lockorder")
+        try:
+            r2 = run_open_loop(srv, ServeLoadSpec(**_fleet_spec(
+                LOCK_ORDER_S)), cfg.vocab_size)
+            found = lockdebug.findings()
+            rep = lockdebug.report()
+            drow = _lock_row(lockdebug.contention_report(top=10_000), site)
+        finally:
+            srv.close()
+    finally:
+        lockdebug.uninstall()
+    out["order_detector"] = {
+        "seconds": time.perf_counter() - t1, "edges": rep["edges"],
+        "engine_lock_acquires": drow["acquires"] if drow else 0,
+        "findings": [{"kind": f["kind"], "site": f.get("site"),
+                      "thread": f.get("thread"),
+                      "cycle": f.get("cycle"),
+                      "held_locks": f.get("held_locks"),
+                      "blocking_call": f.get("blocking_call"),
+                      "stack": f.get("stack")} for f in found],
+        "load": _load_row(r2)}
+    check(drow is not None and drow["acquires"] > 0,
+          "lock_profile: the order detector did not instrument the engine "
+          "lock")
+    check(r2["unfinished"] == 0 and r2["errors"] == 0,
+          f"lock_profile: the detector's burst {out['order_detector']}")
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return launches
+
+
+def flash_probe(seed: int):
+    """The flash forward at SCHED_SHAPE on this process's card against its
+    plain version: launches and the largest difference (module level: a
+    task worker or an actor imports it)."""
+    import torch
+    from ray_tpu_torch.ops.attention import flash_fwd, reference_attention
+    sh = SCHED_SHAPE
+    q, k, v = _flash_inputs(sh["B"], sh["H"], sh["Hkv"], sh["S"], sh["S"],
+                            sh["D"], torch.bfloat16, seed)
+    before = flash_fwd.launches
+    out, _ = flash_fwd(q, k, v, causal=True)
+    launches = flash_fwd.launches - before
+    ref = reference_attention(q, k, v, causal=True)
+    err = (out.float() - ref.float()).abs().max().item()
+    return {"launches": launches, "max_abs_err": err, "pid": os.getpid()}
+
+
+class SanitizeFlash:
+    """The sanitize phase's deployment: each request runs the flash
+    forward on the replica's card."""
+
+    def __call__(self, seed):
+        return flash_probe(int(seed))
+
+
+def ipc_read_task(desc):
+    """A card task opening a CUDA IPC handoff: the sum of the exporter's
+    tensor, read in place."""
+    from ray_tpu_torch._object_store import import_page_blob
+    value, _keep = import_page_blob(desc)
+    return float(value.float().sum().item())
+
+
+def _thread_start_us(n: int = 200) -> float:
+    """Mean µs of a framework thread's start and join, started through the
+    sanitizer's ``spawn`` (the port's tree), as recorded or not."""
+    from ray_tpu_torch import _sanitizer
+    t0 = time.perf_counter()
+    for _ in range(n):
+        _sanitizer.spawn(int, name="sanitize-cost").join()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def phase_sanitize(smi):
+    """The port's leak sanitizer installed (``RAY_TPU_SANITIZE``'s
+    ``install``) over ``init()``, a one-replica serve deployment on the
+    card answering requests (the flash forward each), a card task running
+    the flash forward, and a CUDA tensor put into the object store and
+    read over IPC in a card task: ``shutdown()`` raises no LeakError.
+    Then a planted leak (the metrics server's thread, started from the
+    port's tree and left running) must raise.  Its cost: a framework
+    thread's start with the sanitizer off and on, and the gate's time."""
+    import torch
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch import _object_store, _sanitizer, serve
+    from ray_tpu_torch.util import metrics
+    t0 = time.perf_counter()
+    out = {"phase": "sanitize", "card": smi}
+    was_on = _sanitizer.is_enabled()
+    _sanitizer.uninstall()
+    cost_off = [_thread_start_us() for _ in range(3)]
+    _sanitizer.install()
+    cost_on = [_thread_start_us() for _ in range(3)]
+    out["thread_start_us"] = {"off": min(cost_off), "on": min(cost_on)}
+    try:
+        rtt.init(num_cpus=4)
+        handle = serve.run(serve.deployment(
+            SanitizeFlash, name="sanitize_flash",
+            ray_actor_options={"device": "cuda"}))
+        served = [rtt.get(handle.remote(s), timeout=600) for s in range(3)]
+        task = rtt.get(rtt.remote(num_tpus=1)(flash_probe).remote(7),
+                       timeout=600)
+        store = _object_store.SharedMemoryStore()
+        x = torch.randn(1 << 20, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(3))
+        oid = _object_store.new_object_id()
+        desc = _object_store.export_page_blob(store, oid, x)
+        check(desc is not None and desc[0] == "cuda_ipc",
+              f"sanitize: the CUDA tensor's descriptor {desc}")
+        pinned = _sanitizer.report()["pins"]
+        theirs = rtt.get(rtt.remote(num_tpus=1)(ipc_read_task).remote(desc),
+                         timeout=600)
+        _object_store.settle_sends(desc, delivered=True)
+        _object_store.release_page_blob(store, oid)
+        mine = float(x.sum().item())
+        del x
+        during = _sanitizer.report()
+        serve.shutdown()
+        t_gate = time.perf_counter()
+        rtt.shutdown()            # raises LeakError on any leak
+        out["shutdown_s"] = time.perf_counter() - t_gate
+        after = _sanitizer.report()
+        out.update(
+            served=[{k: r[k] for k in ("launches", "max_abs_err")}
+                    for r in served],
+            task={k: task[k] for k in ("launches", "max_abs_err")},
+            ipc={"sum_exporter": mine, "sum_importer": theirs,
+                 "pins_while_exported": len(pinned)},
+            registries_during={k: len(during[k]) for k in
+                               ("threads", "pins", "files", "named_actors")},
+            registries_after={k: len(after[k]) for k in
+                              ("threads", "pins", "files", "named_actors")})
+        tol = TOL["bfloat16"]
+        check(all(r["launches"] >= 1 and r["max_abs_err"] <= tol
+                  for r in served + [task]),
+              f"sanitize: flash on the card {out['served']} {out['task']}")
+        check(len(pinned) >= 1, "sanitize: the export was not pinned")
+        check(abs(theirs - mine) <= 1e-3 * max(1.0, abs(mine)),
+              f"sanitize: IPC read {theirs} != {mine}")
+        # The planted leak: a framework thread left running.
+        rtt.init(num_cpus=1)
+        port = metrics.start_metrics_server(0)
+        grace, _sanitizer.DEFAULT_GRACE_S = _sanitizer.DEFAULT_GRACE_S, 1.0
+        try:
+            rtt.shutdown()
+            planted = None
+        except _sanitizer.LeakError as e:
+            planted = str(e)
+        finally:
+            _sanitizer.DEFAULT_GRACE_S = grace
+            metrics.stop_metrics_server()
+        out["planted"] = {"raised": planted is not None,
+                          "metrics_port": port,
+                          "report": planted}
+        check(planted is not None and "ray_tpu-metrics-http" in planted,
+              f"sanitize: the planted leak did not raise: {planted}")
+    finally:
+        if not was_on:
+            _sanitizer.uninstall()
+    out["launches"] = {"flash_fwd": sum(r["launches"]
+                                        for r in served + [task])}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out["launches"]
+
+
+def traced_card_task(seed: int):
+    """A card task that runs the flash forward and submits a nested task
+    (module level: the worker imports it)."""
+    import ray_tpu_torch as rtt
+    r = flash_probe(seed)
+    r["nested"] = rtt.get(rtt.remote(trace_leaf).remote(seed), timeout=120)
+    return r
+
+
+def trace_leaf(x):
+    return x + 1
+
+
+def queue_producer(queue, n: int):
+    for i in range(n):
+        queue.put(i * i)
+    return n
+
+
+class CardShard:
+    """A card actor: the flash forward on its share of a batch, a Queue's
+    consumer, and a user Counter and Histogram."""
+
+    def __init__(self):
+        from ray_tpu_torch.util import metrics
+        self.calls = metrics.Counter("smoke_shard_calls_total",
+                                     "CardShard calls", ("method",))
+        self.ms = metrics.Histogram("smoke_shard_forward_ms",
+                                    "CardShard forward ms",
+                                    boundaries=[1.0, 10.0, 100.0, 1000.0])
+
+    def forward(self, q, k, v):
+        import torch
+        from ray_tpu_torch.ops.attention import flash_fwd
+        t0 = time.perf_counter()
+        before = flash_fwd.launches
+        out, _ = flash_fwd(q.cuda(), k.cuda(), v.cuda(), causal=True)
+        out = out.cpu()
+        torch.cuda.synchronize()
+        self.calls.inc(1.0, tags={"method": "forward"})
+        self.ms.observe((time.perf_counter() - t0) * 1e3)
+        return out, flash_fwd.launches - before
+
+    def consume(self, queue, n: int):
+        self.calls.inc(1.0, tags={"method": "consume"})
+        return [queue.get(timeout=120) for _ in range(n)]
+
+
+def phase_trace_metrics(smi):
+    """With tracing on, a driver span submits a card task (the flash
+    forward) that submits a nested task: one trace, driver -> task ->
+    nested task, rendered and exported as OTLP/JSON.  ActorPool.map over
+    two card actors, each the flash forward on its share of a batch,
+    equal to the driver's own call.  A Queue between a producer task and
+    a consumer actor.  A util.metrics server on a free localhost port,
+    scraped over HTTP for the actors' Counter and Histogram."""
+    import urllib.request
+
+    import torch
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch.ops.attention import flash_fwd
+    from ray_tpu_torch.util import ActorPool, Queue, metrics, tracing
+    t0 = time.perf_counter()
+    out = {"phase": "trace_metrics", "card": smi}
+    rtt.init(num_cpus=4)
+    try:
+        shards = [rtt.remote(CardShard).options(
+            device="cuda", num_cpus=0, max_concurrency=2).remote()
+            for _ in range(2)]
+        tracing.enable()
+        try:
+            with tracing.span("driver"):
+                trace_id = tracing.current().trace_id
+                traced = rtt.get(rtt.remote(num_tpus=1)(
+                    traced_card_task).remote(5), timeout=600)
+        finally:
+            tracing.disable()
+        text = tracing.render_trace(trace_id)
+        names = [line.strip().split(" [")[0] for line in
+                 text.splitlines()[1:]]
+        where = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "_chip")
+        os.makedirs(where, exist_ok=True)
+        path = os.path.join(where, "trace_metrics_otlp.json")
+        tracing.export_otlp_json(path, trace_id)
+        with open(path) as f:
+            otlp = json.load(f)
+        spans = otlp["resourceSpans"][0]["scopeSpans"][0]["spans"]
+        out["trace"] = {"trace_id": trace_id, "tree": names,
+                        "otlp_spans": len(spans)}
+        check(names == ["- driver", "- submit traced_card_task",
+                        "- execute traced_card_task", "- submit trace_leaf",
+                        "- execute trace_leaf"]
+              and len(spans) == 5
+              and {s["traceId"] for s in spans} == {trace_id}
+              and traced["nested"] == 6,
+              f"trace_metrics: trace {text} {traced}")
+        # ActorPool over the two card actors.
+        sh = SCHED_SHAPE
+        q, k, v = _flash_inputs(4, sh["H"], sh["Hkv"], sh["S"], sh["S"],
+                                sh["D"], torch.bfloat16, 11)
+        mine, _ = flash_fwd(q, k, v, causal=True)
+        shares = [(q[i:i + 2].cpu(), k[i:i + 2].cpu(), v[i:i + 2].cpu())
+                  for i in (0, 2)]
+        pool = ActorPool(shards)
+        got = list(pool.map(lambda a, s: a.forward.remote(*s), shares))
+        pooled = torch.cat([o for o, _n in got])
+        err = (pooled.float() - mine.float().cpu()).abs().max().item()
+        out["actor_pool"] = {"equal": bool(torch.equal(pooled, mine.cpu())),
+                             "max_abs_err": err,
+                             "launches": [n for _o, n in got]}
+        check(out["actor_pool"]["equal"],
+              f"trace_metrics: ActorPool's flash differs from the "
+              f"driver's by {err}")
+        # A Queue: a producer task, a consumer actor.
+        queue = Queue(actor_options={"num_cpus": 0})
+        consumed = shards[0].consume.remote(queue, 8)
+        produced = rtt.remote(queue_producer).remote(queue, 8)
+        out["queue"] = {"produced": rtt.get(produced, timeout=300),
+                        "consumed": rtt.get(consumed, timeout=300)}
+        queue.shutdown()
+        check(out["queue"]["consumed"] == [i * i for i in range(8)],
+              f"trace_metrics: queue {out['queue']}")
+        # The metrics server, scraped over HTTP.
+        port = metrics.start_metrics_server(0)
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=60) as resp:
+                scraped = resp.read().decode()
+        finally:
+            metrics.stop_metrics_server()
+        series = sorted(line for line in scraped.splitlines()
+                        if line.startswith("smoke_shard"))
+        out["metrics"] = {"port": port, "series": series}
+        check('smoke_shard_calls_total{method="forward"} 2.0' in series
+              and 'smoke_shard_calls_total{method="consume"} 1.0' in series
+              and "smoke_shard_forward_ms_count 2.0" in series,
+              f"trace_metrics: scraped {series}")
+        for a in shards:
+            rtt.kill(a)
+    finally:
+        rtt.shutdown()
+    out["launches"] = {"flash_fwd": traced["launches"] + sum(
+        n for _o, n in got)}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5960,7 +6404,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_disagg_exact()
     torch.cuda.empty_cache()
-    paths["disagg_load"], paths["fleet"] = phase_serving_tiers(smi)
+    paths["disagg_load"], paths["fleet"], paths["lock_profile"] = \
+        phase_serving_tiers(smi)
     torch.cuda.empty_cache()
     paths["serve_deployment"] = phase_serve_deployment(smi)
     gc.collect()
@@ -5975,6 +6420,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["serve_controller"] = phase_serve_controller(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["sanitize"] = phase_sanitize(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["trace_metrics"] = phase_trace_metrics(smi)
     torch.cuda.empty_cache()
     phase_train_exact()
     paths["train_tiny"] = phase_train_tiny()

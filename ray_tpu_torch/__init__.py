@@ -37,7 +37,12 @@ and tune (``_scheduler``: the host as one node of JAX's
 ``ClusterScheduler``, the card as ``GPU``, placement groups, nested
 tasks, runtime envs, isolation, the OOM monitor; ``accelerators``,
 ``schedview``, ``util.gpu``; ``train``'s bookings and elastic resizes;
-``tune``: ``Tuner`` over tasks, its schedulers and searchers).
+``tune``: ``Tuner`` over tasks, its schedulers and searchers), and the
+developer tooling and one-host surfaces (``devtools``: every lint rule
+family over the control-flow and lock analyses, the lock-order detector
+and contention profiler; ``_sanitizer``: the leak sanitizer;
+``util``: tracing across submits, user metrics, ``ActorPool``,
+``Queue``).
 
 Importing this package (or ``ray_tpu_torch.data``) does not import torch:
 a task worker imports it only where its function's module does.
@@ -45,7 +50,31 @@ a task worker imports it only where its function's module does.
 
 import os as _os
 
-from ._actor import (ActorError, GetTimeoutError, ObjectRef,  # noqa: E402
+# Opt-in runtime lock-order detector (devtools/lockdebug.py).  Installed
+# BEFORE the tiers' imports so the wrappers catch module-level framework
+# locks too, not just ones created later.  Spawned workers and actors
+# inherit the env var, so every process is instrumented alike.
+if _os.environ.get("RAY_TPU_DEBUG_LOCKS") == "1":
+    from .devtools import lockdebug as _lockdebug
+    _lockdebug.install()
+
+# Lighter opt-in lock-contention profiler (same module): per-site
+# wait/hold histograms only, no order graph.  A no-op when the full
+# debug mode above is active (its wrappers already collect them).
+if _os.environ.get("RAY_TPU_LOCK_PROFILE") == "1":
+    from .devtools import lockdebug as _lockdebug
+    _lockdebug.install_profile()
+
+# Opt-in runtime resource-leak sanitizer (_sanitizer.py): registries for
+# framework threads / pins / tracked files / named actors, snapshotted at
+# session start and diffed at shutdown().  Installed before the tiers'
+# imports so module-level framework threads are attributed too.
+if _os.environ.get("RAY_TPU_SANITIZE") == "1":
+    from . import _sanitizer
+    _sanitizer.install()
+
+from ._actor import (ActorClass, ActorError, ActorHandle,  # noqa: E402
+                     ActorMethod, GetTimeoutError, ObjectRef,
                      ObjectRefGenerator, RayTpuError, TaskError, get,
                      get_actor, kill, put, remote, wait)
 from ._tasks import (OutOfMemoryError, RemoteFunction,  # noqa: E402
@@ -65,18 +94,26 @@ if _os.environ.get("RAY_TPU_SYNC_DEBUG") == "1":
     _syncdebug.install()
 
 
-
 def shutdown() -> None:
     """End the task session (its workers and every segment of it) and kill
-    every actor this process started (JAX: ``ray_tpu.shutdown``)."""
-    from . import _actor, _tasks
+    every actor this process started (JAX: ``ray_tpu.shutdown``).
+
+    Leak-sanitizer gate (``RAY_TPU_SANITIZE=1``): named actors are
+    inspected before their processes are killed; threads, pins and file
+    handles are diffed once both tiers are down, so a ``LeakError`` never
+    leaves a half-shut session behind."""
+    from . import _actor, _sanitizer, _tasks
+    active = _tasks._session is not None or _actor._session is not None
+    pre = _sanitizer.pre_shutdown() if active else []
     _tasks.shutdown()
     _actor.shutdown()
+    if active:
+        _sanitizer.check_after_shutdown(pre)
 
 
 __all__ = ["init", "shutdown", "is_initialized", "remote", "get", "put",
            "wait", "kill", "get_actor", "ObjectRef", "ObjectRefGenerator",
-           "RemoteFunction", "RayTpuError", "TaskError", "ActorError",
+           "ActorHandle", "ActorClass", "ActorMethod", "RemoteFunction", "RayTpuError", "TaskError", "ActorError",
            "WorkerCrashedError", "OutOfMemoryError", "RuntimeEnvSetupError",
            "GetTimeoutError", "cluster_resources", "available_resources",
            "nodes", "placement_group", "remove_placement_group",

@@ -76,6 +76,7 @@ import itertools
 import os
 import pickle
 import queue
+import sys
 import threading
 import time
 import traceback
@@ -179,13 +180,18 @@ class _Session:
     and the actors it started."""
 
     def __init__(self):
+        from . import _sanitizer
         from ._control import ControlPlane, current, set_current
+        _sanitizer.snapshot(first=True)
         self.plane = ControlPlane.serve()
         try:
             current()
         except RuntimeError:
             set_current(self.plane)
         self.procs: Dict[str, Any] = {}
+        #: The threads that give a booked actor's resources back once its
+        #: process exits (joined at shutdown).
+        self.watchers: List[threading.Thread] = []
         self.lock = threading.Lock()
 
 
@@ -204,6 +210,9 @@ def _plane():
     global _session
     if _in_actor is not None:
         return _in_actor["plane"]
+    from . import _tasks
+    if _tasks._in_worker is not None:
+        return _tasks._driver_plane()
     with _session_lock:
         if _session is None:
             _session = _Session()
@@ -244,12 +253,11 @@ class ObjectRef:
                         "call) or get() it first")
 
     def __del__(self):
-        if getattr(self, "_owned", False):
-            try:
-                from ._tasks import _release_when_done
-                _release_when_done(self._fut)
-            except Exception:  # noqa: BLE001 - interpreter teardown
-                pass
+        # At interpreter teardown the session's segments go with
+        # ``shutdown`` (atexit); nothing is left to release one by one.
+        if getattr(self, "_owned", False) and not sys.is_finalizing():
+            from ._tasks import _release_when_done
+            _release_when_done(self._fut)
 
     def __repr__(self):
         return f"ObjectRef({self._name}, done={self._fut.done()})"
@@ -287,17 +295,20 @@ class ObjectRefGenerator:
             return True
 
     def __del__(self):
-        # Store items (a task's stream) not consumed: their segments go.
-        try:
-            with self._lock:
-                self._closed = True
-            from ._tasks import _release
-            while True:
+        # Store items (a task's stream) not consumed: their segments go
+        # (at interpreter teardown, with ``shutdown``).
+        if sys.is_finalizing():
+            return
+        with self._lock:
+            self._closed = True
+        from ._tasks import _release
+        while True:
+            try:
                 kind, value = self._items.get_nowait()
-                if kind == "desc":
-                    _release(value)
-        except Exception:  # noqa: BLE001 - queue.Empty, or teardown
-            pass
+            except queue.Empty:
+                return
+            if kind == "desc":
+                _release(value)
 
     def __iter__(self):
         return self
@@ -336,6 +347,7 @@ class _Channel:
         self.dead: Optional[str] = None
         self.pending: Dict[int, Any] = {}
         self.ids = itertools.count()
+        self.reader: Optional[threading.Thread] = None
 
     def _connect(self) -> None:
         """Connect once the actor has published its address (or fail with
@@ -362,11 +374,13 @@ class _Channel:
         import multiprocessing as mp
         self.conn = Client((host, int(port)),
                            authkey=mp.current_process().authkey)
-        threading.Thread(target=self._read, daemon=True,
-                         name=f"actor-reader-{self.actor_id[:8]}").start()
+        from . import _sanitizer
+        self.reader = _sanitizer.spawn(
+            self._read, args=(self.conn,),
+            name=f"actor-reader-{self.actor_id[:8]}")
 
     def submit(self, method: str, blob: bytes, streaming: bool, name: str,
-               kind: str = "call"):
+               kind: str = "call", trace: Optional[str] = None):
         with self.lock:
             if self.dead is None and self.conn is None:
                 try:
@@ -388,7 +402,7 @@ class _Channel:
             self.pending[call_id] = out
             try:
                 self.conn.send_bytes(pickle.dumps(
-                    (kind, call_id, method, blob, streaming)))
+                    (kind, call_id, method, blob, streaming, trace)))
             except (OSError, EOFError, BrokenPipeError) as e:
                 self.pending.pop(call_id, None)
                 self._fail_all(f"connection lost: {e!r}")
@@ -399,8 +413,7 @@ class _Channel:
                 return _resolved(exc=err, name=name)
         return out
 
-    def _read(self) -> None:
-        conn = self.conn
+    def _read(self, conn) -> None:
         while True:
             try:
                 msg = pickle.loads(conn.recv_bytes())
@@ -416,6 +429,10 @@ class _Channel:
                 conn.close()
                 return
             kind, call_id = msg[0], msg[1]
+            if kind == "spans":
+                from .util import tracing
+                tracing._record_many(msg[2])
+                continue
             with self.lock:
                 out = self.pending.get(call_id)
                 if kind in ("ok", "err", "end"):
@@ -440,6 +457,9 @@ class _Channel:
         self.pending.clear()
 
     def close(self) -> None:
+        """Close the connection, fail what is in flight, and wait (5 s at
+        most) for the reader thread to end: the callers have killed the
+        actor's process, and its end closes the reader's connection."""
         with self.lock:
             if self.conn is not None:
                 try:
@@ -447,6 +467,9 @@ class _Channel:
                 except OSError:
                     pass
             self._fail_all("killed")
+            reader = self.reader
+        if reader is not None and reader is not threading.current_thread():
+            reader.join(5.0)
 
 
 def _fail(out, exc: BaseException) -> None:
@@ -510,17 +533,40 @@ class ActorMethod:
         return ClassMethodNode(self._handle, self._name, args, kwargs)
 
     def remote(self, *args, **kwargs):
-        if self._num_returns not in (1, "streaming"):
-            raise NotImplementedError(
-                f"num_returns={self._num_returns!r}: actor methods of the "
-                f"port return one value or stream (num_returns="
-                f"'streaming')")
+        n = self._num_returns
+        if n != "streaming" and (not isinstance(n, int) or n < 1):
+            raise ValueError(f"num_returns={n!r}: a positive int or "
+                             "'streaming'")
         qual = f"{self._handle._class_name}.{self._name}"
         args, kwargs = _resolve_args(args, kwargs)
         blob = _dumps((args, kwargs), f"the arguments of {qual}")
-        return _channel(self._handle._actor_id).submit(
-            self._name, blob, self._num_returns == "streaming", qual,
-            self._kind)
+        from .util import tracing
+        trace = tracing.submit_span(qual, self._handle._actor_id[:16])
+        out = _channel(self._handle._actor_id).submit(
+            self._name, blob, n == "streaming", qual, self._kind, trace)
+        return out if n in (1, "streaming") else _split(out, n, qual)
+
+
+def _split(ref: ObjectRef, n: int, name: str) -> List[ObjectRef]:
+    """N refs over one call's result, a sequence of N values (JAX: the
+    N return ids of an actor task)."""
+    futs = [cf.Future() for _ in range(n)]
+
+    def done(fut: cf.Future) -> None:
+        try:
+            values = list(fut.result())
+            if len(values) != n:
+                raise ValueError(f"{name} returned {len(values)} values; "
+                                 f"num_returns={n}")
+        except BaseException as e:  # noqa: BLE001 - each ref raises it
+            for f in futs:
+                f.set_exception(e)
+            return
+        for f, v in zip(futs, values):
+            f.set_result(v)
+
+    ref._fut.add_done_callback(done)
+    return [ObjectRef(f, name) for f in futs]
 
 
 class ActorHandle:
@@ -694,8 +740,11 @@ def _schedule_actor(node, actor_id: str, qualname: str,
             proc.join()
             node.give_back(tspec, cards)
 
-        threading.Thread(target=watch, daemon=True,
-                         name=f"actor-booking-{actor_id[:8]}").start()
+        from . import _sanitizer
+        t = _sanitizer.spawn(watch, name=f"actor-booking-{actor_id[:8]}")
+        with _session.lock:
+            _session.watchers = [w for w in _session.watchers
+                                 if w.is_alive()] + [t]
 
     def failed(exc: BaseException) -> None:
         _plane().kv_put(f"actor/{actor_id}/error",
@@ -862,6 +911,17 @@ def kill(actor: ActorHandle, *, no_restart: bool = True) -> None:
     _channel(actor._actor_id).close()
 
 
+def _forget(plane, actor_id: str) -> None:
+    """Drop a dead actor's keys from the store: its address and error,
+    and its user metrics (their last values folded into this process's
+    view, so counters do not go back)."""
+    for suffix in ("addr", "error"):
+        plane.kv_del(f"actor/{actor_id}/{suffix}")
+    metrics = sys.modules.get("ray_tpu_torch.util.metrics")
+    if metrics is not None:
+        metrics.retire_source(f"actor-{actor_id}")
+
+
 def is_dead(actor: ActorHandle) -> bool:
     """True once the actor's process has exited (where this process
     started it) or its connection has failed."""
@@ -883,6 +943,7 @@ def shutdown() -> None:
     with session.lock:
         procs = list(session.procs.items())
         session.procs.clear()
+        watchers, session.watchers = session.watchers, []
     for _aid, p in procs:
         if p.is_alive():
             p.kill()
@@ -892,6 +953,13 @@ def shutdown() -> None:
             ch = _channels.pop(aid, None)
         if ch is not None:
             ch.close()
+        _forget(session.plane, aid)
+    for t in watchers:
+        t.join(timeout=5.0)
+    # The end-of-session sweep of the names (each points at an actor of
+    # this session, all dead now).
+    for key in session.plane.kv_keys("actor/name/"):
+        session.plane.kv_del(key)
     from . import _control
     if _control._current is session.plane:
         _control.set_current(None)
@@ -940,11 +1008,13 @@ class _Actor:
     def run_calls(self, calls: Optional["queue.Queue"] = None) -> None:
         calls = self.calls if calls is None else calls
         while True:
-            conn, send_lock, (_kind, call_id, method, blob, streaming) = \
-                calls.get()
-            self._run(conn, send_lock, call_id, method, blob, streaming)
+            conn, send_lock, (_kind, call_id, method, blob, streaming,
+                              trace) = calls.get()
+            self._run(conn, send_lock, call_id, method, blob, streaming,
+                      trace)
 
-    def _run(self, conn, send_lock, call_id, method, blob, streaming):
+    def _run(self, conn, send_lock, call_id, method, blob, streaming,
+             trace=None):
         qual = f"{self.spec['cls'][1]}.{method}"
 
         def send(msg):
@@ -964,18 +1034,19 @@ class _Actor:
             send(("err", call_id, ActorError(self.spec["actor_id"],
                                              self.init_error)))
             return
+        from .util import tracing
         try:
-            args, kwargs = pickle.loads(blob)
-            if method == _RAY_CALL:
-                result = args[0](self.instance, *args[1:], **kwargs)
-            else:
-                result = getattr(self.instance, method)(*args, **kwargs)
-            if streaming:
-                for item in result:
-                    send(("item", call_id, item))
-                send(("end", call_id))
-            else:
-                send(("ok", call_id, result))
+            with tracing.task_span(trace, qual, f"{call_id:x}"):
+                args, kwargs = pickle.loads(blob)
+                if method == _RAY_CALL:
+                    result = args[0](self.instance, *args[1:], **kwargs)
+                else:
+                    result = getattr(self.instance, method)(*args, **kwargs)
+                if streaming:
+                    for item in result:
+                        send(("item", call_id, item))
+            _flush_call_side(send)
+            send(("end", call_id) if streaming else ("ok", call_id, result))
         except BaseException as e:  # noqa: BLE001 - back to the caller
             err = TaskError(e, qual, traceback.format_exc())
             try:
@@ -983,7 +1054,21 @@ class _Actor:
             except Exception:  # noqa: BLE001 - the cause itself won't pickle
                 err = TaskError(RuntimeError(repr(e)), qual,
                                 traceback.format_exc())
+            _flush_call_side(send)
             send(("err", call_id, err))
+
+
+def _flush_call_side(send) -> None:
+    """Before a call's reply: this process's finished spans go to the
+    caller (ahead of the reply, so they are recorded once it resolves),
+    and its user metrics to the session's store."""
+    from .util import tracing
+    spans = tracing._drain()
+    if spans:
+        send(("spans", -1, spans))
+    metrics = sys.modules.get("ray_tpu_torch.util.metrics")
+    if metrics is not None:
+        metrics.flush_on_task_done()
 
 
 def _watch_parent(parent: int) -> None:
@@ -1009,9 +1094,10 @@ def _actor_main(spec: Dict[str, Any]) -> None:
     set_current(plane)
     _boot_worker_env()
     opts = spec["options"]
-    _in_actor = {"plane": plane, "options": opts}
-    threading.Thread(target=_watch_parent, args=(spec["parent"],),
-                     daemon=True, name="actor-watch-parent").start()
+    _in_actor = {"plane": plane, "options": opts, "actor_id": actor_id}
+    from . import _sanitizer
+    _sanitizer.spawn(_watch_parent, args=(spec["parent"],),
+                     name="actor-watch-parent")
     try:
         if opts.get("num_cpus"):
             torch.set_num_threads(max(1, int(opts["num_cpus"])))
@@ -1026,8 +1112,7 @@ def _actor_main(spec: Dict[str, Any]) -> None:
     plane.kv_put(f"actor/{actor_id}/addr",
                  f"{host}:{port}:{os.getpid()}".encode())
     # Calls queue while the constructor runs; they start once it is done.
-    threading.Thread(target=_accept, args=(listener, actor), daemon=True,
-                     name="actor-accept").start()
+    _sanitizer.spawn(_accept, args=(listener, actor), name="actor-accept")
     actor.construct()
     n = max(1, int(opts.get("max_concurrency") or 1))
     workers = [threading.Thread(target=actor.run_calls, daemon=True,
@@ -1042,5 +1127,6 @@ def _actor_main(spec: Dict[str, Any]) -> None:
 def _accept(listener, actor: _Actor) -> None:
     while True:
         conn = listener.accept()
-        threading.Thread(target=actor.serve_connection, args=(conn,),
-                         daemon=True, name="actor-conn").start()
+        from . import _sanitizer
+        _sanitizer.spawn(actor.serve_connection, args=(conn,),
+                         name="actor-conn")

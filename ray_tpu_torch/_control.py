@@ -137,10 +137,20 @@ class ControlPlane:
         return live
 
     def wait(self, key: str, timeout_s: float) -> bytes:
-        """Block until ``key`` exists (at most ``timeout_s``, then raise),
-        and return its value."""
-        self.store.wait([key], datetime.timedelta(seconds=timeout_s))
-        return self.kv_get(key)
+        """Block until ``key`` exists (at most ``timeout_s``, then raise
+        ``TimeoutError``), and return its value.  It polls ``kv_get``: the
+        client's socket is shared, so every use of it goes under the lock,
+        and a blocking ``TCPStore.wait`` there would stall the other
+        threads' calls for the whole wait."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            value = self.kv_get(key)
+            if value is not None:
+                return value
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"key {key!r} did not appear within "
+                                   f"{timeout_s} s")
+            time.sleep(0.005)
 
     def export_event(self, kind: str, payload: Dict[str, Any]) -> None:
         """Append one structured event record (JAX appends the same record

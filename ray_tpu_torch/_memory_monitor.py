@@ -117,6 +117,11 @@ class MemoryMonitor:
 
     def stop(self) -> None:
         self._stop.set()
+        # Joined (bounded): a session's shutdown leaves no monitor thread
+        # for the leak sanitizer's diff.
+        t = self._thread
+        if t is not None and t is not threading.current_thread():
+            t.join(timeout=5.0)
 
     def _loop(self) -> None:
         while not self._stop.wait(self._period_s):

@@ -357,12 +357,16 @@ class SharedMemoryStore:
             self._used += entry.nbytes
 
     def try_pin(self, object_id: str) -> bool:
+        """Pin an object (the leak sanitizer's registry counts it until
+        ``try_unpin`` or ``delete``)."""
         with self._lock:
             e = self._entries.get(str(object_id))
             if e is None:
                 return False
             e.pinned += 1
-            return True
+        from . import _sanitizer
+        _sanitizer.note_pin(str(object_id))
+        return True
 
     def try_unpin(self, object_id: str) -> bool:
         with self._lock:
@@ -370,7 +374,9 @@ class SharedMemoryStore:
             if e is None or e.pinned <= 0:
                 return False
             e.pinned -= 1
-            return True
+        from . import _sanitizer
+        _sanitizer.note_unpin(str(object_id))
+        return True
 
     def descriptor(self, object_id: str) -> Optional[tuple]:
         """``("shm", segment, nbytes)`` or ``("cuda_ipc", object id,
@@ -392,6 +398,10 @@ class SharedMemoryStore:
             if e is None:
                 return
             self._used -= e.nbytes
+        if e.pinned:
+            from . import _sanitizer
+            for _ in range(e.pinned):
+                _sanitizer.note_unpin(object_id)
         if e.segment is not None:
             e.segment.close()
             e.segment.unlink()

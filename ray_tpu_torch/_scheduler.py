@@ -806,7 +806,9 @@ class Booking:
         self._state = "pending"   # pending -> held -> released
 
     def env(self) -> Dict[str, str]:
-        return self.node.card_env(self.cards)
+        with self._lock:
+            cards = list(self.cards)
+        return self.node.card_env(cards)
 
     def _placed(self, spec: TaskSpec, node_id: NodeID) -> None:
         cards = self.node.take_cards(spec)

@@ -77,6 +77,7 @@ import itertools
 import math
 import os
 import pickle
+import queue
 import sys
 import threading
 import time
@@ -187,10 +188,15 @@ def _segment_name() -> str:
     return f"rtt_{session}_{uuid.uuid4().hex}"
 
 
-def _seal(value: Any, what: str = "a task's value") -> tuple:
-    """A descriptor of ``value`` (the refs inside it must be ready)."""
+def _seal(value: Any, what: str = "a task's value",
+          inner: Optional[list] = None) -> tuple:
+    """A descriptor of ``value`` (the refs inside it must be ready); the
+    descriptors of those refs are added to ``inner`` when given."""
     meta, buffers, refs = _pack(value, what)
-    return _encode(meta, buffers, [_desc_of(r) for r in refs])
+    descs = [_desc_of(r) for r in refs]
+    if inner is not None:
+        inner.extend(descs)
+    return _encode(meta, buffers, descs)
 
 
 def _encode(meta: bytes, buffers: List[pickle.PickleBuffer],
@@ -259,6 +265,11 @@ def desc_nbytes(desc: Optional[tuple]) -> int:
 #: segment -> refs of it alive in this process (the driver's).
 _owned: Dict[str, int] = {}
 _owned_lock = threading.RLock()
+#: A task result's key (its segment, or an inline result's bytes) -> the
+#: descriptors of the refs inside it, each adopted once per entry: a ref
+#: returned inside a result lives as long as that result, not as long as
+#: the task that made it.
+_contains: Dict[Any, List[list]] = {}
 
 
 def _adopt(desc: tuple) -> None:
@@ -269,6 +280,8 @@ def _adopt(desc: tuple) -> None:
 
 def _release(desc: tuple) -> None:
     if desc[0] != "shm":
+        if desc[0] == "inline":
+            _release_inner(desc[1])
         return
     name = desc[1]
     with _owned_lock:
@@ -283,6 +296,30 @@ def _release(desc: tuple) -> None:
         os.unlink(os.path.join(SHM_DIR, name))
     except FileNotFoundError:
         pass
+    _release_inner(name)
+
+
+def _hold_inner(desc: tuple, inner: list) -> None:
+    """A result ``desc`` arrived holding refs of ``inner``: keep their
+    segments until the result itself is released."""
+    if not inner or desc[0] not in ("shm", "inline"):
+        return
+    for d in inner:
+        _adopt(d)
+    with _owned_lock:
+        _contains.setdefault(desc[1], []).append(list(inner))
+
+
+def _release_inner(key: Any) -> None:
+    with _owned_lock:
+        held = _contains.get(key)
+        if not held:
+            return
+        inner = held.pop()
+        if not held:
+            del _contains[key]
+    for d in inner:
+        _release(d)
 
 
 def _release_done(fut: cf.Future) -> None:
@@ -370,6 +407,10 @@ class _WorkerHandle:
         #: monitor's reason).
         self.task: Optional[_Task] = None
         self.death_reason: Optional[str] = None
+        #: Held while sending on ``conn``: the task, and the answers to
+        #: its requests, which blocking ones send from threads of their
+        #: own.
+        self.send_lock = threading.Lock()
         self.thread = threading.Thread(target=self._loop, daemon=True,
                                        name="task-worker")
 
@@ -420,17 +461,24 @@ class _WorkerHandle:
     def _run(self, task: _Task) -> Tuple[bool, bool]:
         """Run one task: (the worker process died, the task was placed
         again).  While it runs, the worker's requests (a nested task's
-        submit, get or poll) are answered here."""
+        submit, get, poll or next item) are answered: those that block
+        (a get, a next item) from a thread each, so one thread of the
+        task waiting holds up none of its others."""
         msg = pickle.dumps(("task", task.tid, task.name, task.fn_blob,
                             task.args_desc, task.opts),
                            protocol=pickle.HIGHEST_PROTOCOL)
         try:
-            self.conn.send_bytes(msg)
+            with self.send_lock:
+                self.conn.send_bytes(msg)
             while True:
                 reply = pickle.loads(self.conn.recv_bytes())
                 if reply[0] in _REQUESTS:
-                    self.conn.send_bytes(pickle.dumps(
-                        self.pool.serve_request(task, reply), protocol=5))
+                    if reply[0] in _BLOCKING_REQUESTS:
+                        from . import _sanitizer
+                        _sanitizer.spawn(self._answer, args=(task, reply),
+                                         name="task-request")
+                    else:
+                        self._answer(task, reply)
                     continue
                 if _apply_reply(task, reply):
                     return False, False
@@ -439,6 +487,22 @@ class _WorkerHandle:
         self.conn.close()
         self.proc.join(timeout=5)
         return True, self.pool.worker_died(self, task, self.proc.exitcode)
+
+    def _answer(self, task: _Task, req: tuple) -> None:
+        """Answer one request ``(kind, request id, ...)`` of ``task``'s
+        worker.  An answer that comes after the task ended finds no
+        caller and is dropped there."""
+        kind, rid = req[0], req[1]
+        try:
+            out = self.pool.serve_request(task, (kind,) + tuple(req[2:]))
+        except Exception as e:  # noqa: BLE001 - raised in the worker
+            out = ("error", _error_blob(e))
+        data = pickle.dumps(("reply", rid, out), protocol=5)
+        with self.send_lock:
+            try:
+                self.conn.send_bytes(data)
+            except (OSError, EOFError, BrokenPipeError):
+                pass            # the worker is gone: nobody to answer
 
     def stop(self) -> None:
         if self.conn is not None:
@@ -451,8 +515,10 @@ class _WorkerHandle:
             self.proc.join(timeout=10)
 
 
-#: What a worker asks the driver while its task runs.
-_REQUESTS = frozenset(("submit", "get", "poll"))
+#: What a worker asks the driver while its task runs, and of those, what
+#: may wait (answered from a thread each).
+_REQUESTS = frozenset(("submit", "get", "poll", "next", "plane"))
+_BLOCKING_REQUESTS = frozenset(("get", "next"))
 
 
 def _apply_reply(task: _Task, reply: tuple) -> bool:
@@ -463,21 +529,20 @@ def _apply_reply(task: _Task, reply: tuple) -> bool:
         gen = task.gen() if task.gen is not None else None
         desc = reply[2]
         _adopt(desc)
+        _hold_inner(desc, reply[3])
         if gen is None or not gen._put("desc", desc):
             _release(desc)
         return False
-    snap = reply[-1]
-    if snap:
-        from .util import telemetry
-        telemetry.merge_remote(f"task-worker-{reply[-2]}", snap)
+    _merge_worker_side(reply[-2], reply[-1])
     _count("tasks_run")
     if kind == "end":
         gen = task.gen() if task.gen is not None else None
         if gen is not None:
             gen._put("end")
     elif kind == "ok":
-        for fut, desc in zip(task.returns, reply[2]):
+        for fut, desc, inner in zip(task.returns, reply[2], reply[3]):
             _adopt(desc)
+            _hold_inner(desc, inner)
             fut.set_result(desc)
     else:
         try:
@@ -487,6 +552,23 @@ def _apply_reply(task: _Task, reply: tuple) -> bool:
                               f"could not be loaded here: {e!r}")
         _fail_task(task, err)
     return True
+
+
+def _merge_worker_side(pid: int, snap: Optional[tuple]) -> None:
+    """What a worker sends with a task's end: its telemetry, its user
+    metrics and its finished spans."""
+    if not snap:
+        return
+    tel, user, spans = snap
+    if tel:
+        from .util import telemetry
+        telemetry.merge_remote(f"task-worker-{pid}", tel)
+    if user:
+        from .util import metrics
+        metrics.merge_remote(f"task-worker-{pid}", user)
+    if spans:
+        from .util import tracing
+        tracing._record_many(spans)
 
 
 def _fail_task(task: _Task, exc: BaseException) -> None:
@@ -519,6 +601,9 @@ class _Pool:
         self.max_workers = max(1, int(math.ceil(session.num_cpus)))
         self.session_id = session.id
         self.cv = threading.Condition()
+        #: Guards a running task's booking flags and its nested refs,
+        #: which its requests' threads touch at once.
+        self.req_lock = threading.Lock()
         self.queues: Dict[tuple, Deque[_Task]] = {}
         self.workers: List[_WorkerHandle] = []
         self.closed = False
@@ -589,9 +674,10 @@ class _Pool:
         if rt_env and not _runtime_env.pip_env_ready(rt_env):
             # A venv is built once per signature, off the scheduler's
             # thread (minutes, for a cold one).
-            threading.Thread(target=self._setup_then_queue,
-                             args=(task, env, rt_env), daemon=True,
-                             name="runtime-env-setup").start()
+            from . import _sanitizer
+            _sanitizer.spawn(self._setup_then_queue,
+                             args=(task, env, rt_env),
+                             name="runtime-env-setup")
             return
         self._setup_then_queue(task, env, rt_env)
 
@@ -636,7 +722,8 @@ class _Pool:
             # The arguments' refs go; their segments with the last ref.
             task.arg_refs = None
             task.args_ref = None
-            task.nested = None
+            with self.req_lock:
+                task.nested = None
         with self.cv:
             w.busy = False
             w.task = None
@@ -658,33 +745,40 @@ class _Pool:
     def _give_back(self, task: _Task) -> None:
         """Return ``task``'s booking (less the CPU it gave up while blocked
         in ``get``) and its cards, once."""
-        if not task.booked:
-            return
-        task.booked = False
+        with self.req_lock:
+            if not task.booked:
+                return
+            task.booked = False
+            released, task.cpu_released = task.cpu_released, False
+            cards, task.cards = task.cards, None
         spec = task.spec
         rest = None
-        if task.cpu_released:
+        if released:
             rest = ResourceSet({k: v for k, v in spec.resources.items()
                                 if k != CPU})
-        self.node.give_back(spec, task.cards or [], rest)
-        task.cards = None
-        task.cpu_released = False
+        self.node.give_back(spec, cards or [], rest)
 
     def blocked(self, task: _Task) -> None:
         """``task``'s worker waits in ``get``: its CPU goes back to the
         scheduler until the task ends (the tail after the wait runs
-        unbooked, as a worker that unblocks does in JAX's reference)."""
-        if not task.cpu_released and task.spec.resources.get(CPU) > 0:
+        unbooked, as a worker that unblocks does in JAX's reference).
+        Once a task: its threads may wait at the same time."""
+        with self.req_lock:
+            if not task.booked or task.cpu_released or \
+                    not task.spec.resources.get(CPU) > 0:
+                return
             task.cpu_released = True
-            self.node.scheduler.release(
-                self.node.node_id,
-                ResourceSet({CPU: task.spec.resources.get(CPU)}),
-                task.spec.placement_group, task.spec.bundle_index)
+        self.node.scheduler.release(
+            self.node.node_id,
+            ResourceSet({CPU: task.spec.resources.get(CPU)}),
+            task.spec.placement_group, task.spec.bundle_index)
 
     def worker_died(self, w: _WorkerHandle, task: _Task, code) -> bool:
         """True when ``task`` is placed again (a fresh worker, and fresh
         cards, take it), False when it failed."""
-        if self.closed:
+        with self.cv:
+            closed = self.closed
+        if closed:
             _fail_task(task, RayTpuError("the session was shut down"))
             return False
         self._give_back(task)
@@ -752,12 +846,34 @@ class _Pool:
             except Exception as e:  # noqa: BLE001 - raised in the worker
                 return ("error", _error_blob(e))
             refs = out if isinstance(out, list) else [out]
-            if task.nested is None:
-                task.nested = []
-            task.nested.extend(refs)
-            first = len(task.nested) - len(refs)
-            return ("submitted", list(range(first, len(task.nested))))
-        ref = task.nested[req[1]]
+            with self.req_lock:
+                if task.nested is None:
+                    task.nested = []
+                first = len(task.nested)
+                task.nested.extend(refs)
+            return ("submitted", list(range(first, first + len(refs))))
+        if kind == "plane":
+            from . import _actor
+            plane = _actor._plane()
+            return ("plane", plane.host, plane.port)
+        if kind == "next":
+            # A nested stream's next item: the driver's ref of it stays
+            # with the task, so its segment outlives the worker's read.
+            self.blocked(task)
+            with self.req_lock:
+                gen = task.nested[req[1]]
+            try:
+                ref = next(gen)
+            except StopIteration:
+                return ("end",)
+            with self.req_lock:
+                task.nested.append(ref)
+            try:
+                return ("value", ref._fut.result())
+            except BaseException as e:  # noqa: BLE001 - the task's error
+                return ("error", _error_blob(e))
+        with self.req_lock:
+            ref = task.nested[req[1]]
         if kind == "poll":
             if not ref._fut.done():
                 return ("pending",)
@@ -871,6 +987,8 @@ def init(num_cpus: Optional[float] = None, namespace: str = "default",
             num_cpus)
         if n <= 0:
             raise ValueError(f"num_cpus={num_cpus!r}: give at least 1")
+        from . import _sanitizer
+        _sanitizer.snapshot()
         _session = _TaskSession(n, namespace, num_tpus, resources)
         _session.pool.prestart((), _session.pool.max_workers)
         _session.pool.memory_monitor.start()
@@ -893,6 +1011,7 @@ def shutdown() -> None:
     session.close()
     with _owned_lock:
         _owned.clear()
+        _contains.clear()
     for path in glob.glob(os.path.join(SHM_DIR, f"rtt_{session.id}_*")):
         try:
             os.unlink(path)
@@ -1012,9 +1131,16 @@ def _submit(session: _TaskSession, fn_blob: bytes, name: str,
                                default_num_cpus=1.0)
     runtime_env = _runtime_env.prepare_runtime_env(opts.get("runtime_env"))
     refs: List[ObjectRef] = []
+    tid = next(session.ids)
+    if args_desc is not None:
+        trace = opts.get("_trace")     # the worker recorded its submit
+    else:
+        from .util import tracing
+        trace = tracing.submit_span(name, f"{tid:x}")
     task = _Task(
-        tid=next(session.ids), name=name, fn_blob=fn_blob,
+        tid=tid, name=name, fn_blob=fn_blob,
         opts={"num_returns": 1 if streaming else num_returns,
+              "trace": trace,
               "streaming": streaming,
               "max_retries": 0 if streaming else int(opts.get(
                   "max_retries", DEFAULT_MAX_RETRIES)),
@@ -1085,23 +1211,65 @@ def _check_options(opts: Dict[str, Any]) -> None:
 
 
 class _DriverLink:
-    """A worker's requests to the driver over its task pipe while a task
-    runs (one at a time: the driver answers each before the next)."""
+    """A worker's side of its task pipe: a reader thread hands each task
+    to the worker's loop (``next_task``) and each answer to the request
+    waiting for it, so several threads of a task may ask the driver at
+    once (each request carries an id; the driver answers one that waits
+    from a thread of its own)."""
 
     def __init__(self, conn):
         self.conn = conn
-        self.lock = threading.Lock()
+        self.send_lock = threading.Lock()
+        self.ids = itertools.count(1)
+        #: Request id -> [answered, answer]; the answer None once the
+        #: pipe is gone.
+        self.waiting: Dict[int, list] = {}
+        self.waiting_lock = threading.Lock()
+        self.tasks: "queue.Queue" = queue.Queue()
+        from . import _sanitizer
+        _sanitizer.spawn(self._read, name="task-worker-link")
+
+    def _read(self) -> None:
+        while True:
+            try:
+                msg = pickle.loads(self.conn.recv_bytes())
+            except (EOFError, OSError):
+                break
+            if msg[0] != "reply":
+                self.tasks.put(msg)
+                continue
+            with self.waiting_lock:
+                slot = self.waiting.pop(msg[1], None)
+            if slot is not None:
+                slot[1] = msg[2]
+                slot[0].set()
+        self.tasks.put(None)
+        with self.waiting_lock:
+            slots, self.waiting = list(self.waiting.values()), {}
+        for slot in slots:
+            slot[0].set()
+
+    def next_task(self) -> Optional[tuple]:
+        """The next task's message, or None once the pipe is gone."""
+        return self.tasks.get()
 
     def send(self, msg: tuple) -> None:
         data = pickle.dumps(msg, protocol=5)
-        with self.lock:
+        with self.send_lock:
             self.conn.send_bytes(data)
 
     def request(self, msg: tuple) -> tuple:
-        data = pickle.dumps(msg, protocol=5)
-        with self.lock:
-            self.conn.send_bytes(data)
-            return pickle.loads(self.conn.recv_bytes())
+        """Send ``(kind, *args)`` as ``(kind, id, *args)`` and wait for its
+        answer."""
+        rid = next(self.ids)
+        slot = [threading.Event(), None]
+        with self.waiting_lock:
+            self.waiting[rid] = slot
+        self.send((msg[0], rid) + tuple(msg[1:]))
+        slot[0].wait()
+        if slot[1] is None:
+            raise RayTpuError("the driver's end of the task pipe closed")
+        return slot[1]
 
 
 class _NestedFuture(cf.Future):
@@ -1142,18 +1310,62 @@ def _submit_from_worker(fn_blob: bytes, name: str, opts: Dict[str, Any],
     if link is None:
         raise RayTpuError("a task is submitted from a task worker only "
                           "while one of its tasks runs")
-    if opts.get("num_returns") == "streaming":
-        raise NotImplementedError(
-            "a streaming task submitted from inside a task is not ported "
-            "(submit it from the driver)")
     meta, buffers, refs = _pack((args, kwargs), f"the arguments of {name}")
     args_desc = _encode(meta, buffers, [_desc_of(r) for r in refs])
-    reply = link.request(("submit", fn_blob, name, dict(opts), args_desc))
+    from .util import tracing
+    opts = dict(opts, _trace=tracing.submit_span(name, "nested"))
+    reply = link.request(("submit", fn_blob, name, opts, args_desc))
     if reply[0] == "error":
         raise pickle.loads(reply[1])
+    if opts.get("num_returns") == "streaming":
+        return _NestedGenerator(link, reply[1][0], name)
     out = [ObjectRef(_NestedFuture(link, k), name, store=True)
            for k in reply[1]]
     return out[0] if len(out) == 1 else out
+
+
+def _driver_plane():
+    """The driver's actor store, as a client (a task worker calling an
+    actor: a ``Queue``, a handle passed as an argument)."""
+    plane = _in_worker.get("plane")
+    if plane is None:
+        link = _in_worker.get("link")
+        if link is None:
+            raise RayTpuError("an actor is called from a task worker only "
+                              "while one of its tasks runs")
+        _kind, host, port = link.request(("plane",))
+        from ._control import ControlPlane
+        plane = _in_worker["plane"] = ControlPlane.connect(host, port)
+    return plane
+
+
+class _NestedGenerator(ObjectRefGenerator):
+    """A streaming task's items in the worker that submitted it: each
+    ``next`` asks the driver for the stream's next item (the driver
+    gives up the task's CPU while it waits), so items arrive while the
+    producer still runs.  The driver keeps the items' refs with the
+    task."""
+
+    def __init__(self, link: _DriverLink, key: int, name: str):
+        self._link = link
+        self._key = key
+        self._name = name
+        self._done = False
+
+    def __del__(self):
+        pass
+
+    def __next__(self) -> ObjectRef:
+        if self._done:
+            raise StopIteration
+        reply = self._link.request(("next", self._key))
+        if reply[0] == "end":
+            self._done = True
+            raise StopIteration
+        if reply[0] == "error":
+            self._done = True
+            return _resolved(exc=pickle.loads(reply[1]), name=self._name)
+        return _store_ref(reply[1], self._name)
 
 
 # -- the worker process ----------------------------------------------------------
@@ -1187,30 +1399,39 @@ def _worker_main(conn, session_id: str, parent: int) -> None:
     """Entry point of a spawned task worker."""
     global _in_worker
     _in_worker = {"session": session_id, "link": None}
-    threading.Thread(target=_watch_parent, args=(parent,), daemon=True,
-                     name="task-worker-watch-parent").start()
+    from . import _sanitizer
+    _sanitizer.spawn(_watch_parent, args=(parent,),
+                     name="task-worker-watch-parent")
     _boot_worker_env()
     pid = os.getpid()
     last_snap = None
-    link = _DriverLink(conn)
+    from .util import tracing
     conn.send_bytes(pickle.dumps(("ready", pid)))
+    link = _DriverLink(conn)
     while True:
-        try:
-            msg = pickle.loads(conn.recv_bytes())
-        except (EOFError, OSError):
+        msg = link.next_task()
+        if msg is None:
             return
         _kind, tid, name, fn_blob, args_desc, opts = msg
 
         def snap():
+            """(telemetry if it changed, user metrics if recorded since
+            the last task, finished spans), or None when all are empty."""
             nonlocal last_snap
+            tel_snap = user = None
             tel = sys.modules.get("ray_tpu_torch.util.telemetry")
-            if tel is None:
+            if tel is not None:
+                s = tel.snapshot()
+                if s and s != last_snap:
+                    tel_snap = last_snap = s
+            metrics = sys.modules.get("ray_tpu_torch.util.metrics")
+            if metrics is not None:
+                user = metrics.take_dirty_snapshots()
+            tracing = sys.modules.get("ray_tpu_torch.util.tracing")
+            spans = tracing._drain() if tracing is not None else None
+            if not (tel_snap or user or spans):
                 return None
-            s = tel.snapshot()
-            if not s or s == last_snap:
-                return None
-            last_snap = s
-            return s
+            return tel_snap, user, spans
 
         _in_worker["link"] = link
         try:
@@ -1222,11 +1443,14 @@ def _worker_main(conn, session_id: str, parent: int) -> None:
                     else a for a in args]
             kwargs = {k: _load(v._fut.result()) if isinstance(v, ObjectRef)
                       else v for k, v in kwargs.items()}
-            result = fn(*args, **kwargs)
+            with tracing.task_span(opts.get("trace"), name, f"{tid:x}"):
+                result = fn(*args, **kwargs)
+                if opts["streaming"]:
+                    for item in result:
+                        inner: list = []
+                        desc = _seal(item, f"an item of {name}", inner)
+                        link.send(("item", tid, desc, inner))
             if opts["streaming"]:
-                for item in result:
-                    link.send(("item", tid, _seal(item,
-                                                  f"an item of {name}")))
                 _in_worker["link"] = None
                 link.send(("end", tid, pid, snap()))
                 continue
@@ -1235,9 +1459,11 @@ def _worker_main(conn, session_id: str, parent: int) -> None:
             if len(values) != n:
                 raise ValueError(f"task {name!r} returned {len(values)} "
                                  f"values; num_returns={n}")
-            descs = [_seal(v, f"the result of {name}") for v in values]
+            inners: List[list] = [[] for _ in values]
+            descs = [_seal(v, f"the result of {name}", i)
+                     for v, i in zip(values, inners)]
             _in_worker["link"] = None
-            link.send(("ok", tid, descs, pid, snap()))
+            link.send(("ok", tid, descs, inners, pid, snap()))
         except BaseException as e:  # noqa: BLE001 - back to the caller
             _in_worker["link"] = None
             err = e if isinstance(e, TaskError) else TaskError(

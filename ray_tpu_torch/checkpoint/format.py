@@ -282,10 +282,13 @@ def build_shard(snapshot: Snapshot, rank: int, world: int,
 def write_bytes_atomic(path: str, data: bytes) -> None:
     """tmp-file + fsync + ``os.replace``: the path either holds the
     complete bytes or does not exist."""
+    from .._sanitizer import tracked_open
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
                                prefix=os.path.basename(path) + ".tmp")
+    os.close(fd)
     try:
-        with os.fdopen(fd, "wb") as f:
+        # Tracked: a writer that never closes shows in the leak report.
+        with tracked_open(tmp, "wb") as f:
             f.write(data)
             f.flush()
             os.fsync(f.fileno())

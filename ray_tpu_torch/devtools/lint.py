@@ -1,14 +1,24 @@
 """AST rule engine behind ``python -m ray_tpu_torch.devtools.lint`` (a
 copy of ray_tpu/devtools/lint.py carrying the port's rule family).
 
-The engine is deliberately small: a rule is an object with an ``id`` and
-a ``check(ctx)`` generator over one parsed module, run over every linted
-file.  Rules
-self-register at import (``rules_torch`` at the bottom of this file — the
-JAX package's control-plane families RT1xx-RT4xx are not carried), findings
-are suppressible per line with ``# ray-tpu: noqa[RT502]`` (or a bare
-``# ray-tpu: noqa`` for all rules), and output is text, JSON or GitHub
-annotations.
+The engine is deliberately small: a rule is an object with an ``id``, a
+``scope`` and a ``check(ctx)`` generator over one parsed module.  Rules
+self-register at import (``rules_user``, ``rules_internal``,
+``rules_dataflow``, ``rules_concurrency`` and ``rules_torch`` at the
+bottom of this file), findings are suppressible per line with
+``# ray-tpu: noqa[RT201]`` (or a bare ``# ray-tpu: noqa`` for all rules),
+and output is text, JSON or GitHub annotations.
+
+Scopes:
+
+* ``user`` rules understand the framework's *usage* (nested blocking
+  ``get``, ``get``-in-a-loop, bad captures; the eager-torch RT5xx family)
+  and run over every linted file.
+* ``internal`` rules are invariants of the framework's own source (locks,
+  swallowed exceptions, monotonic clocks, the telemetry catalog, resource
+  release, guarded-by discipline) and only run on files inside the
+  ``ray_tpu_torch`` package tree (auto-detected from the path; override
+  with ``internal=``).
 
 Command line (mirrors the JAX package's ``ray-tpu lint`` for this
 family)::
@@ -75,11 +85,16 @@ class LintResult:
 class ModuleContext:
     """One parsed module handed to every rule."""
 
-    def __init__(self, tree: ast.Module, source: str, path: str):
+    def __init__(self, tree: ast.Module, source: str, path: str,
+                 internal: bool = False):
         self.tree = tree
         self.source = source
         self.lines = source.splitlines()
         self.path = path
+        # Normalized forward-slash path for module-identity checks
+        # (e.g. RT202's control-plane set, RT205's anchor file).
+        self.module_key = path.replace(os.sep, "/")
+        self.internal = internal
         self._by_type: Optional[Dict[type, List[ast.AST]]] = None
 
     def nodes(self, *types: type) -> List[ast.AST]:
@@ -107,6 +122,7 @@ class Rule:
     """Base class; subclasses set the metadata and implement check()."""
 
     id: str = "RT000"
+    scope: str = "user"  # "user" | "internal"
     summary: str = ""
     rationale: str = ""
     #: True for rules that run over the per-function CFG
@@ -197,16 +213,19 @@ def _suppressed(f: Finding, noqa: Dict[int, Optional[Set[str]]]) -> bool:
 def lint_source(source: str, path: str = "<snippet>",
                 rules: Optional[Sequence[Rule]] = None,
                 suppressed_counts: Optional[Dict[str, int]] = None,
+                internal: bool = False,
                 ) -> List[Finding]:
     try:
         tree = ast.parse(source, filename=path)
     except SyntaxError as e:
         return [Finding("RT001", path, e.lineno or 1, (e.offset or 0) + 1,
                         f"syntax error: {e.msg}")]
-    ctx = ModuleContext(tree, source, path)
+    ctx = ModuleContext(tree, source, path, internal)
     noqa = _noqa_map(source)
     out: List[Finding] = []
     for rule in (rules if rules is not None else _RULES):
+        if rule.scope == "internal" and not internal:
+            continue
         for f in rule.check(ctx):
             if not _suppressed(f, noqa):
                 out.append(f)
@@ -215,6 +234,11 @@ def lint_source(source: str, path: str = "<snippet>",
                     suppressed_counts.get(f.rule, 0) + 1
     out.sort(key=lambda f: (f.path, f.line, f.rule))
     return out
+
+
+def _is_internal_path(path: str) -> bool:
+    parts = os.path.abspath(path).replace(os.sep, "/").split("/")
+    return "ray_tpu_torch" in parts
 
 
 def iter_python_files(paths: Sequence[str]) -> Iterator[str]:
@@ -259,8 +283,11 @@ def changed_python_files(base: str = "HEAD",
 
 
 def lint_paths(paths: Sequence[str],
-               rules: Optional[Sequence[Rule]] = None) -> LintResult:
-    """Lint files/directories."""
+               rules: Optional[Sequence[Rule]] = None,
+               internal: Optional[bool] = None) -> LintResult:
+    """Lint files/directories.  ``internal=None`` auto-detects per file:
+    internal rules apply to files living under a ``ray_tpu_torch``
+    package directory."""
     findings: List[Finding] = []
     suppressed: Dict[str, int] = {}
     n = 0
@@ -279,8 +306,11 @@ def lint_paths(paths: Sequence[str],
             findings.append(Finding("RT002", fpath, 1, 1,
                                     f"unreadable file: {e}"))
             continue
+        is_internal = _is_internal_path(fpath) if internal is None \
+            else internal
         findings.extend(lint_source(source, fpath, rules=rules,
-                                    suppressed_counts=suppressed))
+                                    suppressed_counts=suppressed,
+                                    internal=is_internal))
     findings.sort(key=lambda f: (f.path, f.line, f.rule))
     return LintResult(findings, n, suppressed)
 
@@ -338,7 +368,8 @@ NOT_CARRIED: Dict[str, Tuple[str, str]] = {}
 def rule_catalog_text() -> str:
     lines = []
     for rule in _RULES:
-        tags = "dataflow" if rule.dataflow else "ast"
+        tags = ("internal, " if rule.scope == "internal" else "") + (
+            "dataflow" if rule.dataflow else "ast")
         lines.append(f"{rule.id} [{tags}] {rule.summary}")
         if rule.rationale:
             lines.append(f"    {rule.rationale}")
@@ -356,7 +387,7 @@ def explain_text(rule_id: str) -> Optional[str]:
     rule = next((r for r in _RULES if r.id == rid), None)
     if rule is None:
         return None
-    tags = "dataflow-backed" if rule.dataflow else "ast"
+    tags = rule.scope + (", dataflow-backed" if rule.dataflow else "")
     lines = [f"{rule.id} [{tags}] — {rule.summary}", ""]
     if rule.rationale:
         lines += [rule.rationale, ""]
@@ -378,7 +409,8 @@ def explain_text(rule_id: str) -> Optional[str]:
 
 # Rule modules self-register on import; they import helpers from this
 # module, so this must stay at the bottom.
-from . import rules_torch  # noqa: E402,F401
+from . import (rules_concurrency, rules_dataflow, rules_internal,  # noqa: E402,F401
+               rules_torch, rules_user)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -390,8 +422,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from ray_tpu_torch.devtools import lint as mod
     ap = argparse.ArgumentParser(
         prog="python -m ray_tpu_torch.devtools.lint",
-        description="Eager-torch correctness and performance lint "
-                    "(RT502, RT504, RT505).")
+        description="Framework lint: usage (RT1xx), internal invariants "
+                    "(RT2xx-RT4xx) and eager-torch (RT5xx) rules.")
     ap.add_argument("paths", nargs="*")
     ap.add_argument("--format", dest="fmt", default="text",
                     choices=("text", "json", "github"))

@@ -158,7 +158,10 @@ class RemoteReplica:
         except BaseException:
             _actor.kill(self.actor)
             raise
+        #: active -> draining -> dead (dead is final); every transition
+        #: and read under ``_state_lock``.
         self._state = STATE_ACTIVE
+        self._state_lock = threading.Lock()
         self._snap: Dict[str, Any] = {"load": {}, "summary": None,
                                       "idle": False}
         self._snap_lock = threading.Lock()
@@ -176,15 +179,25 @@ class RemoteReplica:
             daemon=True)
         self._poller.start()
 
+    def _set_state(self, new: str, only_from: Sequence[str] = ()) -> bool:
+        """Move to ``new`` (only from one of ``only_from`` when given);
+        True when it moved."""
+        with self._state_lock:
+            if only_from and self._state not in only_from:
+                return False
+            self._state = new
+            return True
+
     # -- router surface (DecodeReplica-compatible) --------------------------
 
     @property
     def state(self) -> str:
-        return self._state
+        with self._state_lock:
+            return self._state
 
     @property
     def accepting(self) -> bool:
-        return self._state == STATE_ACTIVE
+        return self.state == STATE_ACTIVE
 
     def _handoff_desc(self, handoff) -> Optional[tuple]:
         """The cached export of ``handoff``, or a new one (releasing the
@@ -222,7 +235,7 @@ class RemoteReplica:
                 # The replica died (or raised) holding none of the shares
                 # this call sent: release them with the blob.
                 _object_store.settle_sends(desc, delivered=False)
-                self._state = STATE_DEAD
+                self._set_state(STATE_DEAD)
                 self._release_cached()
                 return None
             _object_store.settle_sends(desc, delivered=True)
@@ -244,18 +257,18 @@ class RemoteReplica:
             return _actor.get(self.actor.try_serve_cached.remote(
                 list(prompt_tokens), params, age))
         except _actor.RayTpuError:
-            self._state = STATE_DEAD
+            self._set_state(STATE_DEAD)
             return None
 
     def cancel(self, rid: int) -> None:
         # Fire and forget: a dead actor's error lands in the unread ref.
-        self.actor.cancel.remote(rid)
+        self.actor.cancel.remote(rid)  # ray-tpu: detached
 
     def load_stats(self) -> Dict[str, Any]:
         with self._snap_lock:
             load = dict(self._snap.get("load") or {})
         load.setdefault("name", self.name)
-        load.setdefault("state", self._state)
+        load.setdefault("state", self.state)
         load.setdefault("ongoing", 0)
         load.setdefault("kv_occupancy", 0.0)
         load.setdefault("waiting", 0)
@@ -291,13 +304,13 @@ class RemoteReplica:
             except _actor.RayTpuError:
                 # The actor is gone (killed, crashed): stop polling; the
                 # fleet manager reaps dead replicas and sheds in-flight.
-                self._state = STATE_DEAD
+                self._set_state(STATE_DEAD)
                 return
             with self._snap_lock:
                 self._snap = snap
-            if self._state != STATE_DEAD \
-                    and snap.get("state") == STATE_DRAINING:
-                self._state = STATE_DRAINING
+            if snap.get("state") == STATE_DRAINING:
+                self._set_state(STATE_DRAINING, only_from=(STATE_ACTIVE,
+                                                           STATE_DRAINING))
             for rec in done:
                 if self._on_finish is not None:
                     self._on_finish(self, _as_request(rec))
@@ -305,12 +318,11 @@ class RemoteReplica:
     # -- lifecycle ----------------------------------------------------------
 
     def drain(self) -> None:
-        if self._state == STATE_ACTIVE:
-            self._state = STATE_DRAINING
-            self.actor.drain.remote()
+        if self._set_state(STATE_DRAINING, only_from=(STATE_ACTIVE,)):
+            self.actor.drain.remote()  # ray-tpu: detached
 
     def kill(self, timeout_s: float = 5.0) -> List[int]:
-        self._state = STATE_DEAD
+        self._set_state(STATE_DEAD)
         self._stop.set()
         if self._poller is not threading.current_thread():
             self._poller.join(timeout_s)

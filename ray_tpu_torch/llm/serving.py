@@ -1,8 +1,8 @@
 """LLM serving: one engine behind a callable that many threads share
 (counterpart of ray_tpu/llm/serving.py).
 
-``LLMServer`` is the JAX package's, with a plain ``threading.Thread`` as its
-drive thread.  ``build_llm_deployment`` wraps it in a serve deployment
+``LLMServer`` is the JAX package's; its drive thread starts through the
+leak sanitizer's ``spawn``, as JAX's does.  ``build_llm_deployment`` wraps it in a serve deployment
 (``ray_tpu_torch.serve``): each replica is a process hosting one
 ``LLMServer`` and its engine on the card (``engine_options["device"]``,
 None: the card).  ``build_params`` travels to the replica by pickle, so it
@@ -51,9 +51,8 @@ class LLMServer:
         self._stop = threading.Event()
         self._work = threading.Event()
         self._last_sweep = 0.0
-        self._thread = threading.Thread(target=self._drive, name="llm-drive",
-                                        daemon=True)
-        self._thread.start()
+        from .. import _sanitizer
+        self._thread = _sanitizer.spawn(self._drive, name="llm-drive")
 
     def _submit(self, prompt_tokens: List[int], params: SamplingParams,
                 timeout_s: float) -> tuple:

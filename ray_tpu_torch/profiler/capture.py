@@ -286,7 +286,7 @@ def capture_profile(worker_id: str, duration_s: float,
     # two processes (monotonic clocks have unrelated bases).
     offset = 0.0
     if driver_wall_s:
-        offset = recv_wall - driver_wall_s
+        offset = recv_wall - driver_wall_s  # ray-tpu: noqa[RT203]
     if not _active_lock.acquire(blocking=False):
         return {"worker_id": worker_id, "pid": os.getpid(),
                 "is_driver": is_driver, "error": "capture already running",

@@ -51,8 +51,8 @@ from .controller import (METRICS_KV_PREFIX, REPLICA_KV_PREFIX,
                          AutoscalingConfig, ServeController)
 
 #: The ROADMAP entry that brings what this package still refuses.
-ITEM_6C = ("ROADMAP Queue 1 item 6c (dag/, the gRPC ingress and the "
-           "per-node proxies)")
+ITEM_6C = ("ROADMAP Queue 1 item 6c (the gRPC ingress and the per-node "
+           "proxies)")
 
 _app_lock = threading.Lock()
 #: The deployments this process runs (its controller reconciles them).
@@ -242,7 +242,9 @@ class _DeploymentState:
                                           dep.init_kwargs)
 
     def add_replica(self, wait_ready: bool = False):
-        if self.stopped:
+        # Safe bare read: stopped is a monotonic shutdown latch; a stale
+        # False only delays the error to the actor-create round trip.
+        if self.stopped:  # ray-tpu: noqa[RT401]
             raise RuntimeError("deployment is stopped")
         r = self._spawn()
         if wait_ready:
@@ -332,7 +334,7 @@ class _Router:
         self._max_queued: Optional[int] = None
         from .multiplex import RouterAffinity
         self.affinity = RouterAffinity(8)
-        self._reporter: Optional[threading.Thread] = None
+        self._reporter_started = False
 
     def evict(self, actor_id: str) -> None:
         with self._lock:
@@ -435,12 +437,12 @@ class _Router:
             if _controller is not None:
                 return
         with self._lock:
-            if self._reporter is not None:
+            if self._reporter_started:
                 return
-            self._reporter = threading.Thread(
-                target=self._report_loop, daemon=True,
-                name=f"serve-metrics-{self.name}")
-        self._reporter.start()
+            self._reporter_started = True
+        from .. import _sanitizer
+        _sanitizer.spawn(self._report_loop,
+                         name=f"serve-metrics-{self.name}")
 
     def _report_loop(self) -> None:
         key = f"{METRICS_KV_PREFIX}{self.name}/{self.router_id}"
@@ -453,8 +455,10 @@ class _Router:
             counts = self.counts()
             if counts or counts != last:
                 try:
+                    # CLOCK_MONOTONIC is one clock for every process of
+                    # the host, which is all the port's session spans.
                     _actor._plane().kv_put(key, pickle.dumps(
-                        (time.time(), counts)))
+                        (time.monotonic(), counts)))
                 except OSError:
                     return  # the store's server is gone
                 last = counts
@@ -573,6 +577,12 @@ def _ensure_controller() -> ServeController:
     global _controller
     with _app_lock:
         if _controller is None:
+            # Session-lifetime by design: deployments keep serving after
+            # the driver's handles are gone — declare it to the leak
+            # sanitizer.
+            from .. import _sanitizer
+            from .controller import CONTROLLER_NAME
+            _sanitizer.session_scoped(CONTROLLER_NAME)
             _controller = ServeController(_deployments, _app_lock)
         return _controller
 

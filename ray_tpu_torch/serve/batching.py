@@ -64,9 +64,10 @@ class _Batcher:
     def _run(self, instance, batch, events, enq):
         # Called with lock held for the size-trigger path; do the work
         # outside the lock.
-        threading.Thread(target=self._run_outside,
+        from .. import _sanitizer
+        _sanitizer.spawn(self._run_outside,
                          args=(instance, batch, events, enq),
-                         name="serve-batch", daemon=True).start()
+                         name="serve-batch")
 
     def _note_batch(self, batch, enq) -> None:
         from ..util import telemetry

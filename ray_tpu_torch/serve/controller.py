@@ -52,6 +52,13 @@ class AutoscalingConfig:
     downscale_delay_s: float = 5.0
 
 
+#: The JAX package's controller actor's name.  Here the controller is a
+#: thread of the process calling ``serve.run`` (ROADMAP 6c.3), but the
+#: name stays declared session-lifetime to the leak sanitizer, as JAX's.
+CONTROLLER_NAME = "SERVE_CONTROLLER"
+CONTROLLER_NAMESPACE = "serve"
+
+
 class ServeController:
     """Reconciles deployments to their targets (self-healing +
     autoscale)."""
@@ -71,7 +78,7 @@ class ServeController:
     def _reports(self, name: str):
         """Fresh router reports ({replica actor id: in-flight}): this
         process's router, read live, and those the store holds."""
-        now = time.time()
+        now = time.monotonic()   # the routers' stamps (one host's clock)
         reports = {}
         plane = _actor._plane()
         prefix = f"{METRICS_KV_PREFIX}{name}/"
@@ -227,8 +234,8 @@ class ServeController:
                         break
                 time.sleep(0.2)
             _actor.kill(r)
-        threading.Thread(target=drain, name="serve-drain",
-                         daemon=True).start()
+        from .. import _sanitizer
+        _sanitizer.spawn(drain, name="serve-drain")
 
     def _publish(self, state) -> None:
         with state._lock:

@@ -198,9 +198,10 @@ def _worker_main(rank: int, world: int, run_id: str, host: str, port: int,
     plane = ControlPlane.connect(host, port)
     set_current(plane)
     if spec["profile_listener"]:
-        threading.Thread(target=_profile_listener,
+        from .. import _sanitizer
+        _sanitizer.spawn(_profile_listener,
                          args=(plane, run_id, generation, rank),
-                         daemon=True, name="train-profile-listener").start()
+                         name="train-profile-listener")
     os.makedirs(os.path.dirname(spec["stack_file"]), exist_ok=True)
     stacks = open(spec["stack_file"], "w")
     # The watchdog's bundle asks every worker for its stacks by SIGUSR1.

@@ -224,6 +224,16 @@ CATALOG: Dict[str, Dict[str, Any]] = {
     "ray_tpu_internal_swallowed_errors_total": _c(
         ("where",), "Control-plane exceptions intentionally swallowed "
                     "(best-effort paths), by call site."),
+    # -- locks (devtools/lockdebug's contention profiler) -----------------
+    "ray_tpu_lock_wait_seconds": _h(
+        ("site",), "Sampled lock-acquire wait by creation site (~1/64th "
+                   "of releases), from the opt-in contention profiler "
+                   "(RAY_TPU_LOCK_PROFILE=1 / RAY_TPU_DEBUG_LOCKS=1).",
+        _LATENCY_BUCKETS),
+    "ray_tpu_lock_hold_seconds": _h(
+        ("site",), "Sampled lock hold time by creation site (~1/64th of "
+                   "releases), from the opt-in contention profiler.",
+        _LATENCY_BUCKETS),
     # -- data (the streaming executor; recorded in the task workers) ------
     "ray_tpu_data_block_seconds": _h(
         ("operator",), "Per-block processing time in the streaming "
@@ -354,11 +364,62 @@ def emitted_names() -> set:
         return {n for src in sources for n, s in src.items() if s}
 
 
+_instances_lock = threading.Lock()
+_instances: Dict[str, Any] = {}
+
+
+def _get(name: str, expect_type: str):
+    """The catalog series ``name`` as a ``util.metrics`` instance (one per
+    name), for code that holds a metric object, as JAX's ``counter``/
+    ``gauge``/``histogram`` give it.  The framework's own call sites
+    record through ``inc``/``observe``/``set_gauge`` into this module's
+    registry, which ``samples`` reads; the instances appear in
+    ``util.metrics``' Prometheus text."""
+    from . import metrics as _metrics
+    spec = CATALOG.get(name)
+    if spec is None:
+        raise KeyError(f"{name!r} is not in the built-in telemetry catalog")
+    if spec["type"] != expect_type:
+        raise TypeError(f"{name!r} is a {spec['type']}, not a {expect_type}")
+    inst = _instances.get(name)
+    if inst is not None:
+        return inst
+    with _instances_lock:
+        inst = _instances.get(name)
+        if inst is None:
+            if spec["type"] == "counter":
+                inst = _metrics.Counter(name, spec["description"],
+                                        tag_keys=spec["tag_keys"])
+            elif spec["type"] == "gauge":
+                inst = _metrics.Gauge(name, spec["description"],
+                                      tag_keys=spec["tag_keys"])
+            else:
+                inst = _metrics.Histogram(name, spec["description"],
+                                          boundaries=spec.get("boundaries"),
+                                          tag_keys=spec["tag_keys"])
+            _instances[name] = inst
+    return inst
+
+
+def counter(name: str):
+    return _get(name, "counter")
+
+
+def gauge(name: str):
+    return _get(name, "gauge")
+
+
+def histogram(name: str):
+    return _get(name, "histogram")
+
+
 def _reset_for_tests() -> None:
     global _goodput_latest, _pending_ckpt_s
     with _lock:
         _local.clear()
         _remote.clear()
+    with _instances_lock:
+        _instances.clear()
     _spans.clear()
     _goodput_latest = None
     _pending_ckpt_s = 0.0

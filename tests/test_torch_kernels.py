@@ -1009,3 +1009,47 @@ def test_num_tpus_task_sees_one_card_and_launches_flash(cuda):
     assert r["device_count"] == 1 and r["visible"] is not None
     assert r["launches"] == 1
     assert r["max_abs_err"] <= cs.TOL["bfloat16"]
+
+
+def test_sanitizer_over_a_card_task_and_an_ipc_handoff(cuda):
+    """The leak sanitizer on (as the suite runs it) over a card task
+    running the flash forward and a CUDA tensor exported to the object
+    store (a pin) and read over IPC in a card task: ``shutdown()`` raises
+    no ``LeakError``, the export was pinned while it lived, and a pin
+    left behind does raise."""
+    import pathlib
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)      # task workers import chip_smoke
+    import chip_smoke as cs
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch import _object_store, _sanitizer
+    was_on = _sanitizer.is_enabled()
+    _sanitizer.install()
+    try:
+        rtt.init(num_cpus=2)
+        r = rtt.get(rtt.remote(num_tpus=1)(cs.flash_probe).remote(1),
+                    timeout=300)
+        store = _object_store.SharedMemoryStore()
+        x = torch.full((1 << 16,), 2.0, device="cuda")
+        oid = _object_store.new_object_id()
+        desc = _object_store.export_page_blob(store, oid, x)
+        assert desc[0] == "cuda_ipc"
+        assert [p["object_id"] for p in _sanitizer.report()["pins"]] == [oid]
+        theirs = rtt.get(rtt.remote(num_tpus=1)(cs.ipc_read_task).remote(
+            desc), timeout=300)
+        _object_store.settle_sends(desc, delivered=True)
+        _object_store.release_page_blob(store, oid)
+        rtt.shutdown()                   # no LeakError
+        assert r["launches"] == 1 and r["max_abs_err"] <= cs.TOL["bfloat16"]
+        assert theirs == float(x.sum().item())
+        rtt.init(num_cpus=1)
+        oid2 = _object_store.new_object_id()
+        _object_store.export_page_blob(store, oid2, x)
+        with pytest.raises(_sanitizer.LeakError, match=r"\[pin\]"):
+            rtt.shutdown()
+        _object_store.release_page_blob(store, oid2)
+    finally:
+        if not was_on:
+            _sanitizer.uninstall()

@@ -291,7 +291,10 @@ def test_catalog_lists_the_rules_not_carried():
         assert f"{rid} [{'dataflow' if rid == 'RT504' else 'ast'}]" in text
     for rid in ("RT501", "RT503", "RT506"):
         assert f"{rid} [not carried]" in text
-    assert {r.id for r in lint.iter_rules()} == {"RT502", "RT504", "RT505"}
+    # The RT5xx family the port carries (RT1xx-RT4xx are the JAX
+    # package's own rules, copied: tests/test_torch_devtools.py).
+    assert {r.id for r in lint.iter_rules() if r.id.startswith("RT5")} == \
+        {"RT502", "RT504", "RT505"}
     explain = lint.explain_text("rt502")
     assert "Bad:" in explain and "noqa[RT502]" in explain
 
@@ -314,9 +317,10 @@ def test_cli(tmp_path):
 
 
 def test_lint_paths_over_the_port():
-    """The port's own tree under its rules, recorded (nothing repaired
-    here): no finding."""
+    """The port's own tree under its RT5xx rules, recorded (nothing
+    repaired here): no finding.  The other families' gate over the tree
+    is tests/test_torch_devtools.py's ``test_ray_tpu_torch_tree_is_clean``."""
     result = lint.lint_paths([os.path.join(REPO, "ray_tpu_torch")])
     assert result.files_checked > 100
     assert [(f.rule, os.path.relpath(f.path, REPO), f.line)
-            for f in result.findings] == []
+            for f in result.findings if f.rule.startswith("RT5")] == []

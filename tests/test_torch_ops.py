@@ -520,8 +520,13 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
             "_runtime_env.py", "_cgroup.py", "_memory_monitor.py",
             "_config.py", "_ids.py", "cuda.py", "accelerator.py",
             "decisions.py", "tuner.py", "searchers.py", "schedulers.py",
-            "scaling_policy.py", "gpu.py"} <= \
+            "scaling_policy.py", "gpu.py", "lockdebug.py", "_sanitizer.py",
+            "rules_user.py", "rules_internal.py", "rules_dataflow.py",
+            "rules_concurrency.py", "metrics.py", "actor_pool.py",
+            "queue.py", "_checkpoint.py"} <= \
         {f.name for f in files}
+    # The workflow tombstone is walked too (its import raises ImportError).
+    assert REPO / "ray_tpu_torch" / "workflow" / "__init__.py" in files
     for f in files:
         # Whole-word roots: ray_tpu_torch is the port itself.  optax, chex
         # and flax each import JAX; the port reads bf16 without ml_dtypes;

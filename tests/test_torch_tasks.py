@@ -91,10 +91,16 @@ def squares(n):
         yield i * i
 
 
-def slow_gen():
-    for i in range(4):
-        time.sleep(0.3)
-        yield i
+def gated_gen(gate):
+    """Item 0, then item 1 only once the consumer has opened ``gate`` (a
+    file) after reading item 0: item 1 is True when it did, False when
+    the wait ran out."""
+    yield 0
+    deadline = time.monotonic() + TIMEOUT
+    while not os.path.exists(gate) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    yield os.path.exists(gate)
+    yield 2
 
 
 def bad_gen():
@@ -231,15 +237,15 @@ def sc_stream_yields_refs_in_order(rt):
             rt.remote(num_returns="streaming")(squares).remote(5)]
 
 
-def sc_stream_consumed_while_producing(rt):
-    t0 = time.monotonic()
-    it = iter(rt.remote(num_returns="streaming")(slow_gen).remote())
+def sc_stream_consumed_while_producing(rt, tmp):
+    # Items arrive before the stream ends: the producer holds its next
+    # item until the consumer has read the first one.
+    gate = os.path.join(tmp, "gate_" + uuid.uuid4().hex)
+    it = iter(rt.remote(num_returns="streaming")(gated_gen).remote(gate))
     first = rt.get(next(it))
-    t_first = time.monotonic() - t0
+    open(gate, "w").close()
     rest = [rt.get(r) for r in it]
-    t_all = time.monotonic() - t0
-    # Items arrive before the stream ends.
-    return first, rest, t_first < t_all * 0.6
+    return first, rest
 
 
 def sc_stream_error_raises_at_position(rt):
@@ -267,6 +273,10 @@ SCENARIOS = [sc_basic, sc_chained_dependencies, sc_many_tasks,
              sc_stream_error_raises_at_position, sc_large_streamed_items]
 
 
+_TAKES_TMP = (sc_task_retry_on_worker_crash,
+              sc_stream_consumed_while_producing)
+
+
 @pytest.fixture(scope="module")
 def port():
     session = rtt.init(num_cpus=4)
@@ -278,8 +288,7 @@ def port():
                          ids=[s.__name__[3:] for s in SCENARIOS])
 def test_scenario_matches_jax(scenario, ray_start, port, tmp_path):
     import ray_tpu
-    extra = ((str(tmp_path),) if scenario is sc_task_retry_on_worker_crash
-             else ())
+    extra = ((str(tmp_path),) if scenario in _TAKES_TMP else ())
     want = scenario(ray_tpu, *extra)
     got = scenario(rtt, *extra)
     assert got == want

@@ -19,8 +19,12 @@ top: every trial worker imports it.
 from __future__ import annotations
 
 import math
+import os
+import shutil
 import sys
+import tempfile
 import time
+import uuid
 
 import pytest
 
@@ -77,6 +81,9 @@ def hyperband_trainable(config):
     return {"loss": config["lr"]}
 
 
+PBT_TRIALS = 4
+
+
 def pbt_trainable(config):
     tune = _tune()
     ck = tune.get_checkpoint()
@@ -86,7 +93,22 @@ def pbt_trainable(config):
         time.sleep(0.12)
         score += 1.0 if abs(lr - 0.1) < 0.05 else 0.1
         tune.report({"score": score}, checkpoint={"score": score, "lr": lr})
+        if step == 4:
+            _pbt_barrier(config["gate"])
     return {"score": score}
+
+
+def _pbt_barrier(gate):
+    """Every trial has reported its first perturbation interval before any
+    goes on, so the scheduler ranks the whole population at the next
+    boundary however the host schedules the trials (gated on the others'
+    reports, not on time; a restarted trial finds the gate open)."""
+    with open(os.path.join(gate, uuid.uuid4().hex), "w"):
+        pass
+    deadline = time.monotonic() + 120
+    while len(os.listdir(gate)) < PBT_TRIALS and \
+            time.monotonic() < deadline:
+        time.sleep(0.01)
 
 
 def llama_trial(config):
@@ -374,12 +396,17 @@ def sc_pbt_exploit_explore(pkg):
     pbt = tune.PopulationBasedTraining(
         metric="score", mode="max", perturbation_interval=4,
         hyperparam_mutations={"lr": [0.001, 0.01, 0.1, 1.0]}, seed=1)
-    grid = tune.Tuner(
-        pbt_trainable,
-        param_space={"lr": tune.grid_search([0.001, 0.1, 1.0, 0.01])},
-        tune_config=tune.TuneConfig(metric="score", mode="max",
-                                    max_concurrent_trials=4,
-                                    scheduler=pbt)).fit()
+    gate = tempfile.mkdtemp(prefix="pbt_gate_")
+    try:
+        grid = tune.Tuner(
+            pbt_trainable,
+            param_space={"lr": tune.grid_search([0.001, 0.1, 1.0, 0.01]),
+                         "gate": gate},
+            tune_config=tune.TuneConfig(metric="score", mode="max",
+                                        max_concurrent_trials=PBT_TRIALS,
+                                        scheduler=pbt)).fit()
+    finally:
+        shutil.rmtree(gate, ignore_errors=True)
     assert len(grid) == 4
     assert grid.get_best_result().metrics["score"] > 25.0
     assert any(r.restarts > 0 for r in grid)
