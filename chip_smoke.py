@@ -5267,7 +5267,7 @@ def phase_collective(smi):
 #: flight; the prefill actor keeps its last DAG_KEEP exported blobs (the
 #: decode side finished every older one before the driver submitted the
 #: next execute).
-DAG_REQUESTS, DAG_PROMPT, DAG_NEW, DAG_DEPTH, DAG_KEEP = 16, 256, 64, 2, 2
+DAG_REQUESTS, DAG_PROMPT, DAG_NEW, DAG_DEPTH, DAG_KEEP = 8, 256, 64, 2, 2
 DAG_OPTS = dict(max_slots=8, page_size=16, prefill_buckets=(256,),
                 num_pages=8 * math.ceil((256 + 64 + 1) / 16) + 1)
 #: The collective node: a 4 MiB fp32 tree from each of two actors,
@@ -6369,6 +6369,259 @@ def phase_trace_metrics(smi):
     return out["launches"]
 
 
+HEAD_FT_TOL = 1.6e-2     # the revived actor's flash vs its plain version
+HEAD_FT_TASKS = 200      # trivial client tasks timed one round trip each
+HEAD_FT_PUT_BYTES = 64 << 20
+
+
+class HeadFlash:
+    """The head_ft phase's card actor: each ``probe`` runs the flash
+    forward on the actor's card and counts its calls (fresh state after a
+    restart counts from 1 again)."""
+
+    def __init__(self, base):
+        self.base = base
+        self.calls = 0
+
+    def probe(self, seed):
+        self.calls += 1
+        return dict(flash_probe(int(seed)), calls=self.base + self.calls)
+
+    def pid(self):
+        return os.getpid()
+
+    def die(self):
+        os._exit(1)
+
+
+def head_noop(x):
+    return x
+
+
+def _start_head(state_dir: str, token: str):
+    """``python -m ray_tpu_torch.scripts.head`` on ``state_dir``: (process,
+    its address file, seconds until the file was written)."""
+    import subprocess
+    here = os.path.dirname(os.path.abspath(__file__))
+    addr_file = os.path.join(state_dir, "head_address")
+    if os.path.exists(addr_file):
+        os.unlink(addr_file)            # a SIGKILLed head leaves its file
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.head",
+         "--node-port", "0", "--port", "-1", "--dashboard-port", "-1",
+         "--num-cpus", "4", "--num-tpus", "1", "--state-dir", state_dir,
+         "--token", token, "--address-file", addr_file],
+        cwd=here, env=env, stdout=subprocess.DEVNULL, stderr=None)
+    deadline = time.monotonic() + 120
+    while True:
+        check(proc.poll() is None,
+              f"head_ft: the head exited with {proc.returncode}")
+        try:
+            with open(addr_file) as f:
+                return proc, json.load(f), time.perf_counter() - t0
+        except (FileNotFoundError, json.JSONDecodeError):
+            check(time.monotonic() < deadline, "head_ft: no head in 120 s")
+            time.sleep(0.02)
+
+
+def _pid_gone(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+def _until(fn, timeout: float = 300.0):
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            return fn()
+        except Exception:  # noqa: BLE001 - retried until the deadline
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.05)
+
+
+def phase_head_ft(smi):
+    """The head as its own process (``scripts.head``, a state dir, one
+    card) driven by this process as a client: a card task and a named
+    card actor running the flash forward, a placement group, a KV key,
+    200 trivial tasks timed, a 64 MiB put and get.  Then SIGKILL the head:
+    its workers must be gone within 10 s (and absent from nvidia-smi's
+    compute apps); restarted on the same state dir, the KV value, the
+    placement group (CREATED) and the named actor (a new pid, fresh
+    state, the flash within HEAD_FT_TOL) come back, and the dead
+    session's segments are gone.  Last, a card actor with
+    ``max_restarts=1`` killed twice: back once, then DEAD."""
+    import glob
+    import shutil
+    import signal
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import chip_smoke as cs       # by module name: the head imports it
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch._actor import control
+    from ray_tpu_torch._persist import StateStore
+    t0 = time.perf_counter()
+    out = {"phase": "head_ft", "card": smi}
+    state = tempfile.mkdtemp(prefix="head_ft_")
+    token = os.urandom(16).hex()
+    head = None
+    try:
+        head, info, out["head_boot_s"] = _start_head(state, token)
+        rtt.init(address=info["node_address"], cluster_token=token.encode())
+        task = rtt.get(rtt.remote(num_tpus=1)(cs.flash_probe).remote(3),
+                       timeout=600)
+        actor = rtt.remote(cs.HeadFlash).options(
+            name="head_ft_flash", num_tpus=1, max_restarts=0,
+            num_cpus=0).remote(0)
+        first = rtt.get(actor.probe.remote(4), timeout=600)
+        pg = rtt.placement_group([{"CPU": 1}])
+        check(pg.ready(timeout=60), "head_ft: placement group not ready")
+        control("kv_put", "head_ft/key", b"head_ft-value")
+        noop = rtt.remote(cs.head_noop)
+        rtt.get(noop.remote(0), timeout=120)          # a warm worker
+        rtts = []
+        for i in range(HEAD_FT_TASKS):
+            t = time.perf_counter()
+            check(rtt.get(noop.remote(i), timeout=60) == i,
+                  "head_ft: a trivial task's value")
+            rtts.append((time.perf_counter() - t) * 1e3)
+        blob = np.random.default_rng(0).integers(
+            0, 255, HEAD_FT_PUT_BYTES, dtype=np.uint8)
+        t = time.perf_counter()
+        ref = rtt.put(blob)
+        rtt.wait([ref], num_returns=1, timeout=120)   # the head has it
+        put_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        back = rtt.get(ref, timeout=120)
+        get_ms = (time.perf_counter() - t) * 1e3
+        check(np.array_equal(back, blob), "head_ft: the 64 MiB get")
+        del back
+        old = control("session_info")
+        segs_before = glob.glob(f"/dev/shm/rtt_{old['session_id']}_*")
+        out.update(
+            client_task_ms={"p50": float(np.percentile(rtts, 50)),
+                            "p99": float(np.percentile(rtts, 99)),
+                            "n": len(rtts)},
+            put_64mib_ms=put_ms, get_64mib_ms=get_ms,
+            first={k: first[k] for k in ("launches", "max_abs_err", "pid",
+                                         "calls")},
+            task={k: task[k] for k in ("launches", "max_abs_err")},
+            old_workers=old["worker_pids"],
+            old_segments=len(segs_before))
+        check(first["pid"] in old["worker_pids"],
+              f"head_ft: the actor's pid {first['pid']} is not among the "
+              f"head's workers {old['worker_pids']}")
+        # SIGKILL the head: no shutdown runs; its workers must follow.
+        t_kill = time.perf_counter()
+        head.send_signal(signal.SIGKILL)
+        head.wait(timeout=60)
+        rtt.shutdown()                   # the client's dead connection
+        deadline = time.monotonic() + 10
+        while not all(map(_pid_gone, old["worker_pids"])) and \
+                time.monotonic() < deadline:
+            time.sleep(0.02)
+        left = [p for p in old["worker_pids"] if not _pid_gone(p)]
+        out["workers_gone_s"] = time.perf_counter() - t_kill
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.split()
+        out["smi_compute_pids"] = apps
+        check(not left, f"head_ft: old workers alive 10 s after the "
+              f"kill: {left}")
+        check(not set(map(str, old["worker_pids"])) & set(apps),
+              f"head_ft: nvidia-smi still lists old workers {apps}")
+        head, info, out["head_reboot_s"] = _start_head(state, token)
+        rtt.init(address=info["node_address"], cluster_token=token.encode())
+        h = _until(lambda: rtt.get_actor("head_ft_flash"))
+        revived = _until(lambda: rtt.get(h.probe.remote(4), timeout=300))
+        out["kill_to_revived_answer_s"] = time.perf_counter() - t_kill
+        out["revived"] = {k: revived[k] for k in ("launches", "max_abs_err",
+                                                  "pid", "calls")}
+        kv = control("kv_get", "head_ft/key")
+        pg_state = _until(lambda: _created(control("pg_state",
+                                                   pg.id.binary())), 60)
+        out["kv_back"] = kv == b"head_ft-value"
+        out["pg_state"] = pg_state
+        out["old_segments_after"] = len(glob.glob(
+            f"/dev/shm/rtt_{old['session_id']}_*"))
+        check(out["kv_back"], f"head_ft: the KV value after restart {kv}")
+        check(revived["pid"] != first["pid"] and revived["calls"] == 1,
+              f"head_ft: the revived actor {out['revived']} (first "
+              f"{out['first']})")
+        check(all(r["launches"] >= 1 and r["max_abs_err"] <= HEAD_FT_TOL
+                  for r in (first, revived, task)),
+              f"head_ft: flash {out['first']} {out['revived']} "
+              f"{out['task']}")
+        check(out["old_segments_after"] == 0,
+              f"head_ft: {out['old_segments_after']} segments of the dead "
+              f"session left")
+        records = StateStore(state).load()
+        out["wal"] = {"records": len(records), "bytes": sum(
+            os.path.getsize(os.path.join(state, f))
+            for f in ("wal.bin", "snapshot.bin")
+            if os.path.exists(os.path.join(state, f)))}
+        # The restart half: the card goes to a max_restarts=1 actor.
+        rtt.kill(h)
+        phoenix = rtt.remote(cs.HeadFlash).options(
+            name="head_ft_phoenix", num_tpus=1, max_restarts=1,
+            num_cpus=0).remote(0)
+        p1 = rtt.get(phoenix.probe.remote(5), timeout=600)
+        deaths = []
+        for _ in range(2):
+            try:
+                rtt.get(phoenix.die.remote(), timeout=120)
+                deaths.append("returned")
+            except rtt.ActorError:
+                deaths.append("ActorError")
+            try:
+                r = rtt.get(phoenix.probe.remote(5), timeout=600)
+                deaths.append({k: r[k] for k in ("pid", "calls",
+                                                 "launches",
+                                                 "max_abs_err")})
+            except rtt.ActorError:
+                deaths.append("ActorError")
+        out["restart_half"] = {"first_pid": p1["pid"], "after": deaths}
+        check(deaths[0] == "ActorError" and isinstance(deaths[1], dict)
+              and deaths[1]["pid"] != p1["pid"] and deaths[1]["calls"] == 1
+              and deaths[1]["launches"] >= 1
+              and deaths[1]["max_abs_err"] <= HEAD_FT_TOL
+              and deaths[2:] == ["ActorError", "ActorError"],
+              f"head_ft: max_restarts=1 {out['restart_half']}")
+        rtt.shutdown()
+    finally:
+        rtt.shutdown()
+        if head is not None and head.poll() is None:
+            head.send_signal(signal.SIGTERM)
+            try:
+                head.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                head.kill()
+                head.wait(timeout=30)
+        shutil.rmtree(state, ignore_errors=True)
+    out["launches"] = {"flash_fwd": task["launches"] + first["launches"]
+                       + revived["launches"] + p1["launches"]
+                       + deaths[1]["launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out["launches"]
+
+
+def _created(state):
+    if state != "CREATED":
+        raise RuntimeError(f"placement group {state}")
+    return state
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6426,6 +6679,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["trace_metrics"] = phase_trace_metrics(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["head_ft"] = phase_head_ft(smi)
     torch.cuda.empty_cache()
     phase_train_exact()
     paths["train_tiny"] = phase_train_tiny()

@@ -42,7 +42,11 @@ developer tooling and one-host surfaces (``devtools``: every lint rule
 family over the control-flow and lock analyses, the lock-order detector
 and contention profiler; ``_sanitizer``: the leak sanitizer;
 ``util``: tracing across submits, user metrics, ``ActorPool``,
-``Queue``).
+``Queue``), and the head (``_controller``: the tables, actors restarting
+under ``max_restarts``; ``_persist``: the WAL behind
+``init(state_dir=)``; ``_cluster``: the endpoint of
+``init(head_port=...)``; ``_client``: ``init(address=...)``;
+``scripts.head``: the head as its own process).
 
 Importing this package (or ``ray_tpu_torch.data``) does not import torch:
 a task worker imports it only where its function's module does.
@@ -73,13 +77,14 @@ if _os.environ.get("RAY_TPU_SANITIZE") == "1":
     from . import _sanitizer
     _sanitizer.install()
 
-from ._actor import (ActorClass, ActorError, ActorHandle,  # noqa: E402
-                     ActorMethod, GetTimeoutError, ObjectRef,
-                     ObjectRefGenerator, RayTpuError, TaskError, get,
-                     get_actor, kill, put, remote, wait)
-from ._tasks import (OutOfMemoryError, RemoteFunction,  # noqa: E402
-                     RuntimeEnvSetupError, WorkerCrashedError, init,
-                     is_initialized)
+from .exceptions import (ActorError, GetTimeoutError,  # noqa: E402
+                         ObjectLostError, OutOfMemoryError, RayTpuError,
+                         RuntimeEnvSetupError, TaskError,
+                         WorkerCrashedError)
+from ._actor import (ActorClass, ActorHandle, ActorMethod,  # noqa: E402
+                     ObjectRef, ObjectRefGenerator, get, get_actor, kill,
+                     put, remote, wait)
+from ._tasks import RemoteFunction, init, is_initialized  # noqa: E402
 from ._scheduler import (NodeAffinitySchedulingStrategy,  # noqa: E402
                          PlacementGroup, PlacementGroupSchedulingStrategy,
                          available_resources, cluster_resources, nodes,
@@ -96,13 +101,15 @@ if _os.environ.get("RAY_TPU_SYNC_DEBUG") == "1":
 
 def shutdown() -> None:
     """End the task session (its workers and every segment of it) and kill
-    every actor this process started (JAX: ``ray_tpu.shutdown``).
+    every actor this process started (JAX: ``ray_tpu.shutdown``); in a
+    client, disconnect from the head.
 
     Leak-sanitizer gate (``RAY_TPU_SANITIZE=1``): named actors are
     inspected before their processes are killed; threads, pins and file
     handles are diffed once both tiers are down, so a ``LeakError`` never
     leaves a half-shut session behind."""
-    from . import _actor, _sanitizer, _tasks
+    from . import _actor, _client, _sanitizer, _tasks
+    _client.disconnect()
     active = _tasks._session is not None or _actor._session is not None
     pre = _sanitizer.pre_shutdown() if active else []
     _tasks.shutdown()
@@ -115,6 +122,7 @@ __all__ = ["init", "shutdown", "is_initialized", "remote", "get", "put",
            "wait", "kill", "get_actor", "ObjectRef", "ObjectRefGenerator",
            "ActorHandle", "ActorClass", "ActorMethod", "RemoteFunction", "RayTpuError", "TaskError", "ActorError",
            "WorkerCrashedError", "OutOfMemoryError", "RuntimeEnvSetupError",
+           "ObjectLostError",
            "GetTimeoutError", "cluster_resources", "available_resources",
            "nodes", "placement_group", "remove_placement_group",
            "PlacementGroup", "PlacementGroupSchedulingStrategy",

@@ -33,9 +33,20 @@ A lambda or a nested function raises ``ValueError`` at ``.remote()``.  A
 class decorated with ``@remote`` pickles through its module's name (the
 module attribute is the ``ActorClass``; the actor unwraps it).
 
-Actors are daemon processes; each also watches its parent's pid and exits
-when it is gone, and ``shutdown()`` (also run at exit) kills every actor
-this process started.  An ``ObjectRef`` passed as a top-level argument is
+Actors are daemon processes.  Each reports to the process that started
+it (its owner) over a pipe, and exits when the pipe ends (the owner is
+gone, even SIGKILLed); ``shutdown()`` (also run at exit) kills every
+actor this process started.
+
+Every actor is registered in this process's controller (``_controller``,
+JAX's tables) with its creation spec, and goes ``DEPENDENCIES_UNREADY ->
+PENDING_CREATION -> ALIVE``.  When its process dies while ``num_restarts
+< max_restarts`` (option ``max_restarts``, default
+``actor_max_restarts_default``, 0) it is ``RESTARTING`` and comes back
+from the creation spec: a fresh process, fresh state, a fresh booking;
+else it is ``DEAD`` and every later call fails with ``ActorError``.  A
+constructor that raises makes it ``DEAD`` too.  ``kill(a,
+no_restart=False)`` restarts it as a crash would.  An ``ObjectRef`` passed as a top-level argument is
 resolved to its value before the call is sent (a pending one waits); a
 task's ref may also sit inside an argument (it crosses as its
 descriptor), an actor call's may not.
@@ -56,8 +67,10 @@ Options: ``max_concurrency`` (threads taking calls, default 1),
 card, its ``"cuda"`` in every thread (CUDA's current device is a
 per-thread setting, so ``set_device`` would not reach the threads that run
 the calls); ``"cpu"`` hides the cards; None leaves the caller's.
-``name``/``namespace`` register the actor for ``get_actor`` (and
-``get_if_exists`` returns the registered one).
+``name``/``namespace`` register the actor for ``get_actor`` in the
+controller (and ``get_if_exists`` returns the registered one); a name a
+live actor holds is refused.  ``control(verb, ...)`` runs the session's
+control verbs (the KV store and the rest of ``_cluster.serve_rpc``).
 
 With ``init()``'s session up, an actor is booked through the session's
 scheduler as JAX's are (``num_cpus``, default 0; ``num_tpus``, its cards;
@@ -80,8 +93,9 @@ import sys
 import threading
 import time
 import traceback
-import uuid
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from .exceptions import ActorError, GetTimeoutError, RayTpuError, TaskError
 
 #: Seconds a caller waits for a new actor to publish its address (a spawned
 #: interpreter imports torch and the actor's module first).
@@ -89,52 +103,13 @@ CONNECT_TIMEOUT_S = 300.0
 _KNOWN_OPTIONS = frozenset((
     "max_concurrency", "device", "num_cpus", "env_vars", "name", "namespace",
     "get_if_exists", "num_tpus", "resources", "memory", "placement_group",
-    "placement_group_bundle_index", "scheduling_strategy", "runtime_env"))
+    "placement_group_bundle_index", "scheduling_strategy", "runtime_env",
+    "max_restarts"))
 #: The options that need the scheduler (``init()``'s session).
 _SCHEDULED_OPTIONS = ("num_tpus", "resources", "memory", "placement_group",
                       "scheduling_strategy", "runtime_env")
 #: The method name that runs ``fn(instance, *args)`` (``__ray_call__``).
 _RAY_CALL = "__ray_call__"
-
-
-class RayTpuError(Exception):
-    """Base of the actor runtime's errors (JAX: ``RayTpuError``)."""
-
-
-class TaskError(RayTpuError):
-    """An actor method raised; re-raised at ``get`` with the remote
-    traceback (JAX: ``TaskError``)."""
-
-    def __init__(self, cause: BaseException, task_name: str = "",
-                 remote_traceback: str = ""):
-        self.cause = cause
-        self.task_name = task_name
-        self.remote_traceback = remote_traceback
-        super().__init__(
-            f"task {task_name!r} failed: {type(cause).__name__}: {cause}\n"
-            f"--- remote traceback ---\n{remote_traceback}")
-
-    def __reduce__(self):
-        return (TaskError, (self.cause, self.task_name,
-                            self.remote_traceback))
-
-
-class ActorError(RayTpuError):
-    """The actor died before or while running the method (JAX:
-    ``ActorError``)."""
-
-    def __init__(self, actor_id: Any = None, cause: Optional[str] = None):
-        self.actor_id = actor_id
-        self.reason = cause
-        super().__init__(
-            f"actor {actor_id} is dead: {cause or 'unknown cause'}")
-
-    def __reduce__(self):
-        return (ActorError, (self.actor_id, self.reason))
-
-
-class GetTimeoutError(RayTpuError, TimeoutError):
-    """``get`` ran out of time (JAX: ``GetTimeoutError``)."""
 
 
 # -- pickling by reference ----------------------------------------------------
@@ -156,11 +131,16 @@ def _dumps(obj: Any, what: str) -> bytes:
         raise _by_reference_rule(what, e) from e
 
 
-def _class_ref(cls: type) -> Tuple[str, str]:
+def _class_ref(cls: type, client: bool = False) -> Tuple[str, str]:
     qualname = cls.__qualname__
     if "<locals>" in qualname:
         raise _by_reference_rule(f"actor class {qualname!r}",
                                  TypeError("defined inside a function"))
+    if client and cls.__module__ == "__main__":
+        raise _by_reference_rule(
+            f"actor class {qualname!r}",
+            TypeError("defined in the client's __main__, which the head's "
+                      "processes cannot import"))
     return cls.__module__, qualname
 
 
@@ -176,23 +156,70 @@ def _resolve_class(module: str, qualname: str) -> type:
 
 
 class _Session:
-    """This process's store server (started at the first actor it creates)
-    and the actors it started."""
+    """This process's actor session: the controller (the head's tables,
+    ``_controller``: every actor this process starts is registered there
+    with its creation spec), the store server (started at the first actor
+    it creates) and the processes of the actors it started.
 
-    def __init__(self):
+    ``state_dir``: the tables are replayed from its WAL before anything
+    registers, then every mutation is appended to it (``_persist``)."""
+
+    def __init__(self, state_dir: Optional[str] = None):
         from . import _sanitizer
-        from ._control import ControlPlane, current, set_current
+        from ._controller import Controller, JobInfo
+        from ._ids import JobID
         _sanitizer.snapshot(first=True)
-        self.plane = ControlPlane.serve()
-        try:
-            current()
-        except RuntimeError:
-            set_current(self.plane)
+        self.controller = Controller()
+        self.store = None
+        if state_dir:
+            self.store = _open_state(self.controller, state_dir)
+        self.job_id = JobID.next()
+        self.controller.register_job(JobInfo(self.job_id))
+        self._plane = None
+        #: actor id -> its current process, and the event set once that
+        #: process's exit has been handled (restart or death).
         self.procs: Dict[str, Any] = {}
-        #: The threads that give a booked actor's resources back once its
-        #: process exits (joined at shutdown).
+        self.exits: Dict[str, threading.Event] = {}
+        #: Actors killed with ``no_restart`` (their death cause is
+        #: "killed").
+        self.killed: set = set()
+        #: The threads that watch each actor process: its state messages,
+        #: then its exit (joined at shutdown).
         self.watchers: List[threading.Thread] = []
         self.lock = threading.Lock()
+        self.closing = False
+
+    @property
+    def plane(self):
+        """The store server, started at first use."""
+        with self.lock:
+            if self._plane is None:
+                from ._control import ControlPlane, current, set_current
+                self._plane = ControlPlane.serve()
+                try:
+                    current()
+                except RuntimeError:
+                    set_current(self._plane)
+            return self._plane
+
+
+def _open_state(controller, state_dir: str):
+    """Replay ``state_dir``'s WAL into ``controller`` and attach the WAL
+    for what follows; the job counter moves past the replayed jobs."""
+    import struct
+
+    from ._config import Config
+    from ._ids import JobID
+    from ._persist import StateStore
+    store = StateStore(state_dir, fsync=bool(Config.get("head_wal_fsync")))
+    controller.restore(store.load())
+    controller.persist = store
+    store.on_compact = lambda: store.compact(controller.snapshot_records())
+    with JobID._lock:
+        for j in controller.jobs:
+            (val,) = struct.unpack("<I", j.binary())
+            JobID._counter = max(JobID._counter, val)
+    return store
 
 
 _session: Optional[_Session] = None
@@ -204,19 +231,63 @@ _spawn_env_lock = threading.Lock()
 _in_actor: Optional[Dict[str, Any]] = None
 
 
+def _open_session(state_dir: Optional[str] = None) -> _Session:
+    """This process's session (``init()`` opens it with its state dir)."""
+    global _session
+    with _session_lock:
+        if _session is None:
+            _session = _Session(state_dir)
+        elif state_dir:
+            raise RuntimeError(
+                "init(state_dir=...) must come before the first actor of "
+                "the process: the tables are replayed before anything "
+                "registers")
+        return _session
+
+
 def _plane():
     """The store this process reaches actors through: the session's, or in
     an actor, the client it was started with."""
-    global _session
     if _in_actor is not None:
         return _in_actor["plane"]
     from . import _tasks
     if _tasks._in_worker is not None:
         return _tasks._driver_plane()
-    with _session_lock:
-        if _session is None:
-            _session = _Session()
-        return _session.plane
+    return _open_session().plane
+
+
+def _client_rt():
+    """The head connection of a process that ``init(address=...)``
+    connected, else None."""
+    from . import _client
+    return _client.current()
+
+
+def control(method: str, *args, **kwargs):
+    """One of the session's control verbs (JAX: ``api._control``): the KV
+    store (``kv_put``, ``kv_get``, ``kv_del``, ``kv_keys``, ``kv_wait``),
+    ``get_named_actor``, ``nodes``, placement groups, ``session_info``
+    (``_cluster.serve_rpc`` lists them).  The driver serves them from its
+    controller; a client, an actor and a task worker ask the head."""
+    rt = _client_rt()
+    if rt is not None:
+        return rt.control(method, *args, **kwargs)
+    if _in_actor is None:
+        from . import _tasks
+        if _tasks._in_worker is None:
+            from . import _cluster
+            _open_session()
+            return _cluster.serve_rpc(method, args, kwargs)
+        head = _tasks._in_worker.get("head")
+    else:
+        head = _in_actor.get("head")
+    if head is None:
+        raise RayTpuError(
+            f"control({method!r}) from an actor or a task: the session's "
+            "endpoint starts with ray_tpu_torch.init(), which was not "
+            "called")
+    from . import _client
+    return _client.endpoint(head).control(method, *args, **kwargs)
 
 
 # -- object refs --------------------------------------------------------------
@@ -338,7 +409,13 @@ class ObjectRefGenerator:
 
 class _Channel:
     """One caller process's connection to one actor: a reader thread
-    resolves the futures and streams of the calls in flight."""
+    resolves the futures and streams of the calls in flight.
+
+    The connection is to one incarnation of the actor.  When its process
+    exits, the calls in flight fail with ``ActorError``; the next call
+    waits for the owner's verdict in the store: a new incarnation's
+    address (the actor restarted, ``max_restarts``) or its death
+    (``actor/<id>/error``), after which every call fails."""
 
     def __init__(self, actor_id: str):
         self.actor_id = actor_id
@@ -348,13 +425,14 @@ class _Channel:
         self.pending: Dict[int, Any] = {}
         self.ids = itertools.count()
         self.reader: Optional[threading.Thread] = None
+        #: The pid of the incarnation the last connection reached.
+        self.last_pid: Optional[str] = None
 
     def _connect(self) -> None:
-        """Connect once the actor has published its address (or fail with
-        what it published instead, or its death)."""
+        """Connect once an incarnation the channel has not reached yet has
+        published its address (or fail with the actor's death)."""
         from multiprocessing.connection import Client
         plane = _plane()
-        proc = _started_proc(self.actor_id)
         deadline = time.monotonic() + CONNECT_TIMEOUT_S
         while True:
             err = plane.kv_get(f"actor/{self.actor_id}/error")
@@ -362,21 +440,26 @@ class _Channel:
                 raise ActorError(self.actor_id, err.decode())
             addr = plane.kv_get(f"actor/{self.actor_id}/addr")
             if addr is not None:
-                break
-            if proc is not None and proc.exitcode is not None:
-                raise ActorError(self.actor_id, f"process exited with code "
-                                 f"{proc.exitcode} before it started")
+                host, port, pid = addr.decode().split(":")
+                if pid != self.last_pid:
+                    import multiprocessing as mp
+                    try:
+                        self.conn = Client(
+                            (host, int(port)),
+                            authkey=mp.current_process().authkey)
+                        break
+                    except OSError:
+                        # That incarnation died before its owner
+                        # withdrew the address: wait for the verdict.
+                        self.last_pid = pid
             if time.monotonic() > deadline:
                 raise ActorError(self.actor_id, "did not start within "
                                  f"{CONNECT_TIMEOUT_S} s")
             time.sleep(0.01)
-        host, port, _pid = addr.decode().split(":")
-        import multiprocessing as mp
-        self.conn = Client((host, int(port)),
-                           authkey=mp.current_process().authkey)
+        self.last_pid = pid
         from . import _sanitizer
         self.reader = _sanitizer.spawn(
-            self._read, args=(self.conn,),
+            self._read, args=(self.conn, plane),
             name=f"actor-reader-{self.actor_id[:8]}")
 
     def submit(self, method: str, blob: bytes, streaming: bool, name: str,
@@ -387,8 +470,6 @@ class _Channel:
                     self._connect()
                 except ActorError as e:
                     self.dead = e.reason
-                except OSError as e:
-                    self.dead = f"connecting failed: {e!r}"
             if self.dead is not None:
                 err = ActorError(self.actor_id, self.dead)
                 if streaming:
@@ -405,21 +486,30 @@ class _Channel:
                     (kind, call_id, method, blob, streaming, trace)))
             except (OSError, EOFError, BrokenPipeError) as e:
                 self.pending.pop(call_id, None)
-                self._fail_all(f"connection lost: {e!r}")
-                err = ActorError(self.actor_id, self.dead)
+                self._lost(self.conn, f"connection lost: {e!r}")
+                err = ActorError(self.actor_id, f"connection lost: {e!r}")
                 if streaming:
                     out._put("err", err)
                     return out
                 return _resolved(exc=err, name=name)
         return out
 
-    def _read(self, conn) -> None:
+    def _read(self, conn, plane) -> None:
         while True:
             try:
                 msg = pickle.loads(conn.recv_bytes())
             except (EOFError, OSError):
+                # The owner may have recorded why (a constructor that
+                # raised, a kill); else the process just exited.
+                why = None
+                try:
+                    err = plane.kv_get(f"actor/{self.actor_id}/error")
+                    why = err.decode() if err is not None else None
+                except Exception as e:  # noqa: BLE001 - the store is gone
+                    from .util import telemetry
+                    telemetry.note_swallowed("actor.channel_eof", e)
                 with self.lock:
-                    self._fail_all("the actor process exited")
+                    self._lost(conn, why or "the actor process exited")
                 return
             except Exception as e:  # noqa: BLE001 - a result this process
                 # cannot load (its class is not importable here): the
@@ -448,8 +538,24 @@ class _Channel:
             elif kind == "end":
                 out._put("end")
 
+    def _lost(self, conn, why: str) -> None:
+        """Under ``self.lock``: ``conn``'s incarnation is gone.  Its calls
+        fail; the next call reconnects (to a restarted incarnation) or
+        learns the actor's death.  A stale ``conn`` (the channel has
+        moved on) changes nothing: its calls failed when it was left."""
+        if self.conn is not conn:
+            return
+        for out in self.pending.values():
+            _fail(out, ActorError(self.actor_id, why))
+        self.pending.clear()
+        try:
+            conn.close()
+        except OSError:
+            pass
+        self.conn = None
+
     def _fail_all(self, why: str) -> None:
-        """Under ``self.lock``."""
+        """Under ``self.lock``: every call fails, now and later."""
         if self.dead is None:
             self.dead = why
         for out in self.pending.values():
@@ -492,6 +598,7 @@ def _channel(actor_id: str) -> _Channel:
 
 
 def _started_proc(actor_id: str):
+    """The current process of an actor this process started, or None."""
     if _session is None:
         return None
     with _session.lock:
@@ -538,6 +645,13 @@ class ActorMethod:
             raise ValueError(f"num_returns={n!r}: a positive int or "
                              "'streaming'")
         qual = f"{self._handle._class_name}.{self._name}"
+        rt = _client_rt()
+        if rt is not None:
+            if n == "streaming" or self._kind != "call":
+                raise ValueError(f"{qual}: a client sends plain calls "
+                                 "(no streaming, no side_call)")
+            return rt.submit_actor_call(self._handle._actor_id, self._name,
+                                        qual, args, kwargs, n)
         args, kwargs = _resolve_args(args, kwargs)
         blob = _dumps((args, kwargs), f"the arguments of {qual}")
         from .util import tracing
@@ -618,50 +732,133 @@ class ActorClass:
             "directly; use .remote()")
 
     def remote(self, *args, **kwargs) -> ActorHandle:
-        if _in_actor is not None:
-            raise RuntimeError(
-                "an actor cannot start actors: actors are daemon processes, "
-                "which have no children; start them from the main process")
         opts = dict(self._options)
         name = opts.get("name")
         namespace = opts.get("namespace") or "default"
+        rt = _client_rt()
+        if rt is None and _in_actor is not None:
+            raise RuntimeError(
+                "an actor cannot start actors: actors are daemon processes, "
+                "which have no children; start them from the main process")
         if name and opts.get("get_if_exists"):
             try:
                 return get_actor(name, namespace)
             except ValueError:
                 pass
-        module, qualname = _class_ref(self._cls)
+        module, qualname = _class_ref(self._cls, client=rt is not None)
+        if rt is not None:
+            return rt.create_actor(module, qualname, self._cls.__name__,
+                                   args, kwargs, opts)
         args, kwargs = _resolve_args(args, kwargs)
         init = _dumps((args, kwargs),
                       f"the constructor arguments of {qualname}")
-        actor_id = uuid.uuid4().hex
-        plane = _plane()
-        spec = {"actor_id": actor_id, "cls": (module, qualname),
-                "init": init, "host": plane.host, "port": plane.port,
-                "parent": os.getpid(),
-                "options": {k: v for k, v in opts.items()
-                            if k != "env_vars"}}
-        env = dict(_device_env(opts.get("device")),
-                   **{k: str(v) for k, v in
-                      (opts.get("env_vars") or {}).items()})
-        max_conc = int(opts.get("max_concurrency") or 1)
-        if name:
-            plane.kv_put(_name_key(namespace, name),
-                         f"{actor_id}:{self._cls.__name__}:{max_conc}"
-                         .encode())
-        from . import _tasks
-        session = _tasks._session
-        if session is None:
-            given = [k for k in _SCHEDULED_OPTIONS if opts.get(k)]
-            if given:
-                raise RayTpuError(
-                    f"actor options {given} book through the scheduler: "
-                    "call ray_tpu_torch.init() first")
-            _spawn_actor(actor_id, qualname, spec, env)
+        return _create_actor(module, qualname, self._cls.__name__, init,
+                             opts)
+
+
+def _create_actor(module: str, qualname: str, class_name: str,
+                  init: bytes, opts: Dict[str, Any]) -> ActorHandle:
+    """Register the actor in the session's controller (JAX:
+    ``ctl_register_actor``) with its creation spec, then start it; the
+    head runs this for a client's ``.remote()`` too."""
+    from . import _tasks
+    from ._config import Config
+    from ._controller import DEPENDENCIES_UNREADY, ActorInfo
+    from ._ids import ActorID
+    if _tasks._session is None:
+        given = [k for k in _SCHEDULED_OPTIONS if opts.get(k)]
+        if given:
+            raise RayTpuError(
+                f"actor options {given} book through the scheduler: "
+                "call ray_tpu_torch.init() first")
+    session = _open_session()
+    actor_id = ActorID.of(session.job_id)
+    max_restarts = opts.get("max_restarts")
+    if max_restarts is None:
+        max_restarts = Config.get("actor_max_restarts_default")
+    info = ActorInfo(actor_id, opts.get("name") or None,
+                     DEPENDENCIES_UNREADY,
+                     _creation_spec(actor_id, module, qualname, init, opts),
+                     int(max_restarts),
+                     namespace=opts.get("namespace") or "default",
+                     class_name=class_name)
+    session.controller.register_actor(info)
+    _launch(session, actor_id, reraise=True)
+    return ActorHandle(actor_id.hex(), class_name,
+                       int(opts.get("max_concurrency") or 1))
+
+
+def _creation_spec(actor_id, module: str, qualname: str, init: bytes,
+                   opts: Dict[str, Any]):
+    """The actor's creation spec, as the controller keeps (and the WAL
+    persists) it: the class by module and qualname with the options in
+    ``fn_blob``, the pickled constructor arguments as its one argument."""
+    from . import _scheduler
+    from ._ids import TaskID
+    from ._protocol import TaskSpec
+    from ._resources import task_resources
+    strategy, pg, bundle = _scheduler.normalize_strategy(opts)
+    return TaskSpec(
+        task_id=TaskID.of(actor_id), name=f"{qualname}.__init__",
+        fn_blob=pickle.dumps(("actor", module, qualname, dict(opts)),
+                             protocol=pickle.HIGHEST_PROTOCOL),
+        method_name=None, arg_descs=[("val", init)], kwarg_descs={},
+        return_ids=[],
+        resources=task_resources(opts.get("num_cpus"), opts.get("num_tpus"),
+                                 opts.get("memory"), opts.get("resources"),
+                                 default_num_cpus=0.0),
+        create_actor_id=actor_id, placement_group=pg, bundle_index=bundle,
+        scheduling_strategy=strategy, runtime_env=opts.get("runtime_env"),
+        max_concurrency=int(opts.get("max_concurrency") or 1))
+
+
+def _launch(session: _Session, aid, reraise: bool = False) -> None:
+    """Start (or restart, or revive after a head restart) the actor ``aid``
+    from its creation spec: a fresh process, a fresh booking and fresh
+    cards.  A spec that cannot be read here, or a booking that fails,
+    leaves the actor DEAD with the cause."""
+    from . import _tasks
+    from ._controller import PENDING_CREATION
+    actor_id = aid.hex()
+    info = session.controller.get_actor(aid)
+    try:
+        _tag, module, qualname, opts = pickle.loads(info.creation_spec.fn_blob)
+        init = info.creation_spec.arg_descs[0][1]
+    except Exception as e:  # noqa: BLE001 - recorded as the death cause
+        _mark_dead(session, aid, f"its creation spec could not be read: "
+                   f"{type(e).__name__}: {e}")
+        return
+    plane = session.plane
+    tasks_session = _tasks._session
+    # The session's endpoint (``init()``'s), where the actor calls the
+    # controller's verbs.
+    spec = {"actor_id": actor_id, "cls": (module, qualname),
+            "init": init, "host": plane.host, "port": plane.port,
+            "head": tasks_session.head if tasks_session else None,
+            "options": {k: v for k, v in opts.items() if k != "env_vars"}}
+    env = dict(_device_env(opts.get("device")),
+               **{k: str(v) for k, v in
+                  (opts.get("env_vars") or {}).items()})
+    session.controller.set_actor_state(aid, PENDING_CREATION)
+    try:
+        if tasks_session is None:
+            _spawn_actor(session, aid, qualname, spec, env, None)
         else:
-            _schedule_actor(session.node, actor_id, qualname, spec, env,
-                            opts)
-        return ActorHandle(actor_id, self._cls.__name__, max_conc)
+            _schedule_actor(session, tasks_session.node, aid, qualname,
+                            spec, env, opts)
+    except Exception as e:  # noqa: BLE001 - recorded as the death cause
+        _mark_dead(session, aid, f"{type(e).__name__}: {e}")
+        if reraise:
+            raise
+
+
+def _mark_dead(session: _Session, aid, cause: str) -> None:
+    """The actor is DEAD: in the controller, and in the store, where every
+    caller's channel reads the cause."""
+    from ._controller import DEAD
+    session.controller.set_actor_state(aid, DEAD, death_cause=cause)
+    if session._plane is not None:
+        session._plane.kv_put(f"actor/{aid.hex()}/error", cause.encode())
 
 
 @contextlib.contextmanager
@@ -688,29 +885,104 @@ def _child_environment(env: Dict[str, str]):
                     os.environ[k] = v
 
 
-def _spawn_actor(actor_id: str, qualname: str, spec: Dict[str, Any],
-                 env: Dict[str, str]):
+def _spawn_actor(session: _Session, aid, qualname: str,
+                 spec: Dict[str, Any], env: Dict[str, str],
+                 on_exit) -> None:
+    """Start one incarnation of the actor and the thread that watches it:
+    its state messages over a pipe (``ActorStateMsg``: constructed, or
+    its constructor raised), then its exit, after which ``on_exit()``
+    gives its booking back and the actor restarts or dies."""
     import torch.multiprocessing as mp
-    with _session.lock, _child_environment(env):
-        proc = mp.get_context("spawn").Process(
-            target=_actor_main, args=(spec,), daemon=True,
-            name=f"actor-{qualname}")
+    actor_id = aid.hex()
+    ctx = mp.get_context("spawn")
+    parent, child = ctx.Pipe(duplex=True)
+    with session.lock, _child_environment(env):
+        proc = ctx.Process(target=_actor_main, args=(spec, child),
+                           daemon=True, name=f"actor-{qualname}")
         proc.start()
-        _session.procs[actor_id] = proc
-    return proc
+        session.procs[actor_id] = proc
+        exited = session.exits[actor_id] = threading.Event()
+    child.close()
+    from . import _sanitizer
+    t = _sanitizer.spawn(_watch, args=(session, aid, proc, parent, exited,
+                                       on_exit),
+                         name=f"actor-watch-{actor_id[:8]}")
+    with session.lock:
+        session.watchers = [w for w in session.watchers
+                            if w.is_alive()] + [t]
 
 
-#: Actors killed before their placement came (their process never starts).
-_killed_pending: set = set()
+def _watch(session: _Session, aid, proc, conn, exited: threading.Event,
+           on_exit) -> None:
+    from ._controller import ALIVE, DEAD
+    from ._protocol import ActorStateMsg
+    try:
+        while True:
+            try:
+                msg = conn.recv()
+            except (EOFError, OSError):
+                break
+            if not isinstance(msg, ActorStateMsg):
+                continue
+            if msg.state == "alive":
+                info = session.controller.get_actor(aid)
+                if info is not None and info.state != DEAD:
+                    session.controller.set_actor_state(aid, ALIVE)
+            else:
+                # Its constructor raised (JAX: creation failed): DEAD, no
+                # restart, and the process goes.
+                _mark_dead(session, aid, _cause_of(msg.error))
+                proc.kill()
+        proc.join()
+        conn.close()
+        if on_exit is not None:
+            on_exit()
+        _actor_exited(session, aid, proc)
+    finally:
+        exited.set()
 
 
-def _schedule_actor(node, actor_id: str, qualname: str,
+def _cause_of(desc) -> str:
+    from . import _serialization
+    try:
+        exc = _serialization.unpack_payload(desc[1])
+    except Exception as e:  # noqa: BLE001 - an error this process lacks
+        return f"creation failed (its error could not be read: {e!r})"
+    return getattr(exc, "reason", None) or f"{type(exc).__name__}: {exc}"
+
+
+def _actor_exited(session: _Session, aid, proc) -> None:
+    """One incarnation's process exited (JAX:
+    ``_on_actor_worker_death``): restart it while ``num_restarts <
+    max_restarts``, else the actor is DEAD."""
+    from ._controller import DEAD, RESTARTING
+    actor_id = aid.hex()
+    if session._plane is not None:
+        addr = session._plane.kv_get(f"actor/{actor_id}/addr")
+        if addr is not None and addr.decode().endswith(f":{proc.pid}"):
+            session._plane.kv_del(f"actor/{actor_id}/addr")
+    info = session.controller.get_actor(aid)
+    if session.closing or info is None or info.state == DEAD:
+        return
+    if actor_id in session.killed:
+        _mark_dead(session, aid, "killed")
+    elif info.num_restarts < info.max_restarts:
+        info.num_restarts += 1
+        session.controller.set_actor_state(aid, RESTARTING)
+        _launch(session, aid)
+    else:
+        _mark_dead(session, aid, f"the actor process exited with code "
+                   f"{proc.exitcode} (max_restarts {info.max_restarts})")
+
+
+def _schedule_actor(session: _Session, node, aid, qualname: str,
                     spec: Dict[str, Any], env: Dict[str, str],
                     opts: Dict[str, Any]) -> None:
     """Book the actor (JAX: its creation task) and start its process once
     placed; the booking and its cards go back when the process exits."""
     from . import _runtime_env, _scheduler
     from ._resources import task_resources
+    actor_id = aid.hex()
     strategy, pg, bundle = _scheduler.normalize_strategy(opts)
     rt_env = _runtime_env.prepare_runtime_env(opts.get("runtime_env"))
     resources = task_resources(opts.get("num_cpus"), opts.get("num_tpus"),
@@ -722,7 +994,9 @@ def _schedule_actor(node, actor_id: str, qualname: str,
 
     def placed(_spec, _node_id) -> None:
         cards = node.take_cards(tspec)
-        if actor_id in _killed_pending:
+        with session.lock:
+            killed = actor_id in session.killed
+        if killed:           # killed before its placement came
             node.give_back(tspec, cards)
             return
         full = dict(env)
@@ -731,43 +1005,47 @@ def _schedule_actor(node, actor_id: str, qualname: str,
         full.update(node.card_env(cards))
         try:
             full.update(_runtime_env.node_setup_env_vars(rt_env))
-            proc = _spawn_actor(actor_id, qualname, spec, full)
+            _spawn_actor(session, aid, qualname, spec, full,
+                         lambda: node.give_back(tspec, cards))
         except BaseException:
             node.give_back(tspec, cards)
             raise
 
-        def watch() -> None:
-            proc.join()
-            node.give_back(tspec, cards)
-
-        from . import _sanitizer
-        t = _sanitizer.spawn(watch, name=f"actor-booking-{actor_id[:8]}")
-        with _session.lock:
-            _session.watchers = [w for w in _session.watchers
-                                 if w.is_alive()] + [t]
-
     def failed(exc: BaseException) -> None:
-        _plane().kv_put(f"actor/{actor_id}/error",
-                        f"{type(exc).__name__}: {exc}".encode())
+        _mark_dead(session, aid, f"{type(exc).__name__}: {exc}")
 
     node.submit(tspec, placed, failed)
 
 
-def _name_key(namespace: str, name: str) -> str:
-    return f"actor/name/{namespace}/{name}"
+def _named(name: str, namespace: Optional[str]):
+    """(actor id, class name, max_concurrency, state) of the actor named
+    ``name`` in this process's controller (JAX:
+    ``ctl_get_named_actor``), or None."""
+    if _session is None:
+        return None
+    info = _session.controller.get_named_actor(name, namespace or "default")
+    if info is None:
+        return None
+    return (info.actor_id.hex(), info.class_name,
+            info.creation_spec.max_concurrency if info.creation_spec
+            else 1, info.state)
 
 
 def get_actor(name: str, namespace: Optional[str] = None) -> ActorHandle:
     """The actor registered under ``name`` (JAX: ``ray_tpu.get_actor``);
     ValueError when there is none or it has died."""
-    raw = _plane().kv_get(_name_key(namespace or "default", name))
-    if raw is None:
+    if _client_rt() is None and _in_actor is None:
+        from . import _tasks
+        rec = _named(name, namespace) if _tasks._in_worker is None else \
+            control("get_named_actor", name, namespace)
+    else:
+        rec = control("get_named_actor", name, namespace)
+    if rec is None:
         raise ValueError(f"no actor named {name!r}")
-    actor_id, cls_name, max_conc = raw.decode().split(":")
-    handle = ActorHandle(actor_id, cls_name, int(max_conc))
-    if is_dead(handle):
+    actor_id, cls_name, max_conc, state = rec
+    if state == "DEAD":
         raise ValueError(f"no actor named {name!r} (it has died)")
-    return handle
+    return ActorHandle(actor_id, cls_name, int(max_conc))
 
 
 def side_call(actor: ActorHandle, fn, *args, **kwargs) -> ObjectRef:
@@ -834,6 +1112,10 @@ def get(refs, timeout: Optional[float] = None):
         if not isinstance(r, ObjectRef):
             raise TypeError(f"get() expects ObjectRef, got "
                             f"{type(r).__name__}")
+    rt = _client_rt()
+    if rt is not None and ref_list:
+        values = rt.get_refs(ref_list, timeout)
+        return values[0] if single else values
     deadline = None if timeout is None else time.monotonic() + timeout
     values = []
     for r in ref_list:
@@ -855,6 +1137,9 @@ def put(value: Any) -> ObjectRef:
     """A ref holding ``value``: after ``init()`` (and in a task) sealed in
     the session's store, so it crosses to tasks as a descriptor; before,
     a ref sent by value wherever it is passed."""
+    rt = _client_rt()
+    if rt is not None:
+        return rt.put(value)
     from . import _tasks
     if _tasks.is_initialized() or _tasks._in_worker is not None:
         return _tasks.put(value)
@@ -870,6 +1155,9 @@ def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
     if num_returns > len(refs):
         raise ValueError(f"num_returns={num_returns} exceeds the "
                          f"{len(refs)} refs given")
+    rt = _client_rt()
+    if rt is not None:
+        return rt.wait_refs(refs, num_returns, timeout)
     deadline = None if timeout is None else time.monotonic() + timeout
     while True:
         done = [r for r in refs if r._fut.done()]
@@ -892,23 +1180,56 @@ def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
 
 
 def kill(actor: ActorHandle, *, no_restart: bool = True) -> None:
-    """Kill the actor's process; its calls in flight, and every later
-    one, fail with ``ActorError``."""
-    import signal
-    _killed_pending.add(actor._actor_id)
-    proc = _started_proc(actor._actor_id)
-    if proc is not None:
-        if proc.is_alive():
-            proc.kill()
-        proc.join(timeout=30)
+    """Kill the actor's process; its calls in flight fail with
+    ``ActorError``.  With ``no_restart`` (the default) the actor is DEAD
+    and every later call fails too; without, it restarts as after a
+    crash, while its ``max_restarts`` allow (JAX: ``runtime.kill_actor``).
+    """
+    rt = _client_rt()
+    if rt is not None:
+        rt.control("kill_actor", actor._actor_id, no_restart)
+    elif _session is not None and _owned(actor._actor_id):
+        _kill_owned(_session, actor._actor_id, no_restart)
     else:
+        import signal
         addr = _plane().kv_get(f"actor/{actor._actor_id}/addr")
         if addr is not None:
             try:
                 os.kill(int(addr.decode().split(":")[2]), signal.SIGKILL)
             except ProcessLookupError:
                 pass
-    _channel(actor._actor_id).close()
+    if no_restart:
+        _channel(actor._actor_id).close()
+
+
+def _owned(actor_id: str) -> bool:
+    from ._ids import ActorID
+    return _session.controller.get_actor(ActorID.from_hex(actor_id)) \
+        is not None
+
+
+def _kill_owned(session: _Session, actor_id: str, no_restart: bool) -> None:
+    """``kill`` in the process that started the actor: it returns once the
+    exit has been handled (the actor restarted, or is DEAD)."""
+    from ._controller import DEAD
+    from ._ids import ActorID
+    aid = ActorID.from_hex(actor_id)
+    info = session.controller.get_actor(aid)
+    if no_restart:
+        with session.lock:
+            session.killed.add(actor_id)
+        info.max_restarts = info.num_restarts
+    with session.lock:
+        proc = session.procs.get(actor_id)
+        exited = session.exits.get(actor_id)
+    if proc is not None:
+        if proc.is_alive():
+            proc.kill()
+        proc.join(timeout=30)
+    if exited is not None:
+        exited.wait(30)
+    if no_restart and info.state != DEAD:
+        _mark_dead(session, aid, "killed")
 
 
 def _forget(plane, actor_id: str) -> None:
@@ -923,27 +1244,41 @@ def _forget(plane, actor_id: str) -> None:
 
 
 def is_dead(actor: ActorHandle) -> bool:
-    """True once the actor's process has exited (where this process
-    started it) or its connection has failed."""
-    proc = _started_proc(actor._actor_id)
-    if proc is not None and proc.exitcode is not None:
-        return True
+    """True once the actor is DEAD (its owner's verdict, which every
+    process reads in the store) or its channel has failed for good."""
+    if _session is not None and _owned(actor._actor_id):
+        from ._ids import ActorID
+        info = _session.controller.get_actor(
+            ActorID.from_hex(actor._actor_id))
+        if info.state == "DEAD":
+            return True
+    elif _client_rt() is None:
+        if _plane().kv_get(f"actor/{actor._actor_id}/error") is not None:
+            return True
     with _channels_lock:
         ch = _channels.get(actor._actor_id)
     return ch is not None and ch.dead is not None
 
 
 def shutdown() -> None:
-    """Kill every actor this process started and drop its store."""
+    """Kill every actor this process started and drop its store.  Their
+    death cause is "cluster shutdown": with a state dir, a head that
+    stops cleanly revives none of them at its next start (JAX:
+    ``Runtime.shutdown``); only one that crashed does."""
     global _session
+    from ._controller import DEAD
     with _session_lock:
         session, _session = _session, None
     if session is None:
         return
     with session.lock:
+        session.closing = True
         procs = list(session.procs.items())
         session.procs.clear()
-        watchers, session.watchers = session.watchers, []
+    for info in list(session.controller.actors.values()):
+        if info.state != DEAD:
+            session.controller.set_actor_state(
+                info.actor_id, DEAD, death_cause="cluster shutdown")
     for _aid, p in procs:
         if p.is_alive():
             p.kill()
@@ -953,15 +1288,19 @@ def shutdown() -> None:
             ch = _channels.pop(aid, None)
         if ch is not None:
             ch.close()
-        _forget(session.plane, aid)
+        if session._plane is not None:
+            _forget(session._plane, aid)
+    with session.lock:
+        watchers, session.watchers = session.watchers, []
     for t in watchers:
         t.join(timeout=5.0)
-    # The end-of-session sweep of the names (each points at an actor of
-    # this session, all dead now).
-    for key in session.plane.kv_keys("actor/name/"):
-        session.plane.kv_del(key)
+    if session.store is not None:
+        try:
+            session.store.compact(session.controller.snapshot_records())
+        finally:
+            session.store.close()
     from . import _control
-    if _control._current is session.plane:
+    if session._plane is not None and _control._current is session._plane:
         _control.set_current(None)
 
 
@@ -1071,15 +1410,33 @@ def _flush_call_side(send) -> None:
         metrics.flush_on_task_done()
 
 
-def _watch_parent(parent: int) -> None:
-    """Exit when the process that started this actor is gone."""
-    while True:
-        if os.getppid() != parent:
-            os._exit(0)
-        time.sleep(0.5)
+def _watch_owner(conn) -> None:
+    """Exit when the process that started this actor is gone: the end of
+    its state pipe (a SIGKILLed owner runs no shutdown, but the kernel
+    closes its end of the pipe)."""
+    try:
+        conn.recv()
+    except (EOFError, OSError):
+        pass
+    os._exit(0)
 
 
-def _actor_main(spec: Dict[str, Any]) -> None:
+def _report(conn, lock: threading.Lock, actor_id: str, state: str,
+            cause: Optional[str] = None) -> None:
+    """Tell the owner this incarnation's state (JAX: ``ActorStateMsg``)."""
+    from . import _serialization
+    from ._ids import ActorID
+    from ._protocol import ActorStateMsg
+    err = None if cause is None else ("err", _serialization.pack_payload(
+        ActorError(actor_id, cause)))
+    with lock:
+        try:
+            conn.send(ActorStateMsg(ActorID.from_hex(actor_id), state, err))
+        except (OSError, EOFError):
+            pass
+
+
+def _actor_main(spec: Dict[str, Any], state_conn) -> None:
     """Entry point of a spawned actor process."""
     global _in_actor
     import multiprocessing as mp
@@ -1094,18 +1451,21 @@ def _actor_main(spec: Dict[str, Any]) -> None:
     set_current(plane)
     _boot_worker_env()
     opts = spec["options"]
-    _in_actor = {"plane": plane, "options": opts, "actor_id": actor_id}
+    _in_actor = {"plane": plane, "options": opts, "actor_id": actor_id,
+                 "head": spec.get("head")}
     from . import _sanitizer
-    _sanitizer.spawn(_watch_parent, args=(spec["parent"],),
-                     name="actor-watch-parent")
+    send_lock = threading.Lock()
+    _sanitizer.spawn(_watch_owner, args=(state_conn,),
+                     name="actor-watch-owner")
     try:
         if opts.get("num_cpus"):
             torch.set_num_threads(max(1, int(opts["num_cpus"])))
         listener = Listener(("127.0.0.1", 0),
                             authkey=mp.current_process().authkey)
     except BaseException as e:  # noqa: BLE001 - reported to the callers
-        plane.kv_put(f"actor/{actor_id}/error",
-                     f"{type(e).__name__}: {e}".encode())
+        cause = f"{type(e).__name__}: {e}"
+        plane.kv_put(f"actor/{actor_id}/error", cause.encode())
+        _report(state_conn, send_lock, actor_id, "error", cause)
         return
     actor = _Actor(spec)
     host, port = listener.address
@@ -1114,6 +1474,9 @@ def _actor_main(spec: Dict[str, Any]) -> None:
     # Calls queue while the constructor runs; they start once it is done.
     _sanitizer.spawn(_accept, args=(listener, actor), name="actor-accept")
     actor.construct()
+    _report(state_conn, send_lock, actor_id,
+            "alive" if actor.init_error is None else "error",
+            actor.init_error)
     n = max(1, int(opts.get("max_concurrency") or 1))
     workers = [threading.Thread(target=actor.run_calls, daemon=True,
                                 name=f"actor-call-{i}") for i in range(n)]

@@ -1,12 +1,14 @@
-"""The typed flags the scheduler tier reads (a copy of the part of
-``ray_tpu/_private/config.py`` that ``_scheduler``, ``_cgroup`` and
-``_memory_monitor`` call, with the same names, defaults and precedence):
+"""The typed flags the scheduler tier and the head read (a copy of the part
+of ``ray_tpu/_private/config.py`` that ``_scheduler``, ``_cgroup``,
+``_memory_monitor``, ``_actor``, ``_persist`` and ``_cluster`` call, with
+the same names, defaults and precedence):
 
     ``Config.initialize(overrides)``  >  env ``RAY_TPU_<NAME>``  >  default.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 from dataclasses import dataclass
@@ -76,6 +78,14 @@ class Config:
             raise KeyError(f"unknown config flag: {name}") from None
 
     @classmethod
+    def blob(cls) -> str:
+        """JSON of the resolved flags (the head hands it to a client,
+        which ``initialize``s from it)."""
+        if not cls._initialized:
+            cls.initialize()
+        return json.dumps(cls._values)
+
+    @classmethod
     def set(cls, name: str, value: Any) -> None:
         if not cls._initialized:
             cls.initialize()
@@ -113,3 +123,17 @@ D("memory_monitor_kill_interval_s", float, 2.0,
 D("memory_monitor_test_fraction", float, 0.0,
   "Testing hook: fake observed memory usage fraction (>0 overrides real "
   "sampling so OOM paths are deterministically testable).")
+
+# --- Actors and the head ---------------------------------------------------
+D("actor_max_restarts_default", int, 0, "Default actor restarts.")
+D("head_wal_fsync", bool, False,
+  "fsync each head-state WAL append.  Off by default: flush-per-append "
+  "already survives head-process death (the protected failure mode); "
+  "fsync buys machine-crash durability at write-latency cost.")
+D("max_inline_object_size", int, 100 * 1024,
+  "Objects <= this many bytes travel inline in control messages; a "
+  "client's larger put goes to the head's shared-memory store.")
+D("health_check_period_s", float, 1.0,
+  "Head -> client liveness probe period.")
+D("health_check_failure_threshold", int, 5,
+  "Missed probe periods before the head closes a silent client.")

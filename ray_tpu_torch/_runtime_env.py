@@ -270,7 +270,7 @@ def _ensure_pip_env(requirements: List[str], session_dir: str) -> str:
         except (subprocess.CalledProcessError,
                 subprocess.TimeoutExpired) as e:
             shutil.rmtree(tmp, ignore_errors=True)
-            from ._tasks import RuntimeEnvSetupError
+            from .exceptions import RuntimeEnvSetupError
             stderr = getattr(e, "stderr", b"") or b""
             if isinstance(stderr, str):
                 stderr = stderr.encode()

@@ -1,8 +1,7 @@
 """The scheduler tier over one node, the host (the counterpart of
-``ray_tpu/_private/scheduler.py``'s ``ClusterScheduler``, with the one-node
-part of what it stands on: ``controller.py``'s node, bundle and
-placement-group tables and PG states, ``protocol.py``'s ``TaskSpec`` fields
-the scheduler reads, and ``node.py``'s card grant).
+``ray_tpu/_private/scheduler.py``'s ``ClusterScheduler``, with
+``node.py``'s card grant).  Its node and placement-group tables are the
+session's ``_controller.Controller``; its specs are ``_protocol.TaskSpec``.
 
 ``ClusterScheduler`` is a copy of JAX's: tasks enter a dependency stage,
 move to a ready queue bucketed by scheduling class, and a policy (hybrid
@@ -46,88 +45,14 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 from ._config import Config
+from ._controller import (PG_CREATED, PG_REMOVED, BundleInfo, Controller,
+                          NodeInfo, PlacementGroupInfo)
 from ._ids import JobID, NodeID, ObjectID, PlacementGroupID, TaskID
+from ._protocol import TaskSpec
 from ._resources import CPU, GPU, MEMORY, ResourceSet
 from .accelerators.accelerator import all_accelerators, get_accelerator
 from .schedview import decisions as _dec
 from .util import telemetry
-
-# -- the tables (a one-node copy of controller.py's) ----------------------------
-
-# Placement group states
-PG_PENDING = "PENDING"
-PG_CREATED = "CREATED"
-PG_REMOVED = "REMOVED"
-
-
-@dataclass
-class NodeInfo:
-    node_id: NodeID
-    hostname: str
-    total_resources: ResourceSet
-    labels: Dict[str, str] = field(default_factory=dict)
-    alive: bool = True
-    is_head: bool = False
-
-
-@dataclass
-class BundleInfo:
-    index: int
-    resources: ResourceSet
-    node_id: Optional[NodeID] = None  # committed location
-
-
-@dataclass
-class PlacementGroupInfo:
-    pg_id: PlacementGroupID
-    name: Optional[str]
-    strategy: str  # PACK | SPREAD | STRICT_PACK | STRICT_SPREAD
-    bundles: List[BundleInfo]
-    state: str = PG_PENDING
-
-
-class Controller:
-    """The node and placement-group tables the scheduler writes."""
-
-    def __init__(self):
-        self._lock = threading.RLock()
-        self.nodes: Dict[NodeID, NodeInfo] = {}
-        self.placement_groups: Dict[PlacementGroupID, PlacementGroupInfo] = {}
-
-    def register_node(self, info: NodeInfo) -> None:
-        with self._lock:
-            self.nodes[info.node_id] = info
-
-    def register_placement_group(self, info: PlacementGroupInfo) -> None:
-        with self._lock:
-            self.placement_groups[info.pg_id] = info
-
-    def set_pg_state(self, pg_id: PlacementGroupID, state: str) -> None:
-        with self._lock:
-            pg = self.placement_groups.get(pg_id)
-            if pg:
-                pg.state = state
-
-    def get_placement_group(self, pg_id: PlacementGroupID
-                            ) -> Optional[PlacementGroupInfo]:
-        with self._lock:
-            return self.placement_groups.get(pg_id)
-
-
-@dataclass
-class TaskSpec:
-    """The fields of ``protocol.py``'s ``TaskSpec`` that the scheduler
-    reads (dependencies are ``("ref", ObjectID)`` descriptors)."""
-    task_id: TaskID
-    name: str
-    resources: ResourceSet
-    arg_descs: List[Tuple[str, Any]] = field(default_factory=list)
-    kwarg_descs: Dict[str, Tuple[str, Any]] = field(default_factory=dict)
-    placement_group: Optional[PlacementGroupID] = None
-    bundle_index: int = -1
-    scheduling_strategy: Optional[Any] = None
-    runtime_env: Optional[Dict[str, Any]] = None
-
 
 PACK = "PACK"
 SPREAD = "SPREAD"
@@ -852,9 +777,12 @@ class Node:
     node's ``Runtime`` and ``NodeManager`` in one process)."""
 
     def __init__(self, num_cpus: float, num_tpus: Optional[float] = None,
-                 resources: Optional[Dict[str, float]] = None):
-        self.job_id = JobID.next()
-        self.controller = Controller()
+                 resources: Optional[Dict[str, float]] = None, *,
+                 controller: Optional[Controller] = None,
+                 job_id: Optional[JobID] = None):
+        self.job_id = job_id if job_id is not None else JobID.next()
+        self.controller = controller if controller is not None \
+            else Controller()
         res: Dict[str, float] = {CPU: float(num_cpus),
                                  MEMORY: _host_memory()}
         if num_tpus is not None:
@@ -914,8 +842,9 @@ class Node:
                  pg: Optional[PlacementGroupID] = None, bundle: int = -1,
                  runtime_env=None) -> TaskSpec:
         return TaskSpec(task_id=TaskID.from_random(), name=name,
-                        resources=resources,
+                        fn_blob=None, method_name=None,
                         arg_descs=[("ref", d) for d in deps],
+                        kwarg_descs={}, return_ids=[], resources=resources,
                         placement_group=pg, bundle_index=bundle,
                         scheduling_strategy=strategy, runtime_env=runtime_env)
 
@@ -1073,15 +1002,29 @@ def normalize_strategy(options: Dict[str, Any]):
     return strategy, pg, bundle
 
 
+def _client_rt():
+    from . import _client
+    return _client.current()
+
+
 def cluster_resources() -> Dict[str, float]:
+    rt = _client_rt()
+    if rt is not None:
+        return rt.control("cluster_resources")
     return _session_node().cluster_resources()
 
 
 def available_resources() -> Dict[str, float]:
+    rt = _client_rt()
+    if rt is not None:
+        return rt.control("available_resources")
     return _session_node().available_resources()
 
 
 def nodes() -> List[Dict[str, Any]]:
+    rt = _client_rt()
+    if rt is not None:
+        return rt.control("nodes")
     return _session_node().nodes()
 
 
@@ -1091,30 +1034,50 @@ class PlacementGroup:
         self.bundle_count = bundle_count
 
     def ready(self, timeout: Optional[float] = 30.0) -> bool:
-        node = _session_node()
-        deadline = None if timeout is None else time.monotonic() + timeout
-        while True:
-            state = node.pg_state(self.id)
-            if state == PG_CREATED:
-                return True
-            if state in (PG_REMOVED, None):
-                return False
-            if deadline is not None and time.monotonic() > deadline:
-                return False
-            time.sleep(0.01)
+        rt = _client_rt()
+        if rt is not None:
+            return rt.control("pg_wait", self.id.binary(), timeout)
+        return wait_pg(_session_node(), self.id, timeout)
 
     def bundle_locations(self):
+        rt = _client_rt()
+        if rt is not None:
+            return rt.control("pg_bundle_locations", self.id.binary())
         return _session_node().pg_bundle_locations(self.id)
 
     def __reduce__(self):
         return (PlacementGroup, (self.id, self.bundle_count))
 
 
+def wait_pg(node: Node, pg_id: PlacementGroupID,
+            timeout: Optional[float]) -> bool:
+    """True once the placement group is CREATED; False when it is removed,
+    unknown, or ``timeout`` passes first."""
+    deadline = None if timeout is None else time.monotonic() + timeout
+    while True:
+        state = node.pg_state(pg_id)
+        if state == PG_CREATED:
+            return True
+        if state in (PG_REMOVED, None):
+            return False
+        if deadline is not None and time.monotonic() > deadline:
+            return False
+        time.sleep(0.01)
+
+
 def placement_group(bundles: List[Dict[str, float]], strategy: str = "PACK",
                     name: Optional[str] = None) -> PlacementGroup:
+    rt = _client_rt()
+    if rt is not None:
+        return PlacementGroup(PlacementGroupID(rt.control(
+            "create_pg", bundles, strategy, name)), len(bundles))
     return PlacementGroup(_session_node().create_pg(bundles, strategy, name),
                           len(bundles))
 
 
 def remove_placement_group(pg: PlacementGroup) -> None:
+    rt = _client_rt()
+    if rt is not None:
+        rt.control("remove_pg", pg.id.binary())
+        return
     _session_node().remove_pg(pg.id)

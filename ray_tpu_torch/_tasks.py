@@ -60,8 +60,9 @@ times (default 3, JAX's ``task_max_retries_default``), then fails with
 ``WorkerCrashedError``.  A task whose argument failed fails with a
 ``TaskError`` whose cause is that argument's error.
 
-Not ported: the cluster arguments of ``init`` (each raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 13).
+The head (``init(head_port=..., cluster_token=...)``, ``state_dir=``) and
+its clients (``init(address=...)``) are ``_cluster`` and ``_client``;
+the error types live in ``exceptions``.
 """
 
 from __future__ import annotations
@@ -88,8 +89,10 @@ import weakref
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
 from . import _cgroup, _memory_monitor, _runtime_env, _scheduler
-from ._actor import (ObjectRef, ObjectRefGenerator, RayTpuError, TaskError,
-                     _by_reference_rule, _child_environment, _device_env)
+from ._actor import (ObjectRef, ObjectRefGenerator, _by_reference_rule,
+                     _child_environment, _device_env)
+from .exceptions import (OutOfMemoryError, RayTpuError, RuntimeEnvSetupError,
+                         TaskError, WorkerCrashedError)
 from ._object_store import (SHM_DIR, _HostPickler, _layout, _read_parts,
                             _Segment, _write)
 from ._resources import CPU, ResourceSet, task_resources
@@ -103,20 +106,6 @@ _KNOWN_OPTIONS = frozenset((
     "num_returns", "max_retries", "name", "num_cpus", "device", "env_vars",
     "num_tpus", "resources", "memory", "placement_group",
     "placement_group_bundle_index", "scheduling_strategy", "runtime_env"))
-CLUSTER = 'ROADMAP Queue 1 item 13, "multi-node cluster"'
-
-
-class WorkerCrashedError(RayTpuError):
-    """The worker process died mid-task (JAX: ``WorkerCrashedError``)."""
-
-
-class OutOfMemoryError(WorkerCrashedError):
-    """The memory monitor killed the task's worker (JAX:
-    ``OutOfMemoryError``); its message says "OOM-killed"."""
-
-
-class RuntimeEnvSetupError(RayTpuError):
-    """A runtime env could not be set up (JAX: ``RuntimeEnvSetupError``)."""
 
 
 def _not_ported(what: str, entry: str) -> NotImplementedError:
@@ -421,7 +410,8 @@ class _WorkerHandle:
         with _child_environment(dict(self.env_key)):
             proc = ctx.Process(
                 target=_worker_main,
-                args=(child, self.pool.session_id, os.getpid()),
+                args=(child, self.pool.session_id, os.getpid(),
+                      self.pool.session.head),
                 daemon=True, name="task-worker")
             proc.start()
         child.close()
@@ -913,11 +903,15 @@ class _TaskSession:
 
     def __init__(self, num_cpus: float, namespace: str,
                  num_tpus: Optional[float] = None,
-                 resources: Optional[Dict[str, float]] = None):
+                 resources: Optional[Dict[str, float]] = None, *,
+                 controller=None, job_id=None):
         self.id = uuid.uuid4().hex[:12]
         self.num_cpus = float(num_cpus)
         self.namespace = namespace
-        self.node = _scheduler.Node(num_cpus, num_tpus, resources)
+        self.node = _scheduler.Node(num_cpus, num_tpus, resources,
+                                    controller=controller, job_id=job_id)
+        #: The head's endpoint (``_cluster.HeadServer``).
+        self.head_server = None
         self.pool = _Pool(self)
         self.ids = itertools.count()
         #: Tasks with the scheduler, not placed yet (failed at shutdown).
@@ -942,8 +936,34 @@ class _TaskSession:
 
         self.node.submit(task.spec, placed, failed)
 
+    def start_head(self, port: Optional[int],
+                   token: Optional[bytes]) -> None:
+        """Open the head's endpoint: on every interface with the cluster
+        token when ``port`` is given, else on the loopback with this
+        process's key (for the session's own actors and workers)."""
+        import multiprocessing as mp
+
+        from ._cluster import HeadServer
+        if port is None:
+            self.head_server = HeadServer(
+                self, port=0, token=bytes(mp.current_process().authkey),
+                host="127.0.0.1")
+        else:
+            self.head_server = HeadServer(self, port=port,
+                                          token=token or os.urandom(16))
+
+    @property
+    def head(self) -> Optional[Tuple[str, int, bytes]]:
+        """(host, port, token) of the endpoint, for the session's workers
+        and actors."""
+        hs = self.head_server
+        return None if hs is None else hs.address + (hs.token,)
+
     def close(self) -> None:
-        """Stop the pool and the scheduler; fail what never ran."""
+        """Stop the endpoint, the pool and the scheduler; fail what never
+        ran."""
+        if self.head_server is not None:
+            self.head_server.shutdown()
         self.pool.close()
         self.node.stop()
         with self.lock:
@@ -966,18 +986,44 @@ def init(num_cpus: Optional[float] = None, namespace: str = "default",
          resources: Optional[Dict[str, float]] = None,
          head_port: Optional[int] = None, address: Optional[str] = None,
          cluster_token: Optional[bytes] = None,
-         state_dir: Optional[str] = None, **_compat: Any) -> _TaskSession:
+         state_dir: Optional[str] = None, **_compat: Any):
     """Start the session in this process (JAX: ``ray_tpu.init``): the
     host as one node with ``num_cpus`` CPUs (default ``os.cpu_count()``),
     ``num_tpus`` cards (default: those detected) and ``resources``, its
     scheduler, and the task pool, the default signature's workers started
-    now."""
-    for arg, value in (("head_port", head_port), ("address", address),
-                       ("cluster_token", cluster_token),
-                       ("state_dir", state_dir)):
-        if value is not None:
-            raise _not_ported(f"init({arg}=...)", CLUSTER)
+    now.
+
+    ``state_dir``: the controller's tables are replayed from the WAL
+    there before anything registers, the placement groups that were not
+    removed are planned again and every actor that was not DEAD restarts
+    from its creation spec (without spending its ``max_restarts``); the
+    dead session's shared-memory segments are removed.
+
+    ``head_port`` (0: the OS picks one) opens the head's endpoint on every
+    interface, authenticated with ``cluster_token`` (random when none is
+    given); its address is ``session.head_server.address``.  Without it
+    the endpoint listens on the loopback only, for this session's actors
+    and task workers.
+
+    ``address="host:port"`` (with the head's ``cluster_token``) connects
+    this process to a running head as a client instead (``_client``):
+    tasks, actors, ``put``/``get``/``wait``, placement groups and the KV
+    verbs then go over the head's channel.  Returns the
+    ``ClientRuntime``."""
     global _session
+    if address is not None:
+        from . import _client, _cluster
+        with _session_lock:
+            if _session is not None:
+                raise RuntimeError("init(address=...) connects a process "
+                                   "without a session of its own")
+        existing = _client.current()
+        if existing is not None:
+            if ignore_reinit_error:
+                return existing
+            raise RuntimeError("ray_tpu_torch.init() already called")
+        return _client.connect(address,
+                               cluster_token or _cluster.DEFAULT_TOKEN)
     with _session_lock:
         if _session is not None:
             if ignore_reinit_error:
@@ -987,17 +1033,81 @@ def init(num_cpus: Optional[float] = None, namespace: str = "default",
             num_cpus)
         if n <= 0:
             raise ValueError(f"num_cpus={num_cpus!r}: give at least 1")
-        from . import _sanitizer
+        from . import _actor, _sanitizer
         _sanitizer.snapshot()
-        _session = _TaskSession(n, namespace, num_tpus, resources)
+        actors = _actor._open_session(state_dir)
+        _session = _TaskSession(n, namespace, num_tpus, resources,
+                                controller=actors.controller,
+                                job_id=actors.job_id)
+        if state_dir:
+            _take_over_state_dir(state_dir, _session.id)
+        _session.start_head(head_port, cluster_token)
         _session.pool.prestart((), _session.pool.max_workers)
         _session.pool.memory_monitor.start()
-        return _session
+    if state_dir:
+        _revive(actors, _session)
+    return _session
+
+
+#: The file in a state dir naming the session that last used it.
+_SESSION_FILE = "session_id"
+
+
+def _take_over_state_dir(state_dir: str, session_id: str) -> None:
+    """Remove the shared-memory segments of the session that used
+    ``state_dir`` before (a killed head leaves them; only that session's,
+    never ``rtt_*`` as a whole) and record this session as its owner."""
+    path = os.path.join(state_dir, _SESSION_FILE)
+    try:
+        with open(path) as f:
+            old = f.read().strip()
+    except FileNotFoundError:
+        old = ""
+    if old and old.isalnum():
+        for seg in glob.glob(os.path.join(SHM_DIR, f"rtt_{old}_*")):
+            try:
+                os.unlink(seg)
+            except FileNotFoundError:
+                pass
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(session_id)
+    os.replace(tmp, path)
+
+
+def _revive(actors, session: "_TaskSession") -> None:
+    """After a head restart (JAX: ``_revive_persisted_state``): plan the
+    replayed placement groups again on this node and restart the replayed
+    actors from their creation specs (their processes died with the old
+    head; this spends none of their restarts).  An actor whose spec or
+    class cannot be loaded goes DEAD with the cause; the boot goes on."""
+    from . import _actor
+    from ._controller import DEAD, PG_PENDING, PG_REMOVED, RESTARTING
+    controller = actors.controller
+    for pg in list(controller.placement_groups.values()):
+        if pg.state == PG_REMOVED:
+            continue
+        for b in pg.bundles:
+            b.node_id = None
+        pg.state = PG_PENDING
+        session.node.scheduler.create_placement_group(pg)
+    for info in list(controller.actors.values()):
+        if info.state == DEAD:
+            continue
+        if info.creation_spec is None:
+            _actor._mark_dead(actors, info.actor_id, "no creation spec")
+            continue
+        controller.set_actor_state(info.actor_id, RESTARTING)
+        _actor._launch(actors, info.actor_id)
 
 
 def is_initialized() -> bool:
-    """True in the process that called ``init()``, until ``shutdown()``."""
-    return _session is not None
+    """True in the process that called ``init()`` (or connected to a head
+    with it), until ``shutdown()``."""
+    if _session is not None:
+        return True
+    from . import _client
+    return _client.current() is not None
 
 
 def shutdown() -> None:
@@ -1041,10 +1151,12 @@ def _require_session() -> _TaskSession:
 # -- remote functions ------------------------------------------------------------
 
 
-def _fn_blob(fn) -> bytes:
+def _fn_blob(fn, client: bool = False) -> bytes:
     """``fn`` pickled by reference: a function as (module, qualname), which
     the worker imports (unwrapping a ``RemoteFunction``); any other
-    callable (``functools.partial``, an instance) by ``pickle``."""
+    callable (``functools.partial``, an instance) by ``pickle``.  In a
+    client (``init(address=...)``) a function of ``__main__`` is refused
+    too: the head's workers cannot import the client's main script."""
     if isinstance(fn, types.FunctionType):
         qual = fn.__qualname__
         if "<locals>" in qual or fn.__name__ == "<lambda>":
@@ -1052,6 +1164,11 @@ def _fn_blob(fn) -> bytes:
                 f"remote function {qual!r}",
                 TypeError("a lambda or a function defined inside a "
                           "function"))
+        if client and fn.__module__ == "__main__":
+            raise _by_reference_rule(
+                f"remote function {qual!r}",
+                TypeError("defined in the client's __main__, which the "
+                          "head's workers cannot import"))
         return pickle.dumps(("fn", fn.__module__, qual))
     try:
         return pickle.dumps(("obj", pickle.dumps(
@@ -1103,9 +1220,14 @@ class RemoteFunction:
             "directly; use .remote()")
 
     def remote(self, *args, **kwargs):
+        from . import _client
+        rt = _client.current()
         if self._blob is None:
-            self._blob = _fn_blob(self._fn)
+            self._blob = _fn_blob(self._fn, client=rt is not None)
         name = self._options.get("name") or _fn_name(self._fn)
+        if rt is not None:
+            return rt.submit_task(self._blob, name, self._options, args,
+                                  kwargs)
         if _in_worker is not None:
             return _submit_from_worker(self._blob, name, self._options,
                                        args, kwargs)
@@ -1395,10 +1517,11 @@ def _boot_worker_env() -> None:
         site.addsitedir(purelib)
 
 
-def _worker_main(conn, session_id: str, parent: int) -> None:
+def _worker_main(conn, session_id: str, parent: int,
+                 head: Optional[tuple] = None) -> None:
     """Entry point of a spawned task worker."""
     global _in_worker
-    _in_worker = {"session": session_id, "link": None}
+    _in_worker = {"session": session_id, "link": None, "head": head}
     from . import _sanitizer
     _sanitizer.spawn(_watch_parent, args=(parent,),
                      name="task-worker-watch-parent")

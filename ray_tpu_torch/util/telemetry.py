@@ -260,6 +260,10 @@ CATALOG: Dict[str, Dict[str, Any]] = {
     "ray_tpu_train_upsize_total": _c(
         (), "Elastic upsizes: the worker group tore down at a checkpoint "
             "boundary and re-formed larger because capacity joined."),
+    # -- the head's tables (``_controller.py``) -----------------------------
+    "ray_tpu_node_drain_seconds": _h(
+        (), "Drain-notice-to-node-death duration: how much of the "
+            "advertised deadline the cluster actually got."),
 }
 
 _lock = threading.Lock()

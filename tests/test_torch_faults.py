@@ -162,11 +162,11 @@ def test_nested_streaming_task_matches_jax(both, tmp_path):
 
 
 def test_top_level_names_match_jax():
-    """Fault 11: the port exports the actor classes; the JAX names it
-    still lacks are those items 13 and 14 owe."""
+    """Fault 11: the port exports the actor classes; the JAX name it
+    still lacks is the one item 14 owes (``ObjectLostError`` came with
+    item 13's exceptions)."""
     import ray_tpu
-    assert set(ray_tpu.__all__) - set(rtt.__all__) == {"ObjectLostError",
-                                                        "timeline"}
+    assert set(ray_tpu.__all__) - set(rtt.__all__) == {"timeline"}
     assert set(rtt.__all__) - set(ray_tpu.__all__) == {
         "RuntimeEnvSetupError"}
     for name in rtt.__all__:

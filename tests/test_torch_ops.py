@@ -523,7 +523,9 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
             "scaling_policy.py", "gpu.py", "lockdebug.py", "_sanitizer.py",
             "rules_user.py", "rules_internal.py", "rules_dataflow.py",
             "rules_concurrency.py", "metrics.py", "actor_pool.py",
-            "queue.py", "_checkpoint.py"} <= \
+            "queue.py", "_checkpoint.py", "exceptions.py",
+            "_serialization.py", "_protocol.py", "_controller.py",
+            "_persist.py", "_cluster.py", "_client.py", "head.py"} <= \
         {f.name for f in files}
     # The workflow tombstone is walked too (its import raises ImportError).
     assert REPO / "ray_tpu_torch" / "workflow" / "__init__.py" in files

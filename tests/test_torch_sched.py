@@ -77,7 +77,9 @@ class _Side:
             self.info = self.node.info
             self.sched = self.node.scheduler
             self.futures = None
-            self._spec = lambda **kw: s.TaskSpec(**kw)
+            self._spec = lambda **kw: s.TaskSpec(
+                fn_blob=None, method_name=None, kwarg_descs={},
+                return_ids=[], **kw)
         self.dispatched = []
         self.grants = {}
         self.specs = {}
