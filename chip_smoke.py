@@ -63,7 +63,17 @@ shape against its plain version), a placement group holding the card
 while a task outside it waits, an infeasible ask, a nested task
 (``sched_cards``); ``Tuner.fit`` over the 4-layer 1.36B step on the card,
 4 trials under ASHA, two at a time, the lowest learning rate's losses
-against the same steps bare here, bit for bit (``tune``).
+against the same steps bare here, bit for bit (``tune``).  The head
+(``head_ft``: ``scripts.head`` as its own process, killed and restarted on
+its state dir).  Nodes as processes (``nodes``, through
+``cluster_utils``): this process the head with no card, node A with the
+card and node B with CPUs; a card task on A runs the flash forward at the
+serving shape against the plain version here, a 64 MiB result made on B
+is pulled by this process and by a task on A through the data plane
+(bytes pulled = 2 x the payload), 200 trivial tasks on B timed, then a
+card actor (``max_restarts=1``) and a lineage-backed object on A outlive
+A's SIGKILL on a node A' that joins with the card.  Every path prints its
+seconds (``path_seconds``).
 The kernels' launch counts, set to 0 just before each path and
 read just after, show that every path ran through them.  Each phase prints one JSON line; any failed
 check raises and the script exits non-zero.  The last line is
@@ -1927,10 +1937,10 @@ def phase_paged_streams():
 #: llama_1b's width: 16 layers x 16 tokens x 16 combined heads x 128 x 2 B).
 SERVE_OPTS = dict(device="cuda", max_slots=32, page_size=16,
                   prefill_buckets=(64, 256, 1024), num_pages=2048)
-#: Poisson arrivals at 8 req/s for 8 s, a quarter long: about 40% of what a
+#: Poisson arrivals at 8 req/s for 4 s, a quarter long: about 40% of what a
 #: 32-slot batch finishes at PERF.md's 23.4 ms a step (NVIDIA H100 80GB
 #: HBM3, 700.00 W).
-LOAD_SPEC = dict(rps=8.0, duration_s=8.0, long_fraction=0.25,
+LOAD_SPEC = dict(rps=8.0, duration_s=4.0, long_fraction=0.25,
                  short_prompt=32, short_max_tokens=64, long_prompt=960,
                  long_max_tokens=16, drain_timeout_s=120.0)
 #: The saturation run: chunked at 4x the offered rate for 3 s under tight
@@ -1940,9 +1950,9 @@ SAT_RPS, SAT_DURATION_S, SAT_DEADLINE_S = 32.0, 3.0, 2.0
 #: smoke's bound, tests/test_llm_disagg.py).
 SAT_TTFT_P99_MS = 5000.0
 #: The fleet's prefix-heavy traffic (bench.py:2253-2264): 8 prompts of 960
-#: tokens, 4 new tokens each, at 40 req/s for 5 s; each replica's cache
+#: tokens, 4 new tokens each, at 40 req/s for 2 s; each replica's cache
 #: holds half the pool in real handoff bytes.
-FLEET_POOL, FLEET_RPS, FLEET_DURATION_S = 8, 40.0, 5.0
+FLEET_POOL, FLEET_RPS, FLEET_DURATION_S = 8, 40.0, 2.0
 #: The unsaturated hit-vs-cold TTFT split: 6 req/s for 3 s on one replica.
 FLEET_LIGHT_RPS, FLEET_LIGHT_S = 6.0, 3.0
 FLEET_PROMPT, FLEET_MAX_TOKENS = 960, 4
@@ -5267,7 +5277,7 @@ def phase_collective(smi):
 #: flight; the prefill actor keeps its last DAG_KEEP exported blobs (the
 #: decode side finished every older one before the driver submitted the
 #: next execute).
-DAG_REQUESTS, DAG_PROMPT, DAG_NEW, DAG_DEPTH, DAG_KEEP = 8, 256, 64, 2, 2
+DAG_REQUESTS, DAG_PROMPT, DAG_NEW, DAG_DEPTH, DAG_KEEP = 4, 256, 64, 2, 2
 DAG_OPTS = dict(max_slots=8, page_size=16, prefill_buckets=(256,),
                 num_pages=8 * math.ceil((256 + 64 + 1) / 16) + 1)
 #: The collective node: a 4 MiB fp32 tree from each of two actors,
@@ -6616,6 +6626,271 @@ def phase_head_ft(smi):
     return out["launches"]
 
 
+# -- nodes: the node plane (cluster_utils) ---------------------------------------
+
+NODES_TOL = 2e-2          # a node's flash vs the plain version in the driver
+NODES_BLOB_BYTES = 64 << 20
+NODES_LINEAGE_BYTES = 8 << 20
+NODES_CALLS = 200         # trivial tasks on node B, one round trip each
+
+
+def node_flash_task(seed: int):
+    """The flash forward at SCHED_SHAPE in a card task on a node: its
+    output (as float32 on the host), the kernel's launches in this worker,
+    the worker's pid, its node and its visible cards."""
+    import torch
+    from ray_tpu_torch import _tasks
+    from ray_tpu_torch.ops.attention import flash_fwd
+    sh = SCHED_SHAPE
+    q, k, v = _flash_inputs(sh["B"], sh["H"], sh["Hkv"], sh["S"], sh["S"],
+                            sh["D"], torch.bfloat16, seed)
+    before = flash_fwd.launches
+    out, _ = flash_fwd(q, k, v, causal=True)
+    return {"out": out.float().cpu().numpy(),
+            "launches": flash_fwd.launches - before, "pid": os.getpid(),
+            "node": (_tasks._in_worker or {}).get("node", b"").hex(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def node_blob(nbytes: int, seed: int):
+    import numpy as np
+    return np.random.default_rng(seed).integers(0, 255, nbytes,
+                                                dtype=np.uint8)
+
+
+def node_blob_sum(blob):
+    return int(blob.sum(dtype="int64"))
+
+
+def node_noop(x):
+    return x
+
+
+def _node_view(rt, node_id_hex: str, key: str, want: int,
+               timeout: float = 30.0) -> int:
+    """A node's data-plane counter ``key`` from its synced view, once it
+    reaches ``want`` (views arrive each ``syncer_period_s``); read at least
+    once, so ``timeout=0`` gives the counter as it stands."""
+    deadline = time.monotonic() + timeout
+    while True:
+        v = rt.ctl_node_views().get(node_id_hex)
+        got = int(v["transfer"][key]) if v else 0
+        if got >= want or time.monotonic() >= deadline:
+            return got
+        time.sleep(0.1)
+
+
+def _node_view_settled(rt, node_id_hex: str, key: str) -> int:
+    """A node's counter ``key`` once its view holds still for longer than
+    the node's sync period (a view is sent only when it changes), so that
+    a pull just made is in it."""
+    from ray_tpu_torch import _cluster
+    got = _node_view(rt, node_id_hex, key, 0, 0.0)
+    for _ in range(20):
+        time.sleep(_cluster.SYNC_PERIOD_S * 1.5)
+        prev, got = got, _node_view(rt, node_id_hex, key, 0, 0.0)
+        if got == prev:
+            return got
+    raise RuntimeError(f"nodes: node {node_id_hex[:12]}'s {key} never "
+                       "held still")
+
+
+def phase_nodes(smi):
+    """Nodes as processes (``cluster_utils``): this process is the head
+    with no card (2 CPUs); node A has the card, node B CPUs only.  A card
+    task runs the flash forward on A (held to the plain version computed
+    here); a 64 MiB result made on B is pulled by the driver and by a task
+    on A through the data plane (bytes pulled = 2 x the payload); 200
+    trivial tasks on B are timed one round trip each.  Then a card actor
+    (``max_restarts=1``) and a lineage-backed object live on A; A is
+    killed with its process group and A' (with the card) joins: the actor
+    answers the flash again there and the object is rebuilt by running its
+    task again.  After ``shutdown()`` no node process, no worker on the
+    card and no segment of the session is left."""
+    import glob
+    import subprocess
+    import threading
+
+    import numpy as np
+    import torch
+    import chip_smoke as cs       # by module name: the nodes import it
+    import ray_tpu_torch as rtt
+    from ray_tpu_torch import _cluster, _tasks
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.ops.attention import reference_attention
+    t0 = time.perf_counter()
+    out = {"phase": "nodes", "card": smi}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {"PYTHONPATH": os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])}
+    c = Cluster(head_num_cpus=2, head_num_tpus=0)
+    sid = c.session.id
+    worker_pids = set()
+    node_pids = []
+    try:
+        t = time.perf_counter()
+        a = c.add_node(num_cpus=2, num_tpus=1, resources={"node_a": 1},
+                       env=env)
+        b = c.add_node(num_cpus=2, resources={"node_b": 1}, env=env)
+        out["join_s"] = time.perf_counter() - t
+        node_pids = c.node_pids()
+        nodes = [n for n in rtt.nodes() if n["alive"]]
+        total = {}
+        for n in nodes:
+            for k, v in n["resources"].items():
+                total[k] = total.get(k, 0.0) + v
+        gpus = {n["node_id"]: n["resources"].get("GPU", 0) for n in nodes}
+        out["nodes"] = {"count": len(nodes), "gpu_by_node": gpus}
+        check(len(nodes) == 3, f"nodes: {len(nodes)} nodes alive")
+        check(gpus == {nid: (1.0 if nid == a.node_id else 0)
+                       for nid in gpus},
+              f"nodes: GPU by node {gpus} (A {a.node_id})")
+        check(rtt.cluster_resources() == total,
+              f"nodes: cluster_resources {rtt.cluster_resources()} is not "
+              f"the nodes' sum {total}")
+
+        # A card task on A: the flash forward at the serving shape.
+        t = time.perf_counter()
+        got = rtt.get(rtt.remote(num_tpus=1)(cs.node_flash_task).remote(7),
+                      timeout=600)
+        out["card_task_s"] = time.perf_counter() - t
+        worker_pids.add(got["pid"])
+        sh = SCHED_SHAPE
+        q, k, v = _flash_inputs(sh["B"], sh["H"], sh["Hkv"], sh["S"],
+                                sh["S"], sh["D"], torch.bfloat16, 7)
+        ref = reference_attention(q, k, v, causal=True).float().cpu()
+        err = float((torch.from_numpy(got["out"]) - ref).abs().max())
+        out["card_task"] = {"node": got["node"], "visible": got["visible"],
+                            "launches": got["launches"], "max_abs_err": err}
+        check(got["node"] == a.node_id,
+              f"nodes: the card task ran on {got['node']}, not A")
+        check(got["launches"] == 1 and err <= NODES_TOL,
+              f"nodes: card task {out['card_task']}")
+
+        # The card actor (A's card, once the task gave it back) and the
+        # lineage-backed object start now, beside the data-plane checks.
+        actor = rtt.remote(cs.HeadFlash).options(
+            num_tpus=1, max_restarts=1, num_cpus=0).remote(0)
+        obj = rtt.remote(resources={"node_a": 0.001})(cs.node_blob).remote(
+            NODES_LINEAGE_BYTES, 13)
+
+        # The data plane: 64 MiB made on B, read by the driver and by a
+        # task on A.
+        blob_ref = rtt.remote(resources={"node_b": 0.001})(
+            cs.node_blob).remote(NODES_BLOB_BYTES, 11)
+        rtt.wait([blob_ref], num_returns=1, timeout=300)
+        payload = _tasks.desc_nbytes(blob_ref._fut.result())
+        pulled0 = _cluster.transfer_stats()["pull_bytes"]
+        a_pull0 = _node_view_settled(c.runtime, a.node_id, "pull_bytes")
+        t = time.perf_counter()
+        blob = rtt.get(blob_ref, timeout=300)
+        get_s = time.perf_counter() - t
+        want_sum = int(blob.sum(dtype=np.int64))
+        t = time.perf_counter()
+        a_sum = rtt.get(rtt.remote(resources={"node_a": 0.001})(
+            cs.node_blob_sum).remote(blob_ref), timeout=300)
+        a_task_s = time.perf_counter() - t
+        driver_pulled = _cluster.transfer_stats()["pull_bytes"] - pulled0
+        a_pulled = _node_view(c.runtime, a.node_id, "pull_bytes",
+                              a_pull0 + payload) - a_pull0
+        out["transfer"] = {
+            "payload_bytes": payload, "driver_pulled": driver_pulled,
+            "node_a_pulled": a_pulled,
+            "driver_get_s": get_s,
+            "driver_mb_s": payload / get_s / 1e6,
+            "a_task_s": a_task_s}
+        check(a_sum == want_sum, "nodes: node A's sum of the blob")
+        check(driver_pulled + a_pulled == 2 * payload,
+              f"nodes: pulled {driver_pulled} + {a_pulled} bytes, want 2 x "
+              f"{payload}")
+        del blob
+
+        # Node death: the card actor and the lineage-backed object on A.
+        first = rtt.get(actor.probe.remote(8), timeout=600)
+        worker_pids.add(first["pid"])
+
+        # A trivial task's round trip on B (the actor is up by now: its
+        # start does not share the host with the timed calls).
+        noop = rtt.remote(resources={"node_b": 0.001})(cs.node_noop)
+        rtt.get(noop.remote(0), timeout=120)
+        rtts = []
+        for i in range(NODES_CALLS):
+            t = time.perf_counter()
+            check(rtt.get(noop.remote(i), timeout=60) == i,
+                  "nodes: a trivial task's value")
+            rtts.append((time.perf_counter() - t) * 1e3)
+        out["task_rtt_ms"] = {"p50": float(np.percentile(rtts, 50)),
+                              "p99": float(np.percentile(rtts, 99)),
+                              "n": len(rtts)}
+
+        obj_sum = int(rtt.get(obj, timeout=300).sum(dtype=np.int64))
+        c.runtime.drop_cached(obj._fut.result())   # the only copy: on A
+        t_kill = time.perf_counter()
+        c.remove_node(a)
+        a2 = c.add_node(num_cpus=2, num_tpus=1, resources={"node_a": 1},
+                        env=env)
+        node_pids += [p for p in c.node_pids() if p not in node_pids]
+        rebuilt = {}
+
+        def rebuild():
+            s = int(rtt.get(obj, timeout=600).sum(dtype=np.int64))
+            rebuilt.update(sum=s, s=time.perf_counter() - t_kill)
+        th = threading.Thread(target=rebuild, name="nodes-rebuild")
+        th.start()
+        again = _until(lambda: rtt.get(actor.probe.remote(8), timeout=300),
+                       600)
+        out["kill_to_actor_answer_s"] = time.perf_counter() - t_kill
+        th.join(600)
+        worker_pids.add(again["pid"])
+        out["kill_to_object_rebuilt_s"] = rebuilt.get("s")
+        out["actor"] = {"first": {k: first[k] for k in (
+            "launches", "max_abs_err", "pid", "calls")},
+            "again": {k: again[k] for k in ("launches", "max_abs_err",
+                                            "pid", "calls")}}
+        check(again["pid"] != first["pid"] and again["calls"] == 1
+              and all(r["launches"] == 1 and r["max_abs_err"] <= NODES_TOL
+                      for r in (first, again)),
+              f"nodes: the actor after A's death {out['actor']}")
+        check(rebuilt.get("sum") == obj_sum,
+              f"nodes: the object rebuilt {rebuilt} (want {obj_sum})")
+        check(_cluster.transfer_stats()["pull_bytes"] > 0,
+              "nodes: no pull counted")
+        out["launches"] = {"flash_fwd": got["launches"] + first["launches"]
+                           + again["launches"]}
+        rtt.kill(actor)
+    finally:
+        c.shutdown()
+    deadline = time.monotonic() + 10
+    while not all(map(_pid_gone, node_pids)) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.split()
+    left = [p for p in node_pids if not _pid_gone(p)]
+    segs = glob.glob(f"/dev/shm/rtt_{sid}_*")
+    out["after_shutdown"] = {"node_pids_left": left,
+                             "card_workers_left": sorted(
+                                 set(map(str, worker_pids)) & set(apps)),
+                             "segments_left": len(segs)}
+    check(not left, f"nodes: node processes left {left}")
+    check(not out["after_shutdown"]["card_workers_left"],
+          f"nodes: workers still on the card {apps}")
+    check(not segs, f"nodes: {len(segs)} segments of the session left")
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out["launches"]
+
+
+def _timed(phase, *args):
+    """Run one phase and print its seconds on a line of its own."""
+    t = time.perf_counter()
+    out = phase(*args)
+    emit({"path_seconds": phase.__name__[len("phase_"):],
+          "seconds": time.perf_counter() - t})
+    return out
+
+
 def _created(state):
     if state != "CREATED":
         raise RuntimeError(f"placement group {state}")
@@ -6638,77 +6913,80 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    info = phase_device()
+    info = _timed(phase_device)
     smi = info["nvidia_smi"]
-    phase_build()
-    phase_kernel_check()
-    rows = phase_kernel_time(smi)
-    phase_serve_exact()
-    paths = {"serve": phase_serve(smi)}
+    _timed(phase_build)
+    _timed(phase_kernel_check)
+    rows = _timed(phase_kernel_time, smi)
+    _timed(phase_serve_exact)
+    paths = {"serve": _timed(phase_serve, smi)}
     torch.cuda.empty_cache()
-    paths["serve_sampled"] = phase_serve_sampled(smi)
+    paths["serve_sampled"] = _timed(phase_serve_sampled, smi)
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
-    paths["sync_tripwire"] = phase_sync_tripwire(smi)
+    paths["sync_tripwire"] = _timed(phase_sync_tripwire, smi)
     torch.cuda.empty_cache()
-    paths["serve_tiny"] = phase_serve_tiny()
-    paths["recompile"] = phase_recompile(smi)
-    paths["paged_streams"] = phase_paged_streams()
+    paths["serve_tiny"] = _timed(phase_serve_tiny)
+    paths["recompile"] = _timed(phase_recompile, smi)
+    paths["paged_streams"] = _timed(phase_paged_streams)
     torch.cuda.empty_cache()
-    phase_disagg_exact()
+    _timed(phase_disagg_exact)
     torch.cuda.empty_cache()
     paths["disagg_load"], paths["fleet"], paths["lock_profile"] = \
-        phase_serving_tiers(smi)
+        _timed(phase_serving_tiers, smi)
     torch.cuda.empty_cache()
-    paths["serve_deployment"] = phase_serve_deployment(smi)
+    paths["serve_deployment"] = _timed(phase_serve_deployment, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["dag_disagg"] = phase_dag_disagg(smi)
+    paths["dag_disagg"] = _timed(phase_dag_disagg, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_handoff_ipc(smi)
+    _timed(phase_handoff_ipc, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["fleet_remote"] = phase_fleet_remote(smi)
+    paths["fleet_remote"] = _timed(phase_fleet_remote, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["serve_controller"] = phase_serve_controller(smi)
+    paths["serve_controller"] = _timed(phase_serve_controller, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["sanitize"] = phase_sanitize(smi)
+    paths["sanitize"] = _timed(phase_sanitize, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["trace_metrics"] = phase_trace_metrics(smi)
+    paths["trace_metrics"] = _timed(phase_trace_metrics, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["head_ft"] = phase_head_ft(smi)
+    paths["head_ft"] = _timed(phase_head_ft, smi)
+    gc.collect()
     torch.cuda.empty_cache()
-    phase_train_exact()
-    paths["train_tiny"] = phase_train_tiny()
-    paths["train"], params, opt = phase_train(smi)
-    paths["train_dots"] = phase_train_dots(smi, params, opt)
+    paths["nodes"] = _timed(phase_nodes, smi)
+    torch.cuda.empty_cache()
+    _timed(phase_train_exact)
+    paths["train_tiny"] = _timed(phase_train_tiny)
+    paths["train"], params, opt = _timed(phase_train, smi)
+    paths["train_dots"] = _timed(phase_train_dots, smi, params, opt)
     del params, opt
     torch.cuda.empty_cache()
-    paths["data_train"] = phase_data_train(smi)
+    paths["data_train"] = _timed(phase_data_train, smi)
     torch.cuda.empty_cache()
-    paths["checkpoint"] = phase_checkpoint(smi)
+    paths["checkpoint"] = _timed(phase_checkpoint, smi)
     torch.cuda.empty_cache()
-    paths["trainer"] = phase_trainer(smi)
+    paths["trainer"] = _timed(phase_trainer, smi)
     torch.cuda.empty_cache()
-    paths["sched_cards"] = phase_sched_cards(smi)
-    paths["tune"] = phase_tune(smi)
+    paths["sched_cards"] = _timed(phase_sched_cards, smi)
+    paths["tune"] = _timed(phase_tune, smi)
     torch.cuda.empty_cache()
-    paths["ring_local"] = phase_ring_local(smi)
+    paths["ring_local"] = _timed(phase_ring_local, smi)
     torch.cuda.empty_cache()
-    paths["train_moe"] = phase_train_moe(smi)
+    paths["train_moe"] = _timed(phase_train_moe, smi)
     torch.cuda.empty_cache()
     t_rl = time.perf_counter()
-    phase_rl_exact(smi)
-    phase_rl_train(smi)
+    _timed(phase_rl_exact, smi)
+    _timed(phase_rl_train, smi)
     emit({"phase": "rl", "card": smi,
           "seconds": time.perf_counter() - t_rl})
-    phase_rl_remote(smi)
-    phase_collective(smi)
+    _timed(phase_rl_remote, smi)
+    _timed(phase_collective, smi)
     kernels = []
     for name, row, src, rep in (
             ("flash_fwd", rows["flash_fwd_S256"], FLASH_SOURCE,

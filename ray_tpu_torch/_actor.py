@@ -231,9 +231,30 @@ _spawn_env_lock = threading.Lock()
 _in_actor: Optional[Dict[str, Any]] = None
 
 
+def _idle(session: _Session) -> bool:
+    """Nothing of ``session`` is alive: no actor process runs and every
+    actor it registered is DEAD (a leftover of actors used and killed
+    before ``init()``)."""
+    from ._controller import DEAD
+    with session.lock:
+        if any(p.is_alive() for p in session.procs.values()):
+            return False
+    return session.store is None and all(
+        info.state == DEAD for info in session.controller.actors.values())
+
+
 def _open_session(state_dir: Optional[str] = None) -> _Session:
-    """This process's session (``init()`` opens it with its state dir)."""
+    """This process's session (``init()`` opens it with its state dir;
+    an idle session of actors used before is closed first, since nothing
+    of it can conflict with the replayed tables)."""
     global _session
+    with _session_lock:
+        stale = _session if (_session is not None and state_dir
+                             and _idle(_session)) else None
+        if stale is not None:
+            _session = None
+    if stale is not None:
+        _close(stale)
     with _session_lock:
         if _session is None:
             _session = _Session(state_dir)
@@ -992,13 +1013,31 @@ def _schedule_actor(session: _Session, node, aid, qualname: str,
                           strategy=strategy, pg=pg, bundle=bundle,
                           runtime_env=rt_env)
 
-    def placed(_spec, _node_id) -> None:
+    def placed(_spec, node_id) -> None:
+        if node_id != node.node_id:
+            # A joined node's: it grants the cards and starts the process.
+            with session.lock:
+                killed = actor_id in session.killed
+            if killed:
+                node.scheduler.release(node_id, tspec.resources,
+                                       tspec.placement_group,
+                                       tspec.bundle_index)
+                return
+            full = dict(env)
+            full.update({k: str(v) for k, v in
+                         ((rt_env or {}).get("env_vars") or {}).items()})
+            full.update(_runtime_env.node_setup_env_vars(rt_env))
+            from . import _tasks
+            _tasks._require_session().runtime.start_remote_actor(
+                session, aid, qualname, spec, full, tspec, node_id)
+            return
         cards = node.take_cards(tspec)
         with session.lock:
             killed = actor_id in session.killed
         if killed:           # killed before its placement came
             node.give_back(tspec, cards)
             return
+        session.controller.get_actor(aid).node_id = node_id
         full = dict(env)
         full.update({k: str(v) for k, v in
                      ((rt_env or {}).get("env_vars") or {}).items()})
@@ -1266,11 +1305,14 @@ def shutdown() -> None:
     stops cleanly revives none of them at its next start (JAX:
     ``Runtime.shutdown``); only one that crashed does."""
     global _session
-    from ._controller import DEAD
     with _session_lock:
         session, _session = _session, None
-    if session is None:
-        return
+    if session is not None:
+        _close(session)
+
+
+def _close(session: _Session) -> None:
+    from ._controller import DEAD
     with session.lock:
         session.closing = True
         procs = list(session.procs.items())
@@ -1445,11 +1487,11 @@ def _actor_main(spec: Dict[str, Any], state_conn) -> None:
     import torch
 
     from ._control import ControlPlane, set_current
-    from ._tasks import _boot_worker_env
+    from ._worker import boot_worker_env
     actor_id = spec["actor_id"]
     plane = ControlPlane.connect(spec["host"], spec["port"])
     set_current(plane)
-    _boot_worker_env()
+    boot_worker_env()
     opts = spec["options"]
     _in_actor = {"plane": plane, "options": opts, "actor_id": actor_id,
                  "head": spec.get("head")}

@@ -137,3 +137,19 @@ D("health_check_period_s", float, 1.0,
   "Head -> client liveness probe period.")
 D("health_check_failure_threshold", int, 5,
   "Missed probe periods before the head closes a silent client.")
+
+# --- Nodes (the node plane) ------------------------------------------------
+D("object_store_memory", int, 2 * 1024 ** 3,
+  "Soft cap on bytes a node's shared-memory store holds before it spills "
+  "the least recently used objects.")
+D("object_spill_dir", str, "",
+  "Directory a node's store spills to (empty = <session_dir>/spill).")
+D("node_reconnect_grace_s", float, 5.0,
+  "After a node's control connection drops, how long the head waits for "
+  "it to re-attach (same identity, tasks and actors kept) before it runs "
+  "the node-death fan-out; a node on the head's host whose process is "
+  "gone is dead at once.")
+
+# --- Logging ---------------------------------------------------------------
+D("session_dir", str, "",
+  "Session directory (empty = <tmp>/ray_tpu_torch/session_*).")

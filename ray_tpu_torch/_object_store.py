@@ -24,8 +24,19 @@ An object is kept in one of two kinds, chosen by what it holds:
 Capacity counts the segment bytes of ``"shm"`` objects and the device
 bytes of ``"cuda_ipc"`` objects; a ``put`` beyond it raises
 ``ObjectStoreFullError`` (``export_page_blob`` then returns None and the
-caller hands the value off directly, as JAX's does).  The store does not
-spill.  An object id is any string (``new_object_id()``).
+caller hands the value off directly, as JAX's does).  An object id is any
+string (``new_object_id()``).
+
+A node's store (``_node.NodeManager``) is the same class built with a
+``spill_dir``: it indexes the segments its workers seal
+(``adopt_segment``: the id is the segment's name, ``rtt_<session>_<node>_
+<id>``, so two nodes on one host never collide) and the payloads it pulls
+from other nodes (``put_raw``).  Past its capacity it spills the least
+recently used unpinned segments to files under ``<spill_dir>/<pid>`` and
+unlinks them; ``read_raw`` and ``restore`` bring one back.
+``sweep_orphan_spills`` removes the spill directories of dead processes
+(a SIGKILLed node leaves its own).  ``NativeArenaStore`` (JAX's C++
+arena) waits for ROADMAP Queue 1 item 14's ``_native``.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import io
 import mmap
 import os
 import pickle
+import shutil
 import struct
 import sys
 import threading
@@ -302,17 +314,27 @@ class _Entry:
     pinned: int = 0
     segment: Optional[_Segment] = None
     value: Any = None          # "cuda_ipc": the pinned value itself
+    #: The segment's name (an adopted or pulled one's own; else
+    #: ``_segment_name(id)``), and its spill file while it is spilled.
+    name: Optional[str] = None
+    spilled_path: Optional[str] = None
 
 
 class SharedMemoryStore:
     """Sealed objects of this process, readable by any process on the host
     through their descriptor (JAX: ``SharedMemoryStore``)."""
 
-    def __init__(self, capacity_bytes: Optional[int] = None):
+    def __init__(self, capacity_bytes: Optional[int] = None,
+                 spill_dir: Optional[str] = None):
         self._capacity = int(capacity_bytes or DEFAULT_CAPACITY)
         self._entries: "OrderedDict[str, _Entry]" = OrderedDict()
         self._used = 0
         self._lock = threading.RLock()
+        #: Where a node's store spills (None: it raises when full).
+        self._spill_dir = None if spill_dir is None else os.path.join(
+            spill_dir, str(os.getpid()))
+        self.spilled = 0
+        self.restored = 0
 
     def put(self, object_id: str, value: Any) -> int:
         """Seal ``value`` under ``object_id``; returns its bytes.  Raises
@@ -349,12 +371,138 @@ class SharedMemoryStore:
         with self._lock:
             if object_id in self._entries:
                 raise ValueError(f"object {object_id} already exists")
-            if self._used + entry.nbytes > self._capacity:
-                raise ObjectStoreFullError(
-                    f"need {entry.nbytes} bytes; {self._used}/"
-                    f"{self._capacity} used and nothing evictable")
+            self._ensure_space(entry.nbytes)
             self._entries[object_id] = entry
             self._used += entry.nbytes
+
+    def _ensure_space(self, nbytes: int) -> None:
+        """Under the lock: spill least recently used unpinned segments
+        until ``nbytes`` fit (a store without a spill dir raises)."""
+        if self._used + nbytes <= self._capacity:
+            return
+        if self._spill_dir is not None:
+            for oid, e in list(self._entries.items()):
+                if self._used + nbytes <= self._capacity:
+                    return
+                if e.kind == "shm" and not e.pinned and \
+                        e.spilled_path is None:
+                    self._spill(oid, e)
+            if self._used + nbytes <= self._capacity:
+                return
+        raise ObjectStoreFullError(
+            f"need {nbytes} bytes; {self._used}/{self._capacity} used and "
+            "nothing evictable")
+
+    def _spill(self, object_id: str, e: _Entry) -> None:
+        name = e.name or _segment_name(object_id)
+        os.makedirs(self._spill_dir, exist_ok=True)
+        path = os.path.join(self._spill_dir, name)
+        seg = e.segment or _Segment(name, create=False)
+        try:
+            with open(path, "wb") as f:
+                f.write(seg.buf[:e.nbytes])
+        finally:
+            seg.close()
+        e.segment = None
+        e.name = name
+        try:
+            os.unlink(os.path.join(SHM_DIR, name))
+        except FileNotFoundError:
+            pass
+        e.spilled_path = path
+        self._used -= e.nbytes
+        self.spilled += 1
+
+    def restore(self, object_id: str) -> Optional[tuple]:
+        """Bring a spilled segment back into shared memory (spilling
+        others if need be); its descriptor, or None if unknown."""
+        object_id = str(object_id)
+        with self._lock:
+            e = self._entries.get(object_id)
+            if e is None:
+                return None
+            self._entries.move_to_end(object_id)
+            if e.spilled_path is not None:
+                self._ensure_space(e.nbytes)
+                name = e.name or _segment_name(object_id)
+                seg = _Segment(name, create=True, size=max(e.nbytes, 1))
+                try:
+                    with open(e.spilled_path, "rb") as f:
+                        f.readinto(seg.buf[:e.nbytes])
+                finally:
+                    seg.close()
+                os.unlink(e.spilled_path)
+                e.spilled_path = None
+                self._used += e.nbytes
+                self.restored += 1
+            return ("shm", e.name or _segment_name(object_id), e.nbytes)
+
+    def adopt_segment(self, name: str, nbytes: int) -> None:
+        """Index a segment another process of this node sealed (a worker's
+        result); its id is its name."""
+        entry = _Entry("shm", int(nbytes), name=name)
+        with self._lock:
+            if name in self._entries:
+                return
+        self._admit(name, entry)
+
+    def put_raw(self, name: str, payload) -> tuple:
+        """A new segment ``name`` holding ``payload`` (a layout ``_write``
+        made, pulled from another node); its descriptor."""
+        payload = memoryview(payload)
+        nbytes = payload.nbytes
+        self._admit(name, _Entry("shm", nbytes, name=name))
+        try:
+            seg = _Segment(name, create=True, size=max(nbytes, 1))
+            try:
+                seg.buf[:nbytes] = payload
+            finally:
+                seg.close()
+        except BaseException:
+            with self._lock:
+                self._entries.pop(name, None)
+                self._used -= nbytes
+            raise
+        return ("shm", name, nbytes)
+
+    def put_parts(self, name: str, meta: bytes,
+                  buffers: List[memoryview]) -> tuple:
+        """A new segment ``name`` in ``_write``'s layout; its
+        descriptor."""
+        nbytes, offsets = _layout(meta, buffers)
+        self._admit(name, _Entry("shm", nbytes, name=name))
+        try:
+            seg = _Segment(name, create=True, size=max(nbytes, 1))
+            try:
+                _write(seg.buf, meta, buffers, offsets)
+            finally:
+                seg.close()
+        except BaseException:
+            with self._lock:
+                self._entries.pop(name, None)
+                self._used -= nbytes
+            raise
+        return ("shm", name, nbytes)
+
+    def read_raw(self, name: str, nbytes: Optional[int] = None
+                 ) -> Optional[bytes]:
+        """The bytes of segment ``name`` (restored first if it was
+        spilled; a segment this store does not index is read by name);
+        None when it is gone."""
+        with self._lock:
+            if name in self._entries:
+                desc = self.restore(name)
+                nbytes = desc[2]
+        if nbytes is None:
+            return None
+        try:
+            seg = _Segment(name, create=False)
+        except FileNotFoundError:
+            return None
+        try:
+            return bytes(seg.buf[:nbytes])
+        finally:
+            seg.close()
 
     def try_pin(self, object_id: str) -> bool:
         """Pin an object (the leak sanitizer's registry counts it until
@@ -387,7 +535,8 @@ class SharedMemoryStore:
             if e is None:
                 return None
             if e.kind == "shm":
-                return ("shm", _segment_name(object_id), e.nbytes)
+                return ("shm", e.name or _segment_name(object_id),
+                        e.nbytes)
             return ("cuda_ipc", object_id, IpcBlob(e.value), e.nbytes,
                     os.getpid())
 
@@ -397,7 +546,18 @@ class SharedMemoryStore:
             e = self._entries.pop(object_id, None)
             if e is None:
                 return
-            self._used -= e.nbytes
+            if e.spilled_path is None:
+                self._used -= e.nbytes
+        if e.spilled_path is not None:
+            try:
+                os.unlink(e.spilled_path)
+            except FileNotFoundError:
+                pass
+        elif e.name is not None:
+            try:
+                os.unlink(os.path.join(SHM_DIR, e.name))
+            except FileNotFoundError:
+                pass
         if e.pinned:
             from . import _sanitizer
             for _ in range(e.pinned):
@@ -418,7 +578,11 @@ class SharedMemoryStore:
                     "num_pinned": len(pinned),
                     "pinned_bytes": sum(e.nbytes for e in pinned),
                     "num_cuda_ipc": sum(e.kind == "cuda_ipc"
-                                        for e in self._entries.values())}
+                                        for e in self._entries.values()),
+                    "num_spilled": sum(e.spilled_path is not None
+                                       for e in self._entries.values()),
+                    "spilled_total": self.spilled,
+                    "restored_total": self.restored}
 
     def shutdown(self) -> None:
         with self._lock:
@@ -426,6 +590,78 @@ class SharedMemoryStore:
         for oid in ids:
             self.delete(oid)
         _collect_ipc()
+        if self._spill_dir is not None:
+            shutil.rmtree(self._spill_dir, ignore_errors=True)
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except OSError:
+        return True            # it exists, but is not ours
+    return True
+
+
+def sweep_orphan_spills(root: str) -> int:
+    """Delete the spill directories (``<root>/<pid>``) of processes that
+    are gone; returns the bytes reclaimed.  Live stores' are untouched."""
+    try:
+        names = os.listdir(root)
+    except OSError:
+        return 0
+    reclaimed = 0
+    for name in names:
+        try:
+            pid = int(name)
+        except ValueError:
+            continue
+        if pid == os.getpid() or _pid_alive(pid):
+            continue
+        path = os.path.join(root, name)
+        for dirpath, _dirs, files in os.walk(path):
+            for f in files:
+                try:
+                    reclaimed += os.path.getsize(os.path.join(dirpath, f))
+                except OSError:
+                    pass
+        shutil.rmtree(path, ignore_errors=True)
+    return reclaimed
+
+
+class NativeArenaStore:
+    """JAX's C++ arena store: it needs ``_native`` (ROADMAP Queue 1 item
+    14)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "NativeArenaStore is not ported yet: it needs _native, see "
+            "ROADMAP Queue 1 item 14")
+
+
+class RemoteObjectReader:
+    """Reads and writes segments by name, for a process with no store of
+    its own on the host (JAX: ``RemoteObjectReader``)."""
+
+    @staticmethod
+    def read(shm_name: str, nbytes: int) -> Any:
+        seg = _Segment(shm_name, create=False)
+        try:
+            return _read(seg.buf[:nbytes])
+        finally:
+            seg.close()
+
+    @staticmethod
+    def write(shm_name: str, value: Any) -> Tuple[str, int]:
+        meta, buffers = _serialize(value)
+        nbytes, offsets = _layout(meta, buffers)
+        seg = _Segment(shm_name, create=True, size=max(nbytes, 1))
+        try:
+            _write(seg.buf, meta, buffers, offsets)
+        finally:
+            seg.close()
+        return shm_name, nbytes
 
 
 _default: Optional[SharedMemoryStore] = None

@@ -4,8 +4,8 @@ small dataclasses sent as pickles over a ``multiprocessing.connection``.
 
 ``TaskSpec`` is also the scheduler's spec (``_scheduler``) and an actor's
 creation spec in the controller's table (``_controller``), which the WAL
-persists.  The messages between node managers and their workers come
-with the node processes (ROADMAP Queue 1 item 13, part 2).
+persists.  ``TaskDone`` is what a node's worker reports (built from
+``_wire``'s frame on the node's side).
 
 Value descriptors on the client channel:
     ("inline", payload_bytes)   -- a packed payload (``_serialization``)
@@ -63,6 +63,18 @@ class TaskSpec:
     # escaped-forever only if the worker still holds them afterwards
     # (reference: reference_counter.h:44 borrower bookkeeping).
     nested_refs: Tuple = ()
+
+
+@dataclass
+class TaskDone:
+    """worker -> node: task finished."""
+    task_id: TaskID
+    worker_id: WorkerID
+    results: List[Tuple[ObjectID, ValueDesc]]
+    error: Optional[ValueDesc] = None
+    is_application_error: bool = False
+    actor_id: Optional[ActorID] = None
+    execution_time_s: float = 0.0
 
 
 @dataclass

@@ -1,4 +1,5 @@
-"""The scheduler tier over one node, the host (the counterpart of
+"""The scheduler tier over the host and the nodes that join it (the
+counterpart of
 ``ray_tpu/_private/scheduler.py``'s ``ClusterScheduler``, with
 ``node.py``'s card grant).  Its node and placement-group tables are the
 session's ``_controller.Controller``; its specs are ``_protocol.TaskSpec``.
@@ -10,11 +11,16 @@ the node and books its resources; placement groups reserve bundles under
 ``PACK``, ``SPREAD``, ``STRICT_PACK`` or ``STRICT_SPREAD`` by a two-phase
 commit and stay ``PENDING`` until they fit; a shape no node's total could
 ever hold is parked on the infeasible list.  Every decision lands in the
-``schedview`` ring, and the ``ray_tpu_sched_*`` series are JAX's.  Left
-out with the parts of JAX's runtime that call them: pipelined submission
-and lease reuse (``try_pipeline``, ``exchange_finished``), the drain fence
-and node-death re-planning (multi-node, ROADMAP Queue 1 item 13) and the
-autoscaler's demand feeds.
+``schedview`` ring, and the ``ray_tpu_sched_*`` series are JAX's.  The
+node plane (``_cluster``, ``_runtime``) adds the nodes that join
+(``add_node``), takes a dead one out (``remove_node``) and plans its
+bundles again (``reschedule_lost_bundles``); a task with a hard affinity
+to a dead node stays queued, as in JAX.  Pipelined submission
+(``try_pipeline``: a plain CPU task queued ahead on a busy worker of a
+node, no booking) and lease reuse (``exchange_finished``) are the head
+runtime's.  Left out with the parts of JAX that call them: the drain
+fence (ROADMAP Queue 1 item 13 part 3's drain notices) and the
+autoscaler's demand feeds (item 14).
 
 ``Node`` is the host as the scheduler's one node.  It advertises ``CPU``
 (the session's ``num_cpus``), ``memory``, ``GPU`` (its cards: ``num_tpus``
@@ -45,8 +51,8 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 from ._config import Config
-from ._controller import (PG_CREATED, PG_REMOVED, BundleInfo, Controller,
-                          NodeInfo, PlacementGroupInfo)
+from ._controller import (PG_CREATED, PG_PENDING, PG_REMOVED, BundleInfo,
+                          Controller, NodeInfo, PlacementGroupInfo)
 from ._ids import JobID, NodeID, ObjectID, PlacementGroupID, TaskID
 from ._protocol import TaskSpec
 from ._resources import CPU, GPU, MEMORY, ResourceSet
@@ -120,6 +126,10 @@ class ClusterScheduler:
         self._pending_pgs: List[PlacementGroupInfo] = []
         # Set by the node: called with (spec, exc) when dispatch blows up.
         self.on_dispatch_error: Optional[Callable] = None
+        # Set by the head's runtime once nodes join: called with a spec
+        # the cluster has no room for; True when it queued the task ahead
+        # on a busy worker of a node (pipelined submission: no booking).
+        self.try_pipeline: Optional[Callable] = None
         # Every placement decision lands in this bounded ring (schedview).
         self.ring = _dec.DecisionRing(Config.get("sched_decision_ring_size"))
         self._pg_created_mono: Dict[PlacementGroupID, float] = {}
@@ -142,6 +152,15 @@ class ClusterScheduler:
             for t in self._infeasible:
                 self._push_ready_locked(t)
             self._infeasible.clear()
+            self._wake.notify_all()
+
+    def remove_node(self, node_id: NodeID) -> None:
+        """A node died: it takes no more placements (its bookings go with
+        it; tasks pinned to it by a hard affinity fail at their next
+        placement round)."""
+        with self._wake:
+            self._nodes.pop(node_id, None)
+            self._draining.discard(node_id)
             self._wake.notify_all()
 
     def available_resources(self) -> Dict[str, float]:
@@ -174,6 +193,7 @@ class ClusterScheduler:
         # notify_object_ready (which holds the same lock) would then have
         # already fired, stranding the task in _waiting forever.
         inline_node: Optional[NodeID] = None
+        pipeline_ok = False
         trace = _dec.enabled()
         info: Optional[Dict[str, Any]] = {} if trace else None
         with self._wake:
@@ -183,8 +203,16 @@ class ClusterScheduler:
                 # Submit-time fast path: with an empty queue, place and
                 # book right here and dispatch on the caller's thread.
                 inline_node = self._try_place(spec, info)
-            if inline_node is None:
+                if inline_node is None and self.try_pipeline is not None \
+                        and self._pipelineable(spec):
+                    pipeline_ok = True      # attempted outside the lock
+            if inline_node is None and not pipeline_ok:
                 self._queue_task_locked(spec, dispatch, unresolved)
+        if pipeline_ok:
+            if not self.try_pipeline(spec):
+                with self._wake:
+                    self._queue_task_locked(spec, dispatch, set())
+            return
         if inline_node is not None:
             if trace:
                 self.ring.push(_dec.K_INLINE, spec.task_id.hex(), spec.name,
@@ -194,6 +222,17 @@ class ClusterScheduler:
                                info.get("candidates", 1),
                                info.get("rejected"), inline_node.hex(), 1)
             self._dispatch_safely(spec, dispatch, inline_node)
+
+    @staticmethod
+    def _pipelineable(spec: TaskSpec) -> bool:
+        """Plain CPU-only tasks can queue ahead on a busy worker: execution
+        stays serial per worker, so parallelism remains bounded by the
+        booked capacity."""
+        return (spec.placement_group is None
+                and spec.scheduling_strategy is None
+                and spec.runtime_env is None
+                and spec.actor_id is None and spec.create_actor_id is None
+                and all(k == CPU for k in spec.resources.keys()))
 
     def _queue_task_locked(self, spec: TaskSpec, dispatch,
                            unresolved: Set[ObjectID]) -> None:
@@ -635,6 +674,51 @@ class ClusterScheduler:
             assignment.append(placed)
         return assignment
 
+    def reschedule_lost_bundles(self, pg: PlacementGroupInfo,
+                                dead_node: NodeID) -> None:
+        """Re-plan the bundles a dead node took with it; live bundles keep
+        their placement (JAX: the placement-group manager's rescheduling
+        on node death)."""
+        with self._wake:
+            if pg.state == PG_REMOVED:
+                return
+            lost = False
+            for b in pg.bundles:
+                if b.node_id == dead_node:
+                    b.node_id = None
+                    lost = True
+            if not lost:
+                return
+            self._controller.set_pg_state(pg.pg_id, PG_PENDING)
+            self._pg_created_mono.setdefault(pg.pg_id, time.monotonic())
+            if not self._try_commit_pg(pg) and pg not in self._pending_pgs:
+                self._pending_pgs.append(pg)
+
+    def exchange_finished(self, node_id: NodeID,
+                          spec: TaskSpec) -> Optional[_PendingTask]:
+        """A task of ``spec``'s scheduling class just finished on
+        ``node_id``: hand its booking to a queued task of the same class
+        and return it for dispatch there (lease reuse), or release the
+        booking and return None.  Only while that class is the only one
+        queued, so a stream of one class starves no other."""
+        key = self._sched_key(spec)
+        with self._wake:
+            bucket = self._ready.get(key)
+            if bucket and self._running and len(self._ready) == 1 \
+                    and not self._pending_pgs and node_id in self._nodes:
+                task = bucket.popleft()
+                self._ready_count -= 1
+                if not bucket:
+                    self._ready.pop(key, None)
+                if _dec.enabled():
+                    self.ring.push(_dec.K_LOOP, task.spec.task_id.hex(),
+                                   task.spec.name, key, 1, None,
+                                   node_id.hex(), task.attempts + 1)
+                return task
+        self.release(node_id, spec.resources, spec.placement_group,
+                     spec.bundle_index)
+        return None
+
     def remove_placement_group(self, pg: PlacementGroupInfo) -> None:
         with self._wake:
             for b in pg.bundles:
@@ -772,9 +856,78 @@ class Booking:
             self.node.give_back(self.spec, cards)
 
 
+class CardPool:
+    """A node's cards: a spec booked with whole cards gets exactly those
+    card ids, pinned by the accelerator manager's ``visibility_env`` (JAX:
+    ``node.py:640-650``).  The session's node and every node process
+    (``_node.NodeManager``) grant through one."""
+
+    def __init__(self, n: int):
+        self._lock = threading.Lock()
+        self._cards: List[int] = list(range(int(n)))
+
+    def take(self, spec: TaskSpec) -> List[int]:
+        """The card ids of a placed spec's whole cards (JAX grants
+        ``int(TPU)`` chips; a fractional share is pinned to none)."""
+        n = int(spec.resources.get(GPU))
+        if n <= 0:
+            return []
+        with self._lock:
+            if len(self._cards) < n:
+                # The scheduler booked them, so they are held by a worker
+                # that has not handed them back: a fault, not a wait.
+                raise RuntimeError(
+                    f"{spec.name}: {n} card(s) booked but only "
+                    f"{self._cards} free")
+            grant, self._cards = self._cards[:n], self._cards[n:]
+        return grant
+
+    def give_back(self, cards: List[int]) -> None:
+        if cards:
+            with self._lock:
+                self._cards = sorted(self._cards + list(cards))
+
+    @staticmethod
+    def env(cards: List[int]) -> Dict[str, str]:
+        """The environment pinning a worker to ``cards`` (empty when it
+        holds none)."""
+        if not cards:
+            return {}
+        from ._actor import _spawn_env_lock
+        # The parent's own CUDA_VISIBLE_DEVICES: a spawn in flight holds
+        # its child's in os.environ under this lock.
+        with _spawn_env_lock:
+            return get_accelerator(GPU).visibility_env(cards)
+
+
+def node_resources(num_cpus: float, num_tpus: Optional[float] = None,
+                   resources: Optional[Dict[str, float]] = None
+                   ) -> Dict[str, float]:
+    """A node's advertised resources: ``CPU``, ``memory``, ``GPU`` (its
+    cards: ``num_tpus`` or what every registered accelerator plugin
+    detects, JAX: the per-vendor manager loop of ``Runtime.__init__``)
+    and ``resources``."""
+    res: Dict[str, float] = {CPU: float(num_cpus), MEMORY: _host_memory()}
+    if num_tpus is not None:
+        res[GPU] = float(num_tpus)
+    for mgr in all_accelerators():
+        if mgr.resource_name in res:
+            continue
+        try:
+            n = mgr.detect_num_chips()
+        except Exception:  # noqa: BLE001 - a plugin that cannot tell
+            n = 0
+        if n:
+            res[mgr.resource_name] = float(n)
+    if resources:
+        res.update(resources)
+    return res
+
+
 class Node:
     """The host: its tables, its scheduler and its cards (JAX: the head
-    node's ``Runtime`` and ``NodeManager`` in one process)."""
+    node's ``Runtime`` and ``NodeManager`` in one process).  Nodes that
+    join (``_cluster.HeadServer``) are added to the same scheduler."""
 
     def __init__(self, num_cpus: float, num_tpus: Optional[float] = None,
                  resources: Optional[Dict[str, float]] = None, *,
@@ -783,29 +936,13 @@ class Node:
         self.job_id = job_id if job_id is not None else JobID.next()
         self.controller = controller if controller is not None \
             else Controller()
-        res: Dict[str, float] = {CPU: float(num_cpus),
-                                 MEMORY: _host_memory()}
-        if num_tpus is not None:
-            res[GPU] = float(num_tpus)
-        # Every registered accelerator plugin advertises its cards (JAX:
-        # the per-vendor manager loop of ``Runtime.__init__``).
-        for mgr in all_accelerators():
-            if mgr.resource_name in res:
-                continue
-            try:
-                n = mgr.detect_num_chips()
-            except Exception:  # noqa: BLE001 - a plugin that cannot tell
-                n = 0
-            if n:
-                res[mgr.resource_name] = float(n)
-        if resources:
-            res.update(resources)
+        res = node_resources(num_cpus, num_tpus, resources)
         self.node_id = NodeID.from_random()
         self.info = NodeInfo(self.node_id, socket.gethostname(),
                              ResourceSet(res), is_head=True)
         self.controller.register_node(self.info)
         self._lock = threading.Lock()
-        self._cards: List[int] = list(range(int(res.get(GPU, 0))))
+        self.cards = CardPool(int(res.get(GPU, 0)))
         self._deps: Dict[ObjectID, cf.Future] = {}
         self._on_error: Dict[TaskID, Callable[[BaseException], None]] = {}
         self.scheduler = ClusterScheduler(self.controller, self._object_ready)
@@ -864,6 +1001,13 @@ class Node:
 
         self.scheduler.submit(spec, run)
 
+    def forget(self, spec: TaskSpec) -> None:
+        """The scheduler will not dispatch ``spec``: the head's runtime
+        queued it ahead on a node's worker (pipelined submission)."""
+        with self._lock:
+            self._on_error.pop(spec.task_id, None)
+        self.drop_deps(spec)
+
     def _dispatch_failed(self, spec: TaskSpec, exc: BaseException) -> None:
         with self._lock:
             on_error = self._on_error.pop(spec.task_id, None)
@@ -871,28 +1015,14 @@ class Node:
             on_error(exc)
 
     def take_cards(self, spec: TaskSpec) -> List[int]:
-        """The card ids of a placed spec's whole cards (JAX grants
-        ``int(TPU)`` chips; a fractional share is pinned to none)."""
-        n = int(spec.resources.get(GPU))
-        if n <= 0:
-            return []
-        with self._lock:
-            if len(self._cards) < n:
-                # The scheduler booked them, so they are held by a worker
-                # that has not handed them back: a fault, not a wait.
-                raise RuntimeError(
-                    f"{spec.name}: {n} card(s) booked but only "
-                    f"{self._cards} free")
-            grant, self._cards = self._cards[:n], self._cards[n:]
-        return grant
+        """The card ids of a placed spec's whole cards."""
+        return self.cards.take(spec)
 
     def give_back(self, spec: TaskSpec, cards: List[int],
                   resources: Optional[ResourceSet] = None) -> None:
         """Return a spec's cards to the pool and its booking (or
         ``resources`` of it) to the scheduler."""
-        if cards:
-            with self._lock:
-                self._cards = sorted(self._cards + list(cards))
+        self.cards.give_back(cards)
         self.scheduler.release(self.node_id,
                                spec.resources if resources is None
                                else resources,
@@ -901,13 +1031,7 @@ class Node:
     def card_env(self, cards: List[int]) -> Dict[str, str]:
         """The environment pinning a worker to ``cards`` (empty when it
         holds none)."""
-        if not cards:
-            return {}
-        from ._actor import _spawn_env_lock
-        # The parent's own CUDA_VISIBLE_DEVICES: a spawn in flight holds
-        # its child's in os.environ under this lock.
-        with _spawn_env_lock:
-            return get_accelerator(GPU).visibility_env(cards)
+        return CardPool.env(cards)
 
     def book(self, resources: Dict[str, float], name: str, *,
              pg: Optional[PlacementGroupID] = None, bundle: int = -1,

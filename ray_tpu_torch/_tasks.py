@@ -208,10 +208,51 @@ def _encode(meta: bytes, buffers: List[pickle.PickleBuffer],
     return ("shm", name, nbytes)
 
 
+def _local_node() -> Optional[bytes]:
+    """This process's node id (a worker's, the driver's), or None."""
+    if _in_worker is not None:
+        return _in_worker.get("node")
+    session = _session
+    return None if session is None else session.node.node_id.binary()
+
+
+def _localize(desc: tuple) -> tuple:
+    """A descriptor this process can map: a tagged ``("at", node, d)`` of
+    this node is ``d``; one of another node is pulled through the data
+    plane into this node's store first (by a worker's node, or by the
+    head's runtime in the driver), never mapped by name."""
+    if desc[1] == _local_node():
+        return desc[2]
+    if _in_worker is not None:
+        link = _in_worker.get("link")
+        if link is None:
+            raise RayTpuError("a remote object is read in a worker only "
+                              "while one of its tasks runs")
+        reply = link.request(("localize", desc))
+        if reply[0] == "error":
+            raise pickle.loads(reply[1])
+        return reply[1]
+    from . import _runtime
+    return _runtime.current().localize(desc)
+
+
+def _restore(desc: tuple) -> bool:
+    """A node's worker met a segment of its node that is not in shared
+    memory: ask the node to restore it from its spill file."""
+    link = (_in_worker or {}).get("link")
+    if link is None or _in_worker.get("node") is None:
+        return False
+    reply = link.request(("restore", desc))
+    return reply[0] == "restored"
+
+
 def _load(desc: tuple) -> Any:
     """The value of a descriptor (arrays of a segment are views of its
     mapping, valid for as long as they live)."""
     kind = desc[0]
+    if kind == "at":
+        desc = _localize(desc)
+        kind = desc[0]
     if kind == "inline":
         descs, meta, bufs = pickle.loads(desc[1])
         return _RefUnpickler(io.BytesIO(meta), bufs, descs).load()
@@ -221,9 +262,11 @@ def _load(desc: tuple) -> Any:
     try:
         seg = _Segment(name, create=False)
     except FileNotFoundError:
-        raise RayTpuError(f"object {name} was freed (its last ref in the "
-                          "driver was collected, or the session ended)"
-                          ) from None
+        if not _restore(desc):
+            raise RayTpuError(f"object {name} was freed (its last ref in "
+                              "the driver was collected, or the session "
+                              "ended)") from None
+        seg = _Segment(name, create=False)
     bufs = None
     try:
         env, bufs = _read_parts(seg.buf[:nbytes])
@@ -246,6 +289,8 @@ def desc_nbytes(desc: Optional[tuple]) -> int:
         return len(desc[1])
     if desc[0] == "shm":
         return int(desc[2])
+    if desc[0] == "at":
+        return desc_nbytes(desc[2])
     return 0
 
 
@@ -261,42 +306,59 @@ _owned_lock = threading.RLock()
 _contains: Dict[Any, List[list]] = {}
 
 
+def _key(desc: tuple) -> Any:
+    """What ownership counts a descriptor by: a segment's name, an inline
+    payload's bytes, or a remote object's (node, segment)."""
+    if desc[0] == "at":
+        return (desc[1], desc[2][1]) if desc[2][0] == "shm" else desc[2][1]
+    return desc[1]
+
+
 def _adopt(desc: tuple) -> None:
-    if desc[0] == "shm":
+    if desc[0] in ("shm", "at"):
         with _owned_lock:
-            _owned[desc[1]] = _owned.get(desc[1], 0) + 1
+            k = _key(desc)
+            _owned[k] = _owned.get(k, 0) + 1
 
 
 def _release(desc: tuple) -> None:
-    if desc[0] != "shm":
+    if desc[0] not in ("shm", "at"):
         if desc[0] == "inline":
             _release_inner(desc[1])
         return
-    name = desc[1]
+    key = _key(desc)
     with _owned_lock:
-        n = _owned.get(name)
+        n = _owned.get(key)
         if n is None:
             return
         if n > 1:
-            _owned[name] = n - 1
+            _owned[key] = n - 1
             return
-        del _owned[name]
-    try:
-        os.unlink(os.path.join(SHM_DIR, name))
-    except FileNotFoundError:
-        pass
-    _release_inner(name)
+        del _owned[key]
+    if desc[0] == "at":
+        # The owner node frees its copy; the head forgets the lineage
+        # and its pulled copy.
+        from . import _runtime
+        rt = _runtime.current(required=False)
+        if rt is not None:
+            rt.release_remote(desc)
+    else:
+        try:
+            os.unlink(os.path.join(SHM_DIR, key))
+        except FileNotFoundError:
+            pass
+    _release_inner(key)
 
 
 def _hold_inner(desc: tuple, inner: list) -> None:
     """A result ``desc`` arrived holding refs of ``inner``: keep their
     segments until the result itself is released."""
-    if not inner or desc[0] not in ("shm", "inline"):
+    if not inner or desc[0] not in ("shm", "inline", "at"):
         return
     for d in inner:
         _adopt(d)
     with _owned_lock:
-        _contains.setdefault(desc[1], []).append(list(inner))
+        _contains.setdefault(_key(desc), []).append(list(inner))
 
 
 def _release_inner(key: Any) -> None:
@@ -332,10 +394,11 @@ def _store_ref(desc: tuple, name: str = "", owned: bool = False
 def _ref_from_desc(desc: tuple, name: str = "") -> ObjectRef:
     """A ref unpickled in this process: owned where this process owns its
     segment (the driver), borrowed elsewhere."""
-    if desc[0] == "shm" and _in_worker is None:
+    if desc[0] in ("shm", "at") and _in_worker is None:
         with _owned_lock:
-            if desc[1] in _owned:
-                _owned[desc[1]] += 1
+            k = _key(desc)
+            if k in _owned:
+                _owned[k] += 1
                 return _store_ref(desc, name, owned=True)
     return _store_ref(desc, name)
 
@@ -374,7 +437,7 @@ class _Task:
     __slots__ = ("tid", "name", "fn_blob", "arg_refs", "opts", "env_key",
                  "attempts", "returns", "gen", "args_desc", "args_ref",
                  "spec", "cards", "booked", "cpu_released", "nested",
-                 "started")
+                 "started", "node_id", "oids", "pipelined")
 
     def __init__(self, **kw):
         for k in self.__slots__:
@@ -411,7 +474,8 @@ class _WorkerHandle:
             proc = ctx.Process(
                 target=_worker_main,
                 args=(child, self.pool.session_id, os.getpid(),
-                      self.pool.session.head),
+                      self.pool.session.head,
+                      self.pool.node.node_id.binary()),
                 daemon=True, name="task-worker")
             proc.start()
         child.close()
@@ -507,8 +571,9 @@ class _WorkerHandle:
 
 #: What a worker asks the driver while its task runs, and of those, what
 #: may wait (answered from a thread each).
-_REQUESTS = frozenset(("submit", "get", "poll", "next", "plane"))
-_BLOCKING_REQUESTS = frozenset(("get", "next"))
+_REQUESTS = frozenset(("submit", "get", "poll", "next", "plane",
+                       "localize", "restore"))
+_BLOCKING_REQUESTS = frozenset(("get", "next", "localize"))
 
 
 def _apply_reply(task: _Task, reply: tuple) -> bool:
@@ -759,7 +824,7 @@ class _Pool:
                 return
             task.cpu_released = True
         self.node.scheduler.release(
-            self.node.node_id,
+            task.node_id or self.node.node_id,
             ResourceSet({CPU: task.spec.resources.get(CPU)}),
             task.spec.placement_group, task.spec.bundle_index)
 
@@ -846,6 +911,11 @@ class _Pool:
             from . import _actor
             plane = _actor._plane()
             return ("plane", plane.host, plane.port)
+        if kind == "localize":
+            from . import _runtime
+            return ("value", _runtime.current().localize(req[1]))
+        if kind == "restore":
+            return ("missing",)
         if kind == "next":
             # A nested stream's next item: the driver's ref of it stays
             # with the task, so its segment outlives the worker's read.
@@ -910,12 +980,18 @@ class _TaskSession:
         self.namespace = namespace
         self.node = _scheduler.Node(num_cpus, num_tpus, resources,
                                     controller=controller, job_id=job_id)
-        #: The head's endpoint (``_cluster.HeadServer``).
+        #: The head's endpoint (``_cluster.HeadServer``) and its side of
+        #: the node plane (``_runtime``).
         self.head_server = None
+        from ._runtime import Runtime
+        self.runtime = Runtime(self)
         self.pool = _Pool(self)
         self.ids = itertools.count()
-        #: Tasks with the scheduler, not placed yet (failed at shutdown).
+        #: Tasks with the scheduler, not placed yet (failed at shutdown),
+        #: and the same by their spec's task id (pipelined submission
+        #: takes one from the scheduler's hand).
         self.unplaced: Dict[int, _Task] = {}
+        self.unplaced_specs: Dict[Any, _Task] = {}
         self.lock = threading.Lock()
 
     def submit(self, task: _Task) -> None:
@@ -923,24 +999,39 @@ class _TaskSession:
         placed."""
         with self.lock:
             self.unplaced[task.tid] = task
+            self.unplaced_specs[task.spec.task_id] = task
 
-        def placed(_spec, _node_id) -> None:
-            with self.lock:
-                self.unplaced.pop(task.tid, None)
-            self.pool.dispatch(task)
+        def placed(_spec, node_id) -> None:
+            self.take_unplaced(task)
+            if node_id != self.node.node_id:
+                self.runtime.dispatch_remote(task, node_id)
+            else:
+                task.node_id = None
+                self.pool.dispatch(task)
 
         def failed(exc: BaseException) -> None:
-            with self.lock:
-                self.unplaced.pop(task.tid, None)
+            self.take_unplaced(task)
             _fail_task(task, exc)
 
         self.node.submit(task.spec, placed, failed)
+
+    def take_unplaced(self, task: _Task) -> None:
+        with self.lock:
+            self.unplaced.pop(task.tid, None)
+            self.unplaced_specs.pop(task.spec.task_id, None)
 
     def start_head(self, port: Optional[int],
                    token: Optional[bytes]) -> None:
         """Open the head's endpoint: on every interface with the cluster
         token when ``port`` is given, else on the loopback with this
-        process's key (for the session's own actors and workers)."""
+        process's key (for the session's own actors and workers).
+
+        With a port the token also becomes this process's key, which the
+        actors and task workers it starts inherit: a node sets its own key
+        to the token it joined with, so every member of the cluster
+        authenticates with the one secret it already holds and no key
+        crosses the wire.  An actor started before that keeps the old key
+        and cannot be called after it."""
         import multiprocessing as mp
 
         from ._cluster import HeadServer
@@ -949,8 +1040,9 @@ class _TaskSession:
                 self, port=0, token=bytes(mp.current_process().authkey),
                 host="127.0.0.1")
         else:
-            self.head_server = HeadServer(self, port=port,
-                                          token=token or os.urandom(16))
+            token = token or os.urandom(16)
+            mp.current_process().authkey = token
+            self.head_server = HeadServer(self, port=port, token=token)
 
     @property
     def head(self) -> Optional[Tuple[str, int, bytes]]:
@@ -964,10 +1056,12 @@ class _TaskSession:
         ran."""
         if self.head_server is not None:
             self.head_server.shutdown()
+        self.runtime.shutdown()
         self.pool.close()
         self.node.stop()
         with self.lock:
             left, self.unplaced = list(self.unplaced.values()), {}
+            self.unplaced_specs = {}
         for task in left:
             _fail_task(task, RayTpuError("the session was shut down"))
 
@@ -1031,8 +1125,9 @@ def init(num_cpus: Optional[float] = None, namespace: str = "default",
             raise RuntimeError("ray_tpu_torch.init() already called")
         n = float(os.cpu_count() or 1) if num_cpus is None else float(
             num_cpus)
-        if n <= 0:
-            raise ValueError(f"num_cpus={num_cpus!r}: give at least 1")
+        if n < 0:
+            raise ValueError(f"num_cpus={num_cpus!r}: give 0 or more (0: "
+                             "a head whose tasks all run on nodes)")
         from . import _actor, _sanitizer
         _sanitizer.snapshot()
         actors = _actor._open_session(state_dir)
@@ -1042,7 +1137,10 @@ def init(num_cpus: Optional[float] = None, namespace: str = "default",
         if state_dir:
             _take_over_state_dir(state_dir, _session.id)
         _session.start_head(head_port, cluster_token)
-        _session.pool.prestart((), _session.pool.max_workers)
+        from . import _runtime
+        _runtime._install(_session.runtime)
+        if n > 0:
+            _session.pool.prestart((), _session.pool.max_workers)
         _session.pool.memory_monitor.start()
     if state_dir:
         _revive(actors, _session)
@@ -1119,6 +1217,8 @@ def shutdown() -> None:
     if session is None:
         return
     session.close()
+    from . import _runtime
+    _runtime._install(None)
     with _owned_lock:
         _owned.clear()
         _contains.clear()
@@ -1238,9 +1338,12 @@ class RemoteFunction:
 
 
 def _submit(session: _TaskSession, fn_blob: bytes, name: str,
-            opts: Dict[str, Any], packed=None, args_desc=None):
+            opts: Dict[str, Any], packed=None, args_desc=None,
+            return_ids=None):
     """Submit one task of the session (from the driver, or on behalf of a
-    worker with its arguments already sealed in ``args_desc``)."""
+    worker with its arguments already sealed in ``args_desc``);
+    ``return_ids``: the object ids a client chose for its returns (a node
+    reports them with the results, so they survive a head restart)."""
     num_returns = opts.get("num_returns", 1)
     streaming = num_returns == "streaming"
     if not streaming and (not isinstance(num_returns, int)
@@ -1269,7 +1372,7 @@ def _submit(session: _TaskSession, fn_blob: bytes, name: str,
               "device": opts.get("device"),
               "env_vars": {k: str(v) for k, v in
                            (opts.get("env_vars") or {}).items()}},
-        attempts=0, cpu_released=False,
+        attempts=0, cpu_released=False, oids=return_ids,
         returns=[] if streaming else [cf.Future()
                                       for _ in range(num_returns)])
     if args_desc is not None:
@@ -1354,21 +1457,26 @@ class _DriverLink:
     def _read(self) -> None:
         while True:
             try:
-                msg = pickle.loads(self.conn.recv_bytes())
+                frame = pickle.loads(self.conn.recv_bytes())
             except (EOFError, OSError):
                 break
-            if msg[0] != "reply":
-                self.tasks.put(msg)
-                continue
-            with self.waiting_lock:
-                slot = self.waiting.pop(msg[1], None)
-            if slot is not None:
-                slot[1] = msg[2]
-                slot[0].set()
+            # A list frame is a batch (a node's send loop coalesces).
+            for msg in (frame if isinstance(frame, list) else [frame]):
+                self._on(msg)
         self.tasks.put(None)
         with self.waiting_lock:
             slots, self.waiting = list(self.waiting.values()), {}
         for slot in slots:
+            slot[0].set()
+
+    def _on(self, msg: tuple) -> None:
+        if msg[0] != "reply":
+            self.tasks.put(msg)
+            return
+        with self.waiting_lock:
+            slot = self.waiting.pop(msg[1], None)
+        if slot is not None:
+            slot[1] = msg[2]
             slot[0].set()
 
     def next_task(self) -> Optional[tuple]:
@@ -1390,7 +1498,7 @@ class _DriverLink:
         self.send((msg[0], rid) + tuple(msg[1:]))
         slot[0].wait()
         if slot[1] is None:
-            raise RayTpuError("the driver's end of the task pipe closed")
+            raise RayTpuError("the other end of the task link closed")
         return slot[1]
 
 
@@ -1493,107 +1601,17 @@ class _NestedGenerator(ObjectRefGenerator):
 # -- the worker process ----------------------------------------------------------
 
 
-def _watch_parent(parent: int) -> None:
-    while True:
-        if os.getppid() != parent:
-            os._exit(0)
-        time.sleep(0.5)
-
-
-def _boot_worker_env() -> None:
-    """Isolation and runtime env of a worker, applied before any task:
-    the rlimit tier, ``working_dir``/``py_modules``, and a pip env's venv
-    site directory ahead of the parent's paths (spawn gives the child the
-    parent's ``sys.path``)."""
-    _cgroup.apply_worker_rlimits()
-    _runtime_env.apply_worker_env()
-    if os.environ.get("RAY_TPU_PYTHON"):
-        import site
-        import sysconfig
-        purelib = sysconfig.get_paths()["purelib"]
-        if purelib in sys.path:
-            sys.path.remove(purelib)
-        sys.path.insert(0, purelib)
-        site.addsitedir(purelib)
-
-
 def _worker_main(conn, session_id: str, parent: int,
-                 head: Optional[tuple] = None) -> None:
-    """Entry point of a spawned task worker."""
+                 head: Optional[tuple] = None,
+                 node: Optional[bytes] = None) -> None:
+    """Entry point of a spawned task worker of the session's pool (the
+    loop is ``_worker.run_loop``, shared with a node's workers)."""
     global _in_worker
-    _in_worker = {"session": session_id, "link": None, "head": head}
-    from . import _sanitizer
-    _sanitizer.spawn(_watch_parent, args=(parent,),
+    _in_worker = {"session": session_id, "link": None, "head": head,
+                  "node": node}
+    from . import _sanitizer, _worker
+    _sanitizer.spawn(_worker.watch_parent, args=(parent,),
                      name="task-worker-watch-parent")
-    _boot_worker_env()
-    pid = os.getpid()
-    last_snap = None
-    from .util import tracing
-    conn.send_bytes(pickle.dumps(("ready", pid)))
-    link = _DriverLink(conn)
-    while True:
-        msg = link.next_task()
-        if msg is None:
-            return
-        _kind, tid, name, fn_blob, args_desc, opts = msg
-
-        def snap():
-            """(telemetry if it changed, user metrics if recorded since
-            the last task, finished spans), or None when all are empty."""
-            nonlocal last_snap
-            tel_snap = user = None
-            tel = sys.modules.get("ray_tpu_torch.util.telemetry")
-            if tel is not None:
-                s = tel.snapshot()
-                if s and s != last_snap:
-                    tel_snap = last_snap = s
-            metrics = sys.modules.get("ray_tpu_torch.util.metrics")
-            if metrics is not None:
-                user = metrics.take_dirty_snapshots()
-            tracing = sys.modules.get("ray_tpu_torch.util.tracing")
-            spans = tracing._drain() if tracing is not None else None
-            if not (tel_snap or user or spans):
-                return None
-            return tel_snap, user, spans
-
-        _in_worker["link"] = link
-        try:
-            fn = _resolve_fn(fn_blob)
-            args, kwargs = _load(args_desc)
-            # Top-level refs become their values (JAX's worker resolves
-            # them); refs nested in containers stay refs.
-            args = [_load(a._fut.result()) if isinstance(a, ObjectRef)
-                    else a for a in args]
-            kwargs = {k: _load(v._fut.result()) if isinstance(v, ObjectRef)
-                      else v for k, v in kwargs.items()}
-            with tracing.task_span(opts.get("trace"), name, f"{tid:x}"):
-                result = fn(*args, **kwargs)
-                if opts["streaming"]:
-                    for item in result:
-                        inner: list = []
-                        desc = _seal(item, f"an item of {name}", inner)
-                        link.send(("item", tid, desc, inner))
-            if opts["streaming"]:
-                _in_worker["link"] = None
-                link.send(("end", tid, pid, snap()))
-                continue
-            n = opts["num_returns"]
-            values = [result] if n == 1 else list(result)
-            if len(values) != n:
-                raise ValueError(f"task {name!r} returned {len(values)} "
-                                 f"values; num_returns={n}")
-            inners: List[list] = [[] for _ in values]
-            descs = [_seal(v, f"the result of {name}", i)
-                     for v, i in zip(values, inners)]
-            _in_worker["link"] = None
-            link.send(("ok", tid, descs, inners, pid, snap()))
-        except BaseException as e:  # noqa: BLE001 - back to the caller
-            _in_worker["link"] = None
-            err = e if isinstance(e, TaskError) else TaskError(
-                e, name, traceback.format_exc())
-            try:
-                blob = pickle.dumps(err)
-            except Exception:  # noqa: BLE001 - the cause won't pickle
-                blob = pickle.dumps(TaskError(RuntimeError(repr(e)), name,
-                                              traceback.format_exc()))
-            link.send(("err", tid, blob, pid, snap()))
+    _worker.boot_worker_env()
+    conn.send_bytes(pickle.dumps(("ready", os.getpid())))
+    _worker.run_loop(_DriverLink(conn), os.getpid())

@@ -264,6 +264,14 @@ CATALOG: Dict[str, Dict[str, Any]] = {
     "ray_tpu_node_drain_seconds": _h(
         (), "Drain-notice-to-node-death duration: how much of the "
             "advertised deadline the cluster actually got."),
+    "ray_tpu_store_transfer_bytes_total": _c(
+        ("direction",), "Cross-node object payload bytes moved by this "
+                        "process (direction=push|pull: push = served by "
+                        "the node's data server, pull = pulled from "
+                        "another node)."),
+    "ray_tpu_store_transfer_seconds": _h(
+        ("op",), "Cross-node transfer latency (op=push|pull; pull = "
+                 "resolve + fetch + local copy of one object)."),
 }
 
 _lock = threading.Lock()

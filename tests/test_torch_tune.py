@@ -91,23 +91,28 @@ def pbt_trainable(config):
     lr = config["lr"]
     for step in range(1, 33):
         time.sleep(0.12)
-        score += 1.0 if abs(lr - 0.1) < 0.05 else 0.1
+        # lr 0.001 gains nothing: the one trial strictly last at every
+        # boundary, whichever order the trials report in (the three
+        # others used to tie, and a tie ranks by first-report order).
+        score += 1.0 if abs(lr - 0.1) < 0.05 else (0.0 if lr < 0.005
+                                                   else 0.1)
         tune.report({"score": score}, checkpoint={"score": score, "lr": lr})
-        if step == 4:
-            _pbt_barrier(config["gate"])
+        if step in (4, 8):
+            _pbt_barrier(config["gate"], step)
     return {"score": score}
 
 
-def _pbt_barrier(gate):
-    """Every trial has reported its first perturbation interval before any
-    goes on, so the scheduler ranks the whole population at the next
-    boundary however the host schedules the trials (gated on the others'
-    reports, not on time; a restarted trial finds the gate open)."""
-    with open(os.path.join(gate, uuid.uuid4().hex), "w"):
+def _pbt_barrier(gate, step):
+    """Every trial has reported the first two perturbation boundaries
+    before any goes on past them, so the scheduler ranks the whole
+    population there however the host schedules the trials (gated on the
+    others' reports, not on time; a restarted trial finds its gates
+    open).  The last trial is the same at every later boundary too."""
+    with open(os.path.join(gate, f"s{step}_{uuid.uuid4().hex}"), "w"):
         pass
     deadline = time.monotonic() + 120
-    while len(os.listdir(gate)) < PBT_TRIALS and \
-            time.monotonic() < deadline:
+    while sum(n.startswith(f"s{step}_") for n in os.listdir(gate)) < \
+            PBT_TRIALS and time.monotonic() < deadline:
         time.sleep(0.01)
 
 
